@@ -1,0 +1,151 @@
+"""The port's parameter bridge against the JAX package's ``params_from_torch``.
+
+A state dict in the reference's torch key layout goes through the JAX
+``params_from_torch`` and back through the port's bridge and must come back
+tensor for tensor; a JAX tree goes the other way round and must come back
+array for array; and the port's modules carry the reference's key layout,
+so such a state dict loads with ``strict=True``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from video_features_tpu.models import i3d as ji3d
+from video_features_tpu.models import raft as jraft
+from video_features_tpu_torch.models import i3d as ti3d
+from video_features_tpu_torch.models import raft as traft
+from video_features_tpu_torch.weights import bridge
+
+#: keys as the reference checkpoints spell them (raft-sintel.pth,
+#: i3d_rgb.pt), with the shapes those modules have
+REFERENCE_KEYS = {
+    "raft": {
+        "fnet.conv1.weight": (64, 3, 7, 7),
+        "fnet.layer2.0.downsample.0.weight": (96, 64, 1, 1),
+        "cnet.norm1.running_mean": (64,),
+        "cnet.layer2.0.norm3.running_var": (96,),
+        "cnet.layer2.0.downsample.1.running_var": (96,),
+        "cnet.layer3.1.norm2.num_batches_tracked": (),
+        "update_block.encoder.convc1.weight": (256, 324, 1, 1),
+        "update_block.gru.convq2.weight": (128, 384, 5, 1),
+        "update_block.flow_head.conv2.bias": (2,),
+        "update_block.mask.2.weight": (576, 256, 1, 1),
+    },
+    "i3d": {
+        "conv3d_1a_7x7.conv3d.weight": (64, 3, 7, 7, 7),
+        "conv3d_1a_7x7.batch3d.running_mean": (64,),
+        "mixed_3b.branch_1.1.conv3d.weight": (128, 96, 3, 3, 3),
+        "mixed_3b.branch_3.1.batch3d.weight": (32,),
+        "mixed_5c.branch_0.conv3d.weight": (384, 832, 1, 1, 1),
+        "conv3d_0c_1x1.conv3d.bias": (400,),
+    },
+}
+
+
+def _model(name):
+    return traft.RAFT(iters=1) if name == "raft" else ti3d.I3D(400)
+
+
+def _torch_layout_state(name, seed=3):
+    """A reference-layout state dict with random values everywhere,
+    batch-norm statistics included."""
+    m = bridge.seeded_init_(_model(name), seed)
+    gen = torch.Generator().manual_seed(seed)
+    sd = m.state_dict()
+    for k, v in sd.items():
+        if v.dtype.is_floating_point and v.dim() == 1:
+            v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+    return sd
+
+
+@pytest.mark.parametrize("name", ["raft", "i3d"])
+def test_port_modules_carry_reference_keys(name):
+    sd = _model(name).state_dict()
+    for key, shape in REFERENCE_KEYS[name].items():
+        assert tuple(sd[key].shape) == shape, key
+
+
+@pytest.mark.parametrize("name", ["raft", "i3d"])
+def test_torch_state_round_trips_through_jax(name):
+    sd = _torch_layout_state(name)
+    to_jax = jraft.params_from_torch if name == "raft" \
+        else ji3d.params_from_torch
+    back = (bridge.raft_state_from_jax if name == "raft"
+            else bridge.i3d_state_from_jax)(to_jax(sd))
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
+    fresh = _model(name)
+    fresh.load_state_dict(back, strict=True)
+    for k, v in fresh.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+
+
+@pytest.mark.parametrize("name", ["raft", "i3d"])
+def test_jax_tree_round_trips_through_torch(name):
+    """JAX-layout tree (HWIO/DHWIO kernels, scale/mean/var) -> bridge ->
+    the JAX converter gives the same tree back."""
+    sd = _torch_layout_state(name, seed=7)
+    to_jax = jraft.params_from_torch if name == "raft" \
+        else ji3d.params_from_torch
+    tree = to_jax(sd)
+    again = to_jax((bridge.raft_state_from_jax if name == "raft"
+                    else bridge.i3d_state_from_jax)(tree))
+
+    def flat(t, p=""):
+        out = {}
+        for k, v in t.items():
+            out.update(flat(v, f"{p}/{k}") if isinstance(v, dict)
+                       else {f"{p}/{k}": np.asarray(v)})
+        return out
+
+    a, b = flat(tree), flat(again)
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_convc1_rows_stay_in_lookup_order():
+    """The JAX (1, 1, 324, 256) convc1 kernel becomes the port's
+    (256, 324, 1, 1) conv and, transposed back, the kernel's (324, 256)
+    weight row for row."""
+    rng = np.random.default_rng(0)
+    k = rng.normal(size=(1, 1, 324, 256)).astype(np.float32)
+    tree = {"update_block": {"encoder": {"convc1": {
+        "kernel": k, "bias": np.zeros(256, np.float32)}}}}
+    sd = bridge.raft_state_from_jax(tree)
+    enc = traft.BasicMotionEncoder()
+    enc.convc1.weight.data.copy_(sd["update_block.encoder.convc1.weight"])
+    w, _ = enc.convc1_matrix()
+    np.testing.assert_array_equal(w.detach().numpy(), k[0, 0])
+
+
+def test_seeded_init_is_deterministic():
+    a = bridge.seeded_init_(ti3d.I3D(400, in_channels=2), 5).state_dict()
+    b = bridge.seeded_init_(ti3d.I3D(400, in_channels=2), 5).state_dict()
+    c = bridge.seeded_init_(ti3d.I3D(400, in_channels=2), 6).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    key = "conv3d_1a_7x7.conv3d.weight"
+    assert not torch.equal(a[key], c[key])
+    assert float(a[key].std()) == pytest.approx(1 / np.sqrt(2 * 343),
+                                                rel=0.05)
+    assert torch.equal(a["mixed_3b.branch_0.batch3d.running_var"],
+                       torch.ones(64))
+
+
+def test_checkpoint_file_loads_strict(tmp_path):
+    """A checkpoint file in the reference's layout (DataParallel 'module.'
+    prefix, wrapped in a 'state_dict' container) loads into the port; no
+    file and no allow_random_weights is an error, not random weights."""
+    from video_features_tpu_torch.extractors.base import load_weights
+    sd = _torch_layout_state("i3d", seed=11)
+    path = tmp_path / "i3d_flow.pt"
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               path)
+    m = load_weights(ti3d.I3D(400), str(path), allow_random=False, seed=0,
+                     what="i3d_rgb")
+    for k, v in m.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    with pytest.raises(FileNotFoundError, match="allow_random_weights"):
+        load_weights(ti3d.I3D(400), None, allow_random=False, seed=0,
+                     what="i3d_rgb")

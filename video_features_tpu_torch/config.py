@@ -1,0 +1,212 @@
+"""Config system: per-feature YAML defaults + CLI dotlist overrides.
+
+The port's own copy of ``video_features_tpu/config.py`` (``Config``,
+``parse_dotlist``, ``merge``, ``load_config``) with a ``sanity_check`` cut to
+the keys this slice runs. ``yaml`` is imported only where YAML is parsed, so
+importing the extractors needs no ``yaml``.
+
+Keys whose features are not ported yet raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that will port them, instead of being ignored.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+from .device import ROADMAP_BF16, resolve_device
+
+_CONFIG_DIR = Path(__file__).resolve().parent / "configs"
+
+#: the ROADMAP.md item that ports the keys below and the decode/fps modes
+_ROADMAP_KEYS = "ROADMAP.md Queue 1 'unported keys of the i3d slice'"
+#: switches that must stay off (null/false) in this slice
+_UNPORTED_FLAGS = ("cache", "telemetry", "trace", "health", "parity",
+                   "roofline", "show_pred")
+
+
+class Config(dict):
+    """A dict with attribute access, nesting-aware."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    @staticmethod
+    def _wrap(value: Any) -> Any:
+        if isinstance(value, dict) and not isinstance(value, Config):
+            return Config({k: Config._wrap(v) for k, v in value.items()})
+        if isinstance(value, list):
+            return [Config._wrap(v) for v in value]
+        return value
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        for k, v in list(self.items()):
+            super().__setitem__(k, Config._wrap(v))
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, Config._wrap(value))
+
+
+def build_cfg_path(feature_type: str) -> Path:
+    return _CONFIG_DIR / f"{feature_type}.yml"
+
+
+def load_yaml(path: Union[str, os.PathLike]) -> Config:
+    import yaml
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    return Config(data)
+
+
+def parse_dotlist(argv: Sequence[str]) -> Config:
+    """Parse ``key=value`` CLI arguments. Values go through YAML, so
+    ``batch_size=16`` is an int and ``flow_type=null`` is None; dots nest."""
+    import yaml
+    out: Dict[str, Any] = {}
+    for arg in argv:
+        if "=" not in arg:
+            raise ValueError(
+                f"CLI arguments must look like key=value (got {arg!r})")
+        key, raw = arg.split("=", 1)
+        try:
+            value = yaml.safe_load(raw) if raw != "" else None
+        except yaml.YAMLError:
+            value = raw
+        node = out
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return Config(out)
+
+
+def merge(base: Config, override: Config) -> Config:
+    """Deep merge; ``override`` wins."""
+    result = Config(dict(base))
+    for k, v in override.items():
+        if k in result and isinstance(result[k], dict) and isinstance(v, dict):
+            result[k] = merge(result[k], v)
+        else:
+            result[k] = v
+    return result
+
+
+def load_config(feature_type: str,
+                overrides: Optional[Union[Config, Dict[str, Any]]] = None,
+                ) -> Config:
+    """YAML defaults for ``feature_type`` merged under ``overrides``."""
+    cfg_path = build_cfg_path(feature_type)
+    if not cfg_path.exists():
+        raise FileNotFoundError(
+            f"Unknown feature_type {feature_type!r}: no config at {cfg_path}")
+    cfg = load_yaml(cfg_path)
+    if overrides:
+        cfg = merge(cfg, Config(dict(overrides)))
+    return cfg
+
+
+def video_list(video_paths: Union[str, Sequence[str], None] = None,
+               file_with_video_paths: Optional[str] = None) -> List[str]:
+    """Inline str/list of paths, or a text file with one path per line
+    (blank lines skipped); missing paths warn, they do not raise."""
+    if file_with_video_paths is not None:
+        with open(file_with_video_paths) as f:
+            paths = [line.strip("\n") for line in f if line.strip("\n")]
+    elif video_paths is None:
+        paths = []
+    elif isinstance(video_paths, str):
+        paths = [video_paths]
+    else:
+        paths = [str(p) for p in video_paths]
+    for path in paths:
+        if not Path(path).exists():
+            print(f"The path does not exist: {path}")
+    return paths
+
+
+def check_ported(args: Config) -> None:
+    """Raise ``NotImplementedError`` for keys this slice does not port."""
+    for key in _UNPORTED_FLAGS:
+        if args.get(key):
+            raise NotImplementedError(
+                f"{key}={args.get(key)!r} is not ported yet ({_ROADMAP_KEYS})")
+    if (args.get("precision") or "float32") == "bfloat16":
+        raise NotImplementedError(
+            f"precision=bfloat16 is not ported yet ({ROADMAP_BF16})")
+    if args.get("corr_lookup_impl") == "packed":
+        raise NotImplementedError(
+            "corr_lookup_impl=packed is not ported yet (ROADMAP.md Queue 2 "
+            "#3 '_packed_kernel')")
+    decode = args.get("video_decode") or "inline"
+    if decode in ("process", "parallel"):
+        raise NotImplementedError(
+            f"video_decode={decode!r} is not ported yet ({_ROADMAP_KEYS})")
+    if decode != "inline":
+        raise ValueError(f"video_decode={decode!r}: expected 'inline'")
+    if (args.get("fps_mode") or "select") == "reencode":
+        raise NotImplementedError(
+            f"fps_mode='reencode' is not ported yet ({_ROADMAP_KEYS})")
+
+
+def sanity_check(args: Config, *, require_videos: bool = True) -> None:
+    """Validate user arguments and patch output/tmp paths in place.
+
+    The subset of ``video_features_tpu.config.sanity_check`` this slice
+    needs: video list, unique stems, out != tmp, i3d ``stack_size >= 10``,
+    ``extraction_fps``/``extraction_total`` exclusive, ``resize``,
+    ``corr_lookup_impl``/``fuse_convc1``, the unported keys, the device
+    (``args.device`` becomes ``cpu``, ``cuda`` or ``cuda:N``) and the
+    ``feature_type`` namespacing of ``output_path``/``tmp_path``."""
+    check_ported(args)
+    args.device = str(resolve_device(args.get("device")))
+
+    if require_videos:
+        if not (args.get("file_with_video_paths") or args.get("video_paths")):
+            raise ValueError(
+                "`video_paths` or `file_with_video_paths` must be specified")
+        stems = [Path(p).stem for p in video_list(
+            args.get("video_paths"), args.get("file_with_video_paths"))]
+        if len(stems) != len(set(stems)):
+            raise ValueError("Non-unique video file stems: outputs would "
+                             "overwrite each other")
+    if os.path.relpath(str(args.output_path)) == \
+            os.path.relpath(str(args.tmp_path)):
+        raise ValueError("The same path for out & tmp")
+    if args.feature_type == "i3d" and args.get("stack_size") is not None \
+            and int(args.stack_size) < 10:
+        raise ValueError("I3D model does not support inputs shorter than 10 "
+                         f"timestamps. You have: {args.stack_size}")
+    if args.get("extraction_fps") is not None \
+            and args.get("extraction_total") is not None:
+        raise ValueError(
+            "`extraction_fps` and `extraction_total` are mutually exclusive")
+    rz = args.get("resize")
+    if rz is not None and rz not in ("auto", "host", "device"):
+        raise ValueError(f"resize={rz!r}: expected 'auto', 'host' or "
+                         "'device'")
+    impl = args.get("corr_lookup_impl")
+    if impl is not None and impl not in ("gather", "onehot", "pallas"):
+        raise ValueError(f"corr_lookup_impl={impl!r}: expected null "
+                         "(the CUDA kernels), 'pallas' (the same), 'gather' "
+                         "or 'onehot'")
+    fc1 = args.get("fuse_convc1")
+    if fc1 is not None and not isinstance(fc1, bool):
+        raise ValueError(f"fuse_convc1={fc1!r}: expected true, false or "
+                         "null")
+
+    subs: List[str] = [args.feature_type]
+    if args.get("model_name") is not None:
+        subs.append(str(args.model_name))
+    out, tmp = str(args.output_path), str(args.tmp_path)
+    for p in subs:
+        out = os.path.join(out, p.replace("/", "_"))
+        tmp = os.path.join(tmp, p.replace("/", "_"))
+    args.output_path = out
+    args.tmp_path = tmp

@@ -1,0 +1,103 @@
+"""Extraction lifecycle shared by the port's families (port of
+``video_features_tpu/extractors/base.py``): ``_extract`` = skip-if-exists ->
+``extract`` -> sink dispatch; device and precision resolution; weights; the
+``resize=auto|host|device`` choice and the per-resolution resizer cache."""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Config, check_ported
+from ..device import resolve_device, set_precision
+from ..utils import sinks
+from ..weights.bridge import seeded_init_
+
+_RESIZE_CACHE_SIZE = 8
+
+
+def load_weights(module: nn.Module, path: Optional[str], allow_random: bool,
+                 seed: int, what: str) -> nn.Module:
+    """Load a checkpoint in the reference's torch key layout into
+    ``module`` (``strict=True``), or give it the seeded random init when
+    ``path`` is unset and ``allow_random`` is true."""
+    if path:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(obj, dict):
+            for key in ("state_dict", "model_state_dict", "model"):
+                if isinstance(obj.get(key), dict):
+                    obj = obj[key]
+        state = {k[len("module."):] if k.startswith("module.") else k: v
+                 for k, v in obj.items()}
+        module.load_state_dict(state, strict=True)
+        return module
+    if not allow_random:
+        raise FileNotFoundError(
+            f"no checkpoint for {what}: pass its weights path, or "
+            "allow_random_weights=true for a seeded random init")
+    return seeded_init_(module, seed)
+
+
+class BaseExtractor:
+    output_feat_keys: List[str]
+
+    def __init__(self, args: Config) -> None:
+        check_ported(args)
+        self.feature_type = args.feature_type
+        self.on_extraction = args.get("on_extraction", "print")
+        self.output_path = str(args.output_path)
+        self.tmp_path = str(args.tmp_path)
+        self.device = resolve_device(args.get("device"))
+        self.precision = args.get("precision") or "float32"
+        set_precision(self.precision)
+        self.allow_random = bool(args.get("allow_random_weights", False))
+        self.args = args
+
+    def _resolve_resize_mode(self, args: Config) -> str:
+        """``auto`` resolves to ``device`` for file-sink runs and to
+        ``host`` for ``print`` runs; ``host``/``device`` are taken as given."""
+        mode = args.get("resize") or "auto"
+        if mode not in ("auto", "host", "device"):
+            raise NotImplementedError(f"resize={mode!r}: expected 'auto', "
+                                      "'host' or 'device'")
+        self._resizers: Dict = {}
+        self._resize_lock = threading.Lock()
+        if mode == "auto":
+            mode = ("device" if self.on_extraction in ("save_numpy",
+                                                       "save_pickle")
+                    else "host")
+        return mode
+
+    def _cached_resizer(self, key, build: Callable):
+        """Build once per source resolution, at most 8 kept."""
+        with self._resize_lock:
+            fn = self._resizers.get(key)
+            if fn is None:
+                if len(self._resizers) >= _RESIZE_CACHE_SIZE:
+                    self._resizers.pop(next(iter(self._resizers)))
+                fn = self._resizers[key] = build()
+            return fn
+
+    def _extract(self, video_path: str) -> Optional[Dict[str, np.ndarray]]:
+        if sinks.is_already_exist(self.on_extraction, self.output_path,
+                                  video_path, self.output_feat_keys):
+            return None
+        feats = self.extract(video_path)
+        self.action_on_extraction(feats, video_path)
+        return feats
+
+    def extract(self, video_path: str) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def action_on_extraction(self, feats: Dict[str, np.ndarray],
+                             video_path: str) -> None:
+        # re-check before writing: another worker may have just written it
+        if self.on_extraction != "print" and sinks.is_already_exist(
+                self.on_extraction, self.output_path, video_path,
+                self.output_feat_keys):
+            return
+        sinks.action_on_extraction(feats, video_path, self.output_path,
+                                   self.on_extraction)

@@ -1,0 +1,134 @@
+"""I3D flow stream: RAFT flow -> flow quantisation -> 2-channel I3D.
+
+Port of ``video_features_tpu/extractors/i3d_flow.py`` for ``flow_type=raft``
+(reference models/i3d/extract_i3d.py:140-169): flow between consecutive
+frames of the resized, uncropped stack, edge-padded to /8 and never
+unpadded, so TensorCenterCrop(224) -> Clamp(-20, 20) -> ToUInt8 crops the
+centre of the *padded* field. ``ToUInt8`` is ``round(128 + 255/40 * x)`` on
+floats (round half to even, as ``jnp.round``): the result can reach 256.0
+and stays float, never a uint8 cast (reference models/transforms.py:168-176).
+The whole chain stays on the device; only the (G, 1024) features leave it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..models import i3d as i3d_model
+from ..models import raft as raft_model
+from .base import load_weights
+
+#: pyramid budget when the device reports no free memory (the CPU)
+_PYRAMID_BUDGET_FALLBACK = 7 * 1024 ** 3
+#: seeds of the random init (allow_random_weights=true)
+SEED_RAFT = 2
+SEED_I3D_FLOW = 1
+
+
+def _crop_quantize(flow: torch.Tensor, crop: int) -> torch.Tensor:
+    """TensorCenterCrop (floor rule) -> Clamp(-20, 20) -> ToUInt8 on an
+    NHWC flow field; float out, values in [0, 256]."""
+    hp, wp = flow.shape[1], flow.shape[2]
+    i, j = (hp - crop) // 2, (wp - crop) // 2
+    flow = flow[:, i:i + crop, j:j + crop, :].clamp(-20.0, 20.0)
+    return torch.round(128.0 + 255.0 / 40.0 * flow)
+
+
+def _raft_quantized_flow(model: raft_model.RAFT, crop: int,
+                         pairs_u8: torch.Tensor) -> torch.Tensor:
+    """(B, 2, H, W, 3) uint8 -> (B, crop, crop, 2) quantised flow floats."""
+    flow, _ = raft_model.padded_flow(model, pairs_u8.float())
+    return _crop_quantize(flow, crop)
+
+
+def pyramid_cells(h8: int, w8: int, levels: int = raft_model.CORR_LEVELS
+                  ) -> int:
+    """Cells per query of the unpadded pyramid of a /8 grid (h8, w8), each
+    level floor-halved (the odd-drop pool of build_corr_pyramid)."""
+    cells = 0
+    for _ in range(levels):
+        cells += h8 * w8
+        h8, w8 = h8 // 2, w8 // 2
+    return cells
+
+
+def _pyramid_budget(device: torch.device) -> int:
+    """7/16 of the card's free memory (the share the JAX package gave the
+    pyramid on its devices), or a fixed 7 GiB off the card."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return free * 7 // 16
+    return _PYRAMID_BUDGET_FALLBACK
+
+
+def _stacks_per_forward(t: int, h: int, w: int, device: torch.device,
+                        cap: int = 4) -> int:
+    """How many stacks' pair batches share one RAFT forward: the largest
+    power of two <= ``cap`` whose float32 pyramids fit the budget. More
+    queries per launch amortise per-launch and per-iteration costs."""
+    h8, w8 = -(-h // 8), -(-w // 8)  # RAFT pads its inputs to /8
+    per_stack = t * (h8 * w8) * 4 * pyramid_cells(h8, w8)
+    budget = _pyramid_budget(device)
+    k = 1
+    while k * 2 <= cap and (k * 2) * per_stack <= budget:
+        k *= 2
+    return k
+
+
+def i3d_forward(model: i3d_model.I3D, batch: torch.Tensor,
+                features: bool = True) -> torch.Tensor:
+    """(B, T, 224, 224, C) uint8 rgb or quantised flow in [0, 256] ->
+    ScaleTo1_1 (transforms.py:146-149) -> I3D."""
+    return model(batch.float() * (2.0 / 255.0) - 1.0, features=features)
+
+
+class FlowStream:
+    """RAFT + quantisation + flow I3D over a device group of stacks."""
+
+    def __init__(self, parent, args) -> None:
+        raw_sb = args.get("flow_stack_batch", "auto")
+        self.stack_batch: Optional[int] = \
+            None if raw_sb in (None, "auto") else int(raw_sb)
+        if self.stack_batch is not None and self.stack_batch < 1:
+            raise ValueError(
+                f"flow_stack_batch={self.stack_batch}: need >= 1 or 'auto'")
+        raw = args.get("flow_iters")
+        iters = raft_model.ITERS if raw is None else int(raw)
+        if iters < 1:
+            raise ValueError(f"flow_iters={iters}: RAFT needs at least one "
+                             "GRU refinement iteration")
+        self.crop = parent.central_crop_size
+        self.device = parent.device
+        raft = raft_model.RAFT(iters, args.get("corr_lookup_impl"),
+                               args.get("fuse_convc1"))
+        self.raft = load_weights(raft, args.get("flow_model_weights_path"),
+                                 parent.allow_random, SEED_RAFT,
+                                 "raft_sintel").to(self.device).eval()
+        self.i3d = load_weights(i3d_model.I3D(400, in_channels=2),
+                                args.get("flow_weights_path"),
+                                parent.allow_random, SEED_I3D_FLOW,
+                                "i3d_flow").to(self.device).eval()
+        #: RAFT forwards run so far (one per chunk of stacks)
+        self.forwards = 0
+
+    def quantized_flow(self, group: torch.Tensor) -> torch.Tensor:
+        """(G, T+1, H, W, 3) uint8 on the device -> (G, T, crop, crop, 2)
+        quantised flow; up to ``k`` stacks' pairs share one RAFT forward."""
+        g, t = group.shape[0], group.shape[1] - 1
+        k = self.stack_batch or _stacks_per_forward(
+            t, group.shape[2], group.shape[3], self.device)
+        outs = []
+        for i in range(0, g, k):
+            chunk = group[i:i + k]
+            kc = chunk.shape[0]
+            pairs = torch.stack([chunk[:, :-1], chunk[:, 1:]], dim=2)
+            pairs = pairs.reshape((kc * t,) + tuple(pairs.shape[2:]))
+            q = _raft_quantized_flow(self.raft, self.crop, pairs)
+            self.forwards += 1
+            outs.append(q.reshape((kc, t) + tuple(q.shape[1:])))
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+    def __call__(self, group: torch.Tensor) -> torch.Tensor:
+        """(G, T+1, H, W, 3) uint8 on the device -> (G, 1024) features."""
+        return i3d_forward(self.i3d, self.quantized_flow(group))

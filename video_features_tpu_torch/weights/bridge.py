@@ -1,0 +1,144 @@
+"""Parameter bridges into the port's ``state_dict`` layout, and seeded init.
+
+``raft_state_from_jax`` / ``i3d_state_from_jax`` map a JAX parameter tree
+(nested dicts of numpy arrays, as ``video_features_tpu.models.*.init_params``
+or ``params_from_torch`` build them) onto the port's modules, whose names are
+the reference checkpoints' keys. They invert the JAX ``params_from_torch``:
+
+  - conv kernels HWIO -> OIHW, 3D kernels DHWIO -> OIDHW;
+  - BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``
+    (plus ``num_batches_tracked``, which the JAX tree drops);
+  - Sequential indices come back out of the flat names (``layer1_0`` ->
+    ``layer1.0``, ``branch_1_0`` -> ``branch_1.0``), RAFT's ``update_mask``
+    returns under ``update_block.mask``, and a batch-norm RAFT block's
+    ``downsample.1`` is written under ``norm3`` too (the reference registers
+    that module twice).
+
+RAFT's ``convc1`` kernel ``(1, 1, 324, 256)`` has its rows in the lookup's
+channel order (per level, tap ``k = xx * 9 + yy``, x-offset slowest); that is
+the order of the port's lookup too, so it transposes like any 1x1 conv.
+
+``seeded_init_`` is the port's own random init for
+``allow_random_weights=true`` (LeCun-normal kernels from a seeded
+``torch.Generator``, zero biases, identity batch norms); it needs no flax.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _kernel_to_torch(k: np.ndarray) -> torch.Tensor:
+    """HWIO / DHWIO -> OIHW / OIDHW."""
+    k = np.asarray(k, dtype=np.float32)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(k, (-1, -2), (0, 1))))
+
+
+def _bn_modules(params: Mapping[str, Any]) -> set:
+    return {path.rsplit("/", 1)[0] for path in _flatten(params)
+            if path.endswith("/mean")}
+
+
+def _to_state(params: Mapping[str, Any], module_key) -> Dict[str, torch.Tensor]:
+    """Common walk: ``module_key(jax_module_path) -> torch module key``."""
+    flat = _flatten(params)
+    bn = _bn_modules(params)
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        mod_path, leaf = path.rsplit("/", 1)
+        key = module_key(mod_path)
+        if mod_path in bn:
+            state[f"{key}.{_BN_LEAF[leaf]}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+        elif leaf == "kernel":
+            state[f"{key}.weight"] = _kernel_to_torch(value)
+        else:
+            state[f"{key}.{leaf}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+    for mod_path in bn:
+        state[f"{module_key(mod_path)}.num_batches_tracked"] = \
+            torch.tensor(0, dtype=torch.long)
+    return state
+
+
+_SEQ = re.compile(r"^(layer\d+|downsample|mask)_(\d+)$")
+
+
+def _raft_key(mod_path: str) -> str:
+    parts = mod_path.split("/")
+    if parts[0] == "update_mask":  # the mask head lives in update_block
+        parts = ["update_block"] + parts[1:]
+    out = []
+    for p in parts:
+        m = _SEQ.match(p)
+        out.append(f"{m.group(1)}.{m.group(2)}" if m else p)
+    return ".".join(out)
+
+
+def raft_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX RAFT tree -> the port's (and the reference's) RAFT state dict."""
+    state = _to_state(params, _raft_key)
+    for key in list(state):
+        if ".downsample.1." in key:  # the reference's norm3 alias
+            state[key.replace(".downsample.1.", ".norm3.")] = state[key]
+    return state
+
+
+def _i3d_key(mod_path: str) -> str:
+    parts = mod_path.split("/")
+    leaf = parts[-1]
+    block = parts[:-1]
+    # branch_1_0 -> branch_1.0; branch_0 stays
+    block = [re.sub(r"^(branch_\d)_(\d)$", r"\1.\2", p) for p in block]
+    return ".".join(block + [{"conv": "conv3d", "bn": "batch3d"}[leaf]])
+
+
+def i3d_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX I3D tree -> the port's (and the reference's) I3D state dict."""
+    return _to_state(params, _i3d_key)
+
+
+def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Deterministic random weights in place: every conv kernel
+    ``N(0, 1 / fan_in)`` (LeCun normal), conv biases zero, batch norms the
+    identity (weight 1, bias 0, mean 0, var 1). Draws run on the CPU from
+    ``torch.Generator().manual_seed(seed)`` in ``named_parameters`` order,
+    so the weights do not depend on the device."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() > 1:
+                fan_in = p[0].numel()
+                w = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
+                p.copy_(w.to(p.device))
+            elif name.endswith("weight"):  # batch-norm scale
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        for name, b in module.named_buffers():
+            if name.endswith("running_var"):
+                b.fill_(1.0)
+            elif name.endswith("running_mean") or \
+                    name.endswith("num_batches_tracked"):
+                b.zero_()
+    return module
