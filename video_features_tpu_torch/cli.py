@@ -1,10 +1,11 @@
 """CLI: ``python -m video_features_tpu_torch feature_type=i3d flow_type=raft
-key=value ...``.
+key=value ...`` or ``feature_type=raft key=value ...``.
 
 The JAX package's dotlist surface: the family's YAML defaults merged under
 the ``key=value`` overrides, validated, then each video extracted with
 per-video error isolation (a failing video is reported and the run goes
-on), writing ``{output_path}/i3d/{stem}_{key}.npy`` under ``save_numpy``.
+on), writing ``{output_path}/{feature_type}/{stem}_{key}.npy`` under
+``save_numpy``.
 """
 from __future__ import annotations
 

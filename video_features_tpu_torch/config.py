@@ -2,8 +2,8 @@
 
 The port's own copy of ``video_features_tpu/config.py`` (``Config``,
 ``parse_dotlist``, ``merge``, ``load_config``) with a ``sanity_check`` cut to
-the keys this slice runs. ``yaml`` is imported only where YAML is parsed, so
-importing the extractors needs no ``yaml``.
+the keys the ported families (``i3d``, ``raft``) run. ``yaml`` is imported
+only where YAML is parsed, so importing the extractors needs no ``yaml``.
 
 Keys whose features are not ported yet raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item that will port them, instead of being ignored.
@@ -14,13 +14,13 @@ import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
-from .device import ROADMAP_BF16, resolve_device
+from .device import precision_dtype, resolve_device
 
 _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 
 #: the ROADMAP.md item that ports the keys below and the decode/fps modes
-_ROADMAP_KEYS = "ROADMAP.md Queue 1 'unported keys of the i3d slice'"
-#: switches that must stay off (null/false) in this slice
+_ROADMAP_KEYS = "ROADMAP.md 'unported keys'"
+#: switches that must stay off (null/false) in the ported families
 _UNPORTED_FLAGS = ("cache", "telemetry", "trace", "health", "parity",
                    "roofline", "show_pred")
 
@@ -132,18 +132,13 @@ def video_list(video_paths: Union[str, Sequence[str], None] = None,
 
 
 def check_ported(args: Config) -> None:
-    """Raise ``NotImplementedError`` for keys this slice does not port."""
+    """Raise ``NotImplementedError`` for keys the port does not run yet
+    (``precision=bfloat16`` is ported for ``raft`` only)."""
     for key in _UNPORTED_FLAGS:
         if args.get(key):
             raise NotImplementedError(
                 f"{key}={args.get(key)!r} is not ported yet ({_ROADMAP_KEYS})")
-    if (args.get("precision") or "float32") == "bfloat16":
-        raise NotImplementedError(
-            f"precision=bfloat16 is not ported yet ({ROADMAP_BF16})")
-    if args.get("corr_lookup_impl") == "packed":
-        raise NotImplementedError(
-            "corr_lookup_impl=packed is not ported yet (ROADMAP.md Queue 2 "
-            "#3 '_packed_kernel')")
+    precision_dtype(args.get("precision"), args.get("feature_type"))
     decode = args.get("video_decode") or "inline"
     if decode in ("process", "parallel"):
         raise NotImplementedError(
@@ -158,10 +153,12 @@ def check_ported(args: Config) -> None:
 def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     """Validate user arguments and patch output/tmp paths in place.
 
-    The subset of ``video_features_tpu.config.sanity_check`` this slice
-    needs: video list, unique stems, out != tmp, i3d ``stack_size >= 10``,
-    ``extraction_fps``/``extraction_total`` exclusive, ``resize``,
-    ``corr_lookup_impl``/``fuse_convc1``, the unported keys, the device
+    The subset of ``video_features_tpu.config.sanity_check`` the ported
+    families need: video list, unique stems, out != tmp, i3d
+    ``stack_size >= 10``, ``extraction_fps``/``extraction_total`` exclusive,
+    ``resize``, ``corr_lookup_impl``/``fuse_convc1``, the raft keys
+    ``iters``, ``batch_size``, ``side_size`` and ``resize_to_smaller_edge``
+    (``ExtractRAFT`` checks ``finetuned_on``), the unported keys, the device
     (``args.device`` becomes ``cpu``, ``cuda`` or ``cuda:N``) and the
     ``feature_type`` namespacing of ``output_path``/``tmp_path``."""
     check_ported(args)
@@ -192,14 +189,26 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
         raise ValueError(f"resize={rz!r}: expected 'auto', 'host' or "
                          "'device'")
     impl = args.get("corr_lookup_impl")
-    if impl is not None and impl not in ("gather", "onehot", "pallas"):
+    if impl is not None and impl not in ("gather", "onehot", "pallas",
+                                         "packed"):
         raise ValueError(f"corr_lookup_impl={impl!r}: expected null "
-                         "(the CUDA kernels), 'pallas' (the same), 'gather' "
-                         "or 'onehot'")
+                         "(the CUDA kernels), 'pallas' (the same), 'packed' "
+                         "(the packed kernel), 'gather' or 'onehot'")
     fc1 = args.get("fuse_convc1")
     if fc1 is not None and not isinstance(fc1, bool):
         raise ValueError(f"fuse_convc1={fc1!r}: expected true, false or "
                          "null")
+    if "batch_size" in args and args.batch_size is None:
+        raise ValueError("Please specify `batch_size`. It is None now")
+    for key in ("batch_size", "iters", "side_size"):
+        v = args.get(key)
+        if v is not None and (isinstance(v, bool) or not isinstance(v, int)
+                              or v < 1):
+            raise ValueError(f"{key}={v!r}: expected an int >= 1")
+    rse = args.get("resize_to_smaller_edge")
+    if rse is not None and not isinstance(rse, bool):
+        raise ValueError(f"resize_to_smaller_edge={rse!r}: expected true or "
+                         "false")
 
     subs: List[str] = [args.feature_type]
     if args.get("model_name") is not None:

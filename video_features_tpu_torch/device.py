@@ -10,8 +10,10 @@ from typing import Optional
 
 import torch
 
-#: ROADMAP.md items that will port the keys this slice rejects
-ROADMAP_BF16 = "ROADMAP.md Queue 1 'precision=bfloat16 for the port'"
+#: families whose ``precision=bfloat16`` mode is ported
+BF16_FAMILIES = ("raft",)
+#: the ROADMAP.md item that will port ``precision=bfloat16`` for i3d
+ROADMAP_I3D_BF16 = "ROADMAP.md 'i3d precision=bfloat16'"
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -39,16 +41,36 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
-def set_precision(precision: Optional[str]) -> None:
-    """``float32`` pins full-f32 matmuls and convolutions: cuDNN defaults to
-    TF32 convolutions on Hopper, which keeps ~3 decimal digits and would
-    break parity with the JAX reference's ``highest`` precision pin."""
+def precision_dtype(precision: Optional[str],
+                    feature_type: Optional[str] = None) -> torch.dtype:
+    """The working dtype of ``precision`` for ``feature_type``:
+    ``float32`` everywhere, ``bfloat16`` for the families whose bfloat16
+    mode is ported (``raft``); any other family raises
+    ``NotImplementedError`` naming the ROADMAP item that will port it."""
     precision = precision or "float32"
     if precision == "float32":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        return
+        return torch.float32
     if precision == "bfloat16":
-        raise NotImplementedError(
-            f"precision=bfloat16 is not ported yet ({ROADMAP_BF16})")
-    raise ValueError(f"precision={precision!r}: expected 'float32'")
+        if feature_type not in BF16_FAMILIES:
+            raise NotImplementedError(
+                f"precision=bfloat16 is not ported yet for feature_type="
+                f"{feature_type!r} ({ROADMAP_I3D_BF16}); it is for "
+                f"{', '.join(BF16_FAMILIES)}")
+        return torch.bfloat16
+    raise ValueError(f"precision={precision!r}: expected 'float32' or "
+                     "'bfloat16'")
+
+
+def set_precision(precision: Optional[str],
+                  feature_type: Optional[str] = None) -> torch.dtype:
+    """Validate ``precision`` for ``feature_type`` (:func:`precision_dtype`)
+    and pin full-float32 matmuls and convolutions for both modes: cuDNN
+    defaults to TF32 convolutions on Hopper, which keeps ~3 decimal digits
+    and would break parity with the JAX reference's ``highest`` precision
+    pin, and in ``bfloat16`` mode the float32 parts (the correlation
+    pyramid, the lookup, the norm statistics) stay full float32 as on the
+    JAX CPU reference. Returns the working dtype."""
+    dtype = precision_dtype(precision, feature_type)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dtype

@@ -13,6 +13,7 @@ from torch import nn
 
 from ..config import Config, check_ported
 from ..device import resolve_device, set_precision
+from ..ops import preprocess as pp
 from ..utils import sinks
 from ..weights.bridge import seeded_init_
 
@@ -52,7 +53,7 @@ class BaseExtractor:
         self.tmp_path = str(args.tmp_path)
         self.device = resolve_device(args.get("device"))
         self.precision = args.get("precision") or "float32"
-        set_precision(self.precision)
+        self.dtype = set_precision(self.precision, self.feature_type)
         self.allow_random = bool(args.get("allow_random_weights", False))
         self.args = args
 
@@ -71,14 +72,20 @@ class BaseExtractor:
                     else "host")
         return mode
 
-    def _cached_resizer(self, key, build: Callable):
-        """Build once per source resolution, at most 8 kept."""
+    def _edge_resizer(self, in_h: int, in_w: int, size: int,
+                      to_smaller_edge: bool = True) -> Callable:
+        """The device resize of ``(..., in_h, in_w, 3)`` uint8 frames to
+        ``size`` on the smaller (or larger) edge; built once per source
+        resolution, at most 8 kept."""
         with self._resize_lock:
-            fn = self._resizers.get(key)
+            fn = self._resizers.get((in_h, in_w))
             if fn is None:
                 if len(self._resizers) >= _RESIZE_CACHE_SIZE:
                     self._resizers.pop(next(iter(self._resizers)))
-                fn = self._resizers[key] = build()
+                ow, oh = pp.resize_edge_size(in_w, in_h, size,
+                                             to_smaller_edge)
+                fn = self._resizers[(in_h, in_w)] = pp.make_device_resizer(
+                    in_h, in_w, oh, ow, self.device)
             return fn
 
     def _extract(self, video_path: str) -> Optional[Dict[str, np.ndarray]]:

@@ -28,7 +28,6 @@ import torch
 from ..config import Config
 from ..models import i3d as i3d_model
 from ..ops import host_transforms as ht
-from ..ops import preprocess as pp
 from ..runner import Runner
 from ..utils.io import Prefetcher, VideoSource
 from .base import BaseExtractor, load_weights
@@ -71,14 +70,11 @@ class ExtractI3D(BaseExtractor):
             if "flow" in self.streams else None
         self.resize_mode = self._resolve_resize_mode(args)
         self.host_transform = None if self.resize_mode == "device" \
-            else ht.MinSideResize(self.min_side_size)
+            else ht.EdgeResize(self.min_side_size)
         self.runner = Runner(self._forward_group, self.device)
 
     def _resizer(self, in_h: int, in_w: int):
-        ow, oh = pp.resize_edge_size(in_w, in_h, self.min_side_size)
-        return self._cached_resizer(
-            (in_h, in_w),
-            lambda: pp.make_device_resizer(in_h, in_w, oh, ow, self.device))
+        return self._edge_resizer(in_h, in_w, self.min_side_size)
 
     def _rgb(self, group: torch.Tensor) -> torch.Tensor:
         """Centre crop (TensorCenterCrop floor rule), drop the +1 frame the

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "vft_corr_lookup_level": [_P, _I, _I, _P, _L, _I, _P, _I, _I, _P],
     "vft_corr_lookup_proj": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
                              _P, _L, _P, _P, _I, _P, _P],
+    # geometry: a host array of 4 x (h, w, j, k, off) ints
+    "vft_corr_lookup_packed": [_P, _L, _P, _L, _P, _P, _P],
 }
 
 

@@ -34,6 +34,21 @@
 //     time from shared memory (a broadcast float4 load feeds four FMAs), so
 //     the loop is FMA-bound rather than shared-memory-bound. The 324-channel
 //     intermediate never reaches device memory.
+//
+// vft_corr_lookup_packed replaces `_packed_kernel` (_corr_lookup_packed_flat):
+// the same 324 taps, all four levels in one launch, read from the lane-dense
+// packed (Q, K_total) plane of pack_pyramid. Level l's row r lives in group
+// r / j_l at sub-row r % j_l, so the corner (r, x) of query q is the float at
+// q * K_total + off_l + (r / j_l) * k_l + (r % j_l) * w_l + x. The TPU kernel
+// selects a row's group with a G-way select-accumulate and the corners with
+// one-hot matmuls (Mosaic has no gather); here each thread computes that
+// address and reads its four corners directly. The bounds test is on (r, x)
+// against the level's (h_l, w_l), never on the zero fill of the phantom rows
+// and the lane tail. One thread per (query, tap): neighbouring threads write
+// neighbouring taps of one query (coalesced stores) and read one query's
+// packed row through L1. Bound: bytes, as for the level kernel; the packed
+// plane's zero fill is never read. No size gate: JAX's G <= 16 and 2 MiB per
+// query limits are the TPU's VMEM envelope.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -156,6 +171,77 @@ proj_kernel(Pyramid pyr, const float* __restrict__ coords, int64_t q_total,
   }
 }
 
+// Packing geometry of one level (kernels/corr_lookup.py LevelMeta); h == 0
+// marks a level that pooled to 0x0.
+struct PackedLevel {
+  int h, w, j, k, off;
+};
+
+struct PackedGeometry {
+  PackedLevel lvl[kLevels];
+};
+
+// Corner (r, x) of one query's packed row, zero outside the level's plane.
+// r and x arrive as floats (floor of a coordinate plus an integer offset) and
+// are compared before any integer conversion, so far-away coords cannot wrap.
+__device__ __forceinline__ float packed_corner(const float* __restrict__ row,
+                                               const PackedLevel& m, float r,
+                                               float x) {
+  if (!(r >= 0.f && r <= (float)(m.h - 1) && x >= 0.f &&
+        x <= (float)(m.w - 1))) {
+    return 0.f;
+  }
+  const int ri = (int)r;
+  const int xi = (int)x;
+  return __ldg(row + m.off + (ri / m.j) * m.k + (ri % m.j) * m.w + xi);
+}
+
+__global__ void __launch_bounds__(kLevelThreads)
+packed_kernel(const float* __restrict__ packed, int64_t k_total,
+              const float* __restrict__ coords, int64_t q_total,
+              PackedGeometry geo, float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q_total * kK) return;
+  const int64_t q = i / kK;
+  const int t = (int)(i - q * kK);
+  const int lvl = t / kTaps;
+  const int tap = t - lvl * kTaps;
+  const int xx = tap / kWin;  // x-offset slowest
+  const int yy = tap - xx * kWin;
+  const float cx = coords[2 * q];
+  const float cy = coords[2 * q + 1];
+  const float* row = packed + q * k_total;
+  float v = 0.f;
+#pragma unroll
+  for (int l = 0; l < kLevels; ++l) {
+    if (l != lvl) continue;  // static index into geo: no local-memory copy
+    const PackedLevel& m = geo.lvl[l];
+    if (m.h == 0) break;  // a 0x0 level: every tap is zero
+    const float scale = 1.f / (float)(1 << l);
+    const float px0 = __fsub_rn(__fmul_rn(cx, scale), (float)kRadius);
+    const float py0 = __fsub_rn(__fmul_rn(cy, scale), (float)kRadius);
+    const float ix = floorf(px0);
+    const float iy = floorf(py0);
+    const float fx = __fsub_rn(px0, ix);
+    const float fy = __fsub_rn(py0, iy);
+    const float x0 = ix + (float)xx;
+    const float r0 = iy + (float)yy;
+    const float v00 = packed_corner(row, m, r0, x0);
+    const float v10 = packed_corner(row, m, r0, x0 + 1.f);
+    const float v01 = packed_corner(row, m, r0 + 1.f, x0);
+    const float v11 = packed_corner(row, m, r0 + 1.f, x0 + 1.f);
+    // the blend of JAX _packed_kernel, rounded op by op (no FMA contraction)
+    // like the plain version
+    const float gx = __fsub_rn(1.f, fx);
+    const float gy = __fsub_rn(1.f, fy);
+    v = __fmul_rn(__fmul_rn(gx, gy), v00);
+    v = __fadd_rn(v, __fmul_rn(__fmul_rn(fx, gy), v10));
+    v = __fadd_rn(v, __fmul_rn(__fmul_rn(gx, fy), v01));
+    v = __fadd_rn(v, __fmul_rn(__fmul_rn(fx, fy), v11));
+  }
+  out[i] = v;
+}
+
 }  // namespace
 
 extern "C" {
@@ -190,6 +276,26 @@ int vft_corr_lookup_proj(const float* l0, int h0, int w0, const float* l1,
   const int64_t blocks = (q_total + kTileQ - 1) / kTileQ;
   proj_kernel<<<(unsigned)blocks, kProjThreads, 0, stream>>>(
       pyr, coords, q_total, weight, bias, c_out, out);
+  return (int)cudaGetLastError();
+}
+
+// All four levels from the packed plane: packed (Q, k_total) f32, coords
+// (Q, 2) f32 level-0 (x, y), geometry = 4 x (h, w, j, k, off) host ints
+// (h == 0 for a 0x0 level); writes out (Q, 324).
+int vft_corr_lookup_packed(const float* packed, int64_t k_total,
+                           const float* coords, int64_t q_total,
+                           const int* geometry, float* out,
+                           cudaStream_t stream) {
+  const int64_t threads = q_total * kK;
+  if (threads == 0) return (int)cudaSuccess;
+  PackedGeometry geo;
+  for (int l = 0; l < kLevels; ++l) {
+    const int* g = geometry + 5 * l;
+    geo.lvl[l] = PackedLevel{g[0], g[1], g[2], g[3], g[4]};
+  }
+  const int64_t blocks = (threads + kLevelThreads - 1) / kLevelThreads;
+  packed_kernel<<<(unsigned)blocks, kLevelThreads, 0, stream>>>(
+      packed, k_total, coords, q_total, geo, out);
   return (int)cudaGetLastError();
 }
 

@@ -19,15 +19,32 @@ so a reference checkpoint loads with ``load_state_dict``.
 The lookup (``corr_lookup_impl``): ``None`` or ``'pallas'`` runs the CUDA
 kernels of ``kernels/corr_lookup.py`` on a CUDA tensor, the fused lookup +
 ``convc1`` kernel when ``fuse_convc1`` is ``None`` or true, the per-level
-kernel and a separate ``convc1`` when it is false; ``'gather'`` and
-``'onehot'`` are the plain torch paths. There is no size gate: the JAX
-fallbacks to ``onehot`` exist for the TPU's VMEM envelope, and the CUDA
-kernels read device memory directly.
+kernel and a separate ``convc1`` when it is false; ``'packed'`` packs the
+pyramid once per forward (``pack_pyramid``) and runs the packed kernel, one
+launch per iteration, and a separate ``convc1`` (``fuse_convc1`` is ignored,
+as in the JAX ``UpdateIter``); ``'gather'`` and ``'onehot'`` are the plain
+torch paths. There is no size gate: the JAX fallbacks to ``onehot``
+(``pallas_lookup_supported``, and ``fused_lookup_supported``'s ``G <= 16``
+and 2 MiB per query for ``packed``) exist for the TPU's VMEM envelope, and
+the CUDA kernels read device memory directly, so on the card every impl
+launches its kernel at every size.
+
+``dtype=torch.bfloat16`` (with the weights cast by ``cast_floating_``) is
+the JAX package's bfloat16 mode (its RAFT docstring): the conv stacks run in
+bfloat16 while the images are normalised in float32 and then cast, the
+instance-norm and batch-norm statistics are float32, the correlation pyramid
+is float32 (from bfloat16 fmaps, float32 accumulation), the lookup and the
+coords stay float32, the flow and the lookup output join the hidden state's
+dtype before the motion encoder, ``delta`` is promoted back to float32 on
+the add to the coords, and the upsample softmax runs in float32. The fused
+kernel takes ``convc1``'s weight upcast to float32 once per forward,
+projects in float32, and its output is cast to bfloat16. The caller keeps
+TF32 off (``device.set_precision``) so the float32 parts are full float32.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +58,7 @@ CORR_RADIUS = 4
 HIDDEN_DIM = 128
 CONTEXT_DIM = 128
 ITERS = 20
-LOOKUP_IMPLS = (None, "pallas", "gather", "onehot")
+LOOKUP_IMPLS = (None, "pallas", "packed", "gather", "onehot")
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -133,10 +150,11 @@ class BasicMotionEncoder(nn.Module):
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
 
     def convc1_matrix(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``convc1`` as the kernel's ``(324, 256)`` weight and bias."""
-        w = self.convc1.weight
+        """``convc1`` as the kernel's ``(324, 256)`` float32 weight and bias
+        (upcast from bfloat16 weights, as the JAX kernel upcasts in-kernel)."""
+        w = self.convc1.weight.float()
         return w.reshape(w.shape[0], w.shape[1]).t().contiguous(), \
-            self.convc1.bias.contiguous()
+            self.convc1.bias.float().contiguous()
 
     def forward(self, flow: torch.Tensor, cor: torch.Tensor) -> torch.Tensor:
         """flow (B, 2, H, W); cor (B, 256, H, W) already through convc1 +
@@ -208,30 +226,19 @@ class UpdateIter(nn.Module):
         self.mask = MaskHead()
 
     def forward(self, net: torch.Tensor, inp: torch.Tensor,
-                pyramid: List[torch.Tensor], coords0: torch.Tensor,
-                coords1: torch.Tensor, impl: Optional[str],
-                proj: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                coords0: torch.Tensor, coords1: torch.Tensor,
+                lookup: Callable[[torch.Tensor], torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """net/inp (B, C, H, W); coords (B, H, W, 2); ``proj`` the fused
-        kernel's convc1 (weight, bias), or None for a separate convc1.
-        Returns the new hidden state and coords1."""
-        flow = (coords1 - coords0).permute(0, 3, 1, 2)
-        if proj is not None:
-            # a channels-last view, as convc1's output is on the other paths
-            cor = cl.corr_lookup_proj_cuda(pyramid, coords1, *proj)
-            cor = cor.permute(0, 3, 1, 2)
-        else:
-            if impl in (None, "pallas"):
-                corr = cl.corr_lookup_level_cuda(pyramid, coords1)
-            elif impl == "onehot":
-                corr = cl.corr_lookup_onehot_ref(pyramid, coords1)
-            else:
-                corr = cl.corr_lookup_gather_ref(pyramid, coords1)
-            cor = F.relu(self.encoder.convc1(corr.permute(0, 3, 1, 2)))
-        motion = self.encoder(flow, cor)
+        """net/inp (B, C, H, W); coords (B, H, W, 2) float32; ``lookup``
+        maps coords1 to the motion encoder's ``relu(convc1(lookup))``
+        ``(B, 256, H, W)`` in the hidden state's dtype. Returns the new
+        hidden state and coords1 (float32)."""
+        flow = (coords1 - coords0).permute(0, 3, 1, 2).to(net.dtype)
+        motion = self.encoder(flow, lookup(coords1))
         net = self.gru(net, torch.cat([inp, motion], dim=1))
         delta = self.flow_head(net)
-        return net, (coords1 + delta.permute(0, 2, 3, 1)).contiguous()
+        return net, (coords1 + delta.permute(0, 2, 3, 1).to(coords1.dtype)
+                     ).contiguous()
 
 
 def build_corr_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -302,26 +309,67 @@ class RAFT(nn.Module):
     pixels; H and W divisible by 8 (see :func:`padded_flow`)."""
 
     def __init__(self, iters: int = ITERS, corr_lookup_impl: Optional[str] = None,
-                 fuse_convc1: Optional[bool] = None) -> None:
+                 fuse_convc1: Optional[bool] = None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
-        if corr_lookup_impl == "packed":
-            raise NotImplementedError(
-                "corr_lookup_impl=packed is not ported yet (ROADMAP.md "
-                "Queue 2 #3 '_packed_kernel')")
         if corr_lookup_impl not in LOOKUP_IMPLS:
             raise ValueError(f"corr_lookup_impl={corr_lookup_impl!r}: "
                              f"expected one of {LOOKUP_IMPLS}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype={dtype}: expected torch.float32 or "
+                             "torch.bfloat16")
         self.iters = iters
         self.corr_lookup_impl = corr_lookup_impl
         self.fuse_convc1 = True if fuse_convc1 is None else bool(fuse_convc1)
+        self.dtype = dtype
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(HIDDEN_DIM + CONTEXT_DIM, "batch")
         self.update_block = UpdateIter()
 
+    def _lookup(self, pyramid: List[torch.Tensor], dtype: torch.dtype
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """coords1 -> ``relu(convc1(lookup))`` ``(B, 256, H, W)`` in
+        ``dtype`` through the configured impl. What does not change over
+        the GRU loop (the packed plane, convc1 in float32 for the fused
+        kernel) is made here, once per forward."""
+        impl = self.corr_lookup_impl
+        convc1 = self.update_block.encoder.convc1
+        if impl in (None, "pallas") and self.fuse_convc1:
+            proj = self.update_block.encoder.convc1_matrix()
+
+            def fused(coords1):
+                # a channels-last view, as convc1's output is on the other
+                # paths
+                cor = cl.corr_lookup_proj_cuda(pyramid, coords1, *proj)
+                return cor.permute(0, 3, 1, 2).to(dtype)
+            return fused
+        if impl == "packed":
+            packed, metas = cl.pack_pyramid(pyramid)
+
+            def taps(coords1):
+                return cl.corr_lookup_packed_cuda(packed, metas, coords1)
+        elif impl in (None, "pallas"):
+            def taps(coords1):
+                return cl.corr_lookup_level_cuda(pyramid, coords1)
+        elif impl == "onehot":
+            def taps(coords1):
+                return cl.corr_lookup_onehot_ref(pyramid, coords1)
+        else:
+            def taps(coords1):
+                return cl.corr_lookup_gather_ref(pyramid, coords1)
+
+        def unfused(coords1):
+            corr = taps(coords1).to(dtype).permute(0, 3, 1, 2)
+            return F.relu(convc1(corr))
+        return unfused
+
     def forward(self, image1: torch.Tensor, image2: torch.Tensor
                 ) -> torch.Tensor:
-        image1 = (2 * (image1 / 255.0) - 1.0).permute(0, 3, 1, 2)
-        image2 = (2 * (image2 / 255.0) - 1.0).permute(0, 3, 1, 2)
+        # normalised in float32, then cast to the working dtype
+        image1 = (2 * (image1.float() / 255.0) - 1.0).to(self.dtype)
+        image2 = (2 * (image2.float() / 255.0) - 1.0).to(self.dtype)
+        image1 = image1.permute(0, 3, 1, 2)
+        image2 = image2.permute(0, 3, 1, 2)
         # one shared-weight call on the concatenated pair (raft.py:132)
         fmap1, fmap2 = self.fnet(torch.cat([image1, image2])).chunk(2)
         pyramid = build_corr_pyramid(fmap1, fmap2)
@@ -337,11 +385,9 @@ class RAFT(nn.Module):
             indexing="ij")
         coords0 = torch.stack([gx, gy], dim=-1).expand(b, h8, w8, 2)
         coords1 = coords0.contiguous()
-        impl = self.corr_lookup_impl
-        proj = self.update_block.encoder.convc1_matrix() \
-            if impl in (None, "pallas") and self.fuse_convc1 else None
+        lookup = self._lookup(pyramid, net.dtype)
         for _ in range(self.iters):
-            net, coords1 = self.update_block(net, inp, pyramid, coords0,
-                                             coords1, impl, proj)
+            net, coords1 = self.update_block(net, inp, coords0, coords1,
+                                             lookup)
         mask = self.update_block.mask(net).permute(0, 2, 3, 1)
         return convex_upsample(coords1 - coords0, mask)

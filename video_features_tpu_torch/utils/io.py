@@ -4,14 +4,17 @@
 A streaming cv2 reader yields ``(frame_rgb_u8, timestamp_ms, index)``;
 ``fps=N`` resamples in-process with the timing rule of ffmpeg's ``fps``
 filter (round=near) on bit-exact source frames; ``total=N`` derives the fps
-that yields N frames. ``cv2`` is imported only where a file is decoded.
+that yields N frames. Iterating a :class:`VideoSource` batches its frames
+(:func:`_batched`): ``batch_size`` frames, of which the first ``overlap``
+are carried over from the batch before. ``cv2`` is imported only where a
+file is decoded.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from pathlib import Path
-from typing import Iterator, Optional, Tuple, Union
+from typing import Callable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -121,13 +124,26 @@ class _FrameStream:
 
 
 class VideoSource:
-    """Frames of one video, resampled to ``fps`` or ``total`` frames."""
+    """Frames of one video, resampled to ``fps`` or ``total`` frames and
+    passed through ``transform``; iterating it yields batches
+    ``(frames, timestamps_ms, indices)`` of ``batch_size`` frames with
+    ``overlap`` frames carried between consecutive batches."""
 
     def __init__(self, path: Union[str, Path], fps: Optional[float] = None,
-                 total: Optional[int] = None):
+                 total: Optional[int] = None, batch_size: int = 1,
+                 transform: Optional[Callable[[np.ndarray],
+                                              np.ndarray]] = None,
+                 overlap: int = 0):
         if fps is not None and total is not None:
             raise ValueError("'fps' and 'total' are mutually exclusive")
+        if not (isinstance(batch_size, int) and batch_size > 0
+                and isinstance(overlap, int) and 0 <= overlap < batch_size):
+            raise ValueError(f"batch_size={batch_size!r}, overlap={overlap!r}:"
+                             " need 0 <= overlap < batch_size")
         self.path = str(path)
+        self.batch_size = batch_size
+        self.transform = transform
+        self.overlap = overlap
         props = get_video_props(self.path)
         self.src_fps = props["fps"]
         self.src_num_frames = props["num_frames"]
@@ -140,7 +156,16 @@ class VideoSource:
 
     def frames(self) -> Iterator[Tuple[np.ndarray, float, int]]:
         """Yield ``(frame_rgb_u8, timestamp_ms, out_index)`` in order,
-        ``timestamp_ms = out_index / fps * 1000``."""
+        ``timestamp_ms = out_index / fps * 1000``, the frame through
+        ``transform`` when one is set."""
+        if self.transform is None:
+            return self._decoded()
+        return ((self.transform(f), t, i) for f, t, i in self._decoded())
+
+    def __iter__(self) -> Iterator[Tuple[List, List[float], List[int]]]:
+        return _batched(self.frames(), self.batch_size, self.overlap)
+
+    def _decoded(self) -> Iterator[Tuple[np.ndarray, float, int]]:
         stream = _FrameStream(self.path)
         try:
             if self.index_map is None:
@@ -171,6 +196,32 @@ class VideoSource:
                 yield current, out_idx / self.fps * 1000.0, out_idx
         finally:
             stream.release()
+
+
+def _batched(frames: Iterator[Tuple[np.ndarray, float, int]],
+             batch_size: int, overlap: int
+             ) -> Iterator[Tuple[List, List[float], List[int]]]:
+    """Batch a ``frames()`` stream (the JAX ``_batched``): a batch is
+    emitted when it holds ``batch_size`` frames, and its last ``overlap``
+    frames open the next one. The last batch may be short, but a batch of
+    only carried-over frames is never emitted."""
+    batch: List = []
+    times: List[float] = []
+    indices: List[int] = []
+    fresh = 0  # frames added since the last yield (excludes the overlap)
+    for x, ts, idx in frames:
+        batch.append(x)
+        times.append(ts)
+        indices.append(idx)
+        fresh += 1
+        if len(batch) == batch_size:
+            yield batch, times, indices
+            keep = len(batch) - overlap
+            batch, times, indices = (batch[keep:], times[keep:],
+                                     indices[keep:])
+            fresh = 0
+    if fresh > 0:
+        yield batch, times, indices
 
 
 class Prefetcher:
