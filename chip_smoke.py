@@ -6,13 +6,19 @@ What it does, failing (exit code != 0, no result line) at the first phase
 that goes wrong:
 
 1. prints the card's ``nvidia-smi --query-gpu=name,power.limit`` line;
-2. builds the CUDA kernels from ``video_features_tpu_torch/kernels/csrc``;
-3. for each kernel, at the shapes its path gives it, holds the kernel
+2. builds the CUDA kernels from ``video_features_tpu_torch/kernels/csrc``
+   and prints each kernel's registers, shared memory and spills from the
+   compiler's ``-Xptxas -v`` report;
+3. holds level (max abs error 1e-5), proj (1e-4) and packed (1e-5) against
+   their plain versions on small ragged cases, whose query counts fill no
+   whole tile: 3 pairs on a 7x11 grid (Q = 231), odd level sizes, whole
+   windows outside the plane, and a pyramid that pools to 1x1 and 0x0;
+4. for each kernel, at the shapes its path gives it, holds the kernel
    against its plain PyTorch version on the card and times the kernel, the
    plain version and one library call of the same function
    (``F.grid_sample`` as the reference formulates the lookup, over the
    unpacked levels, plus ``torch.matmul`` for proj; no library call reads
-   the packed layout):
+   the packed layout); beside proj, ``torch.matmul`` of its shapes alone:
    - the i3d slice's shapes (one 64-frame stack of 240x320 frames resized
      to 256x341 and padded to 256x344: a 32x43 grid, Q = 64 * 1376 =
      88,064 queries): level (max abs error 1e-5), proj (1e-4), packed
@@ -22,19 +28,20 @@ that goes wrong:
      convc1's weight and bias rounded to bfloat16 and upcast, as the
      family's bfloat16 default feeds it;
    pyramids from seeded random fmaps;
-4. holds RAFT with the kernels (fused, unfused, packed) against RAFT with
+5. holds RAFT with the kernels (fused, unfused, packed) against RAFT with
    the plain gather lookup on a small input, float32 (flow atol 1e-3 px);
-5. drives the i3d slice, ``ExtractI3D(...).extract_frames(...)`` with
+6. drives the i3d slice, ``ExtractI3D(...).extract_frames(...)`` with
    ``flow_type=raft``, both streams, 20 GRU iterations, float32, seeded
    random weights and one stack per RAFT forward, over 129 seeded synthetic
    240x320 frames (two 64-frame stacks), with every launch count set to 0
    just before and read just after: the fused lookup + convc1 kernel must
    have run 20 times per RAFT forward. Then the same with
-   ``fuse_convc1=false``: the per-level kernel must have run 4 * 20 times
-   per forward, and the features must match the fused run's (atol 1e-2,
-   the value tier). One profiled run of the fused path (device time by
-   kernel, the card's busy share), and fused and unfused in turns (F U U F);
-6. drives the raft family, ``ExtractRAFT(...).extract_frames(...)``, at the
+   ``fuse_convc1=false``: the level kernel must have run 20 times per
+   forward (one launch per call, all four levels), and the features must
+   match the fused run's (atol 1e-2, the value tier). One profiled run of
+   the fused path (device time by kernel, the card's busy share), and fused
+   and unfused in turns (F U U F);
+7. drives the raft family, ``ExtractRAFT(...).extract_frames(...)``, at the
    YAML defaults (``precision=bfloat16``, 20 iterations,
    ``corr_lookup_impl=null``) with ``batch_size=32``, over 65 seeded
    synthetic 240x320 frames (64 flows, two RAFT forwards), counts set to 0
@@ -46,7 +53,7 @@ that goes wrong:
    own bfloat16 bound: the fused kernel projects in float32, the packed
    path runs convc1 in bfloat16). Pairs/s of both in turns (D P P D), and
    one profiled run of the default path;
-7. prints one JSON line of the i3d slice's numbers, one of the raft
+8. prints one JSON line of the i3d slice's numbers, one of the raft
    family's, one of the kernels' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -120,15 +127,15 @@ def grid_sample_lookup(pyramid, coords, radius: int = 4) -> torch.Tensor:
     return torch.cat(out, dim=-1)
 
 
-def window_cells(pyramid, coords, radius: int = 4) -> int:
+def window_cells(shapes, coords, radius: int = 4) -> int:
     """In-plane cells of every query's (2r+2)^2 corner window, summed over
-    levels: the pyramid bytes this run's coords need read."""
+    the levels of ``shapes`` ((Hl, Wl) each): the pyramid bytes this run's
+    coords need read."""
     cx = coords[..., 0].reshape(-1).double()
     cy = coords[..., 1].reshape(-1).double()
     n = 2 * radius + 2
     total = 0
-    for lvl, corr in enumerate(pyramid):
-        hl, wl = corr.shape[2:]
+    for lvl, (hl, wl) in enumerate(shapes):
         x0 = torch.floor(cx / 2 ** lvl - radius)
         y0 = torch.floor(cy / 2 ** lvl - radius)
         cols = (torch.minimum(x0 + n - 1, torch.tensor(wl - 1.0))
@@ -139,28 +146,52 @@ def window_cells(pyramid, coords, radius: int = 4) -> int:
     return total
 
 
+def level_shapes(pyramid):
+    return [tuple(corr.shape[2:]) for corr in pyramid]
+
+
+def kernel_work(kernel: str, q: int, cells: int, c_out: int = 256):
+    """(bytes, operations) the kernel must move and do for ``q`` queries
+    whose corner windows hold ``cells`` in-plane cells: each input read once
+    (the cells, coords; W and b for proj), each output written once (324
+    taps, or ``c_out`` channels for proj); 12 operations per tap (4 corner
+    weights, 4 products, 4 adds) plus proj's 2 x 324 x ``c_out`` per
+    query."""
+    taps = q * 324
+    read = cells * 4 + q * 8
+    if kernel == "proj":
+        return (read + (324 + 1) * c_out * 4 + q * c_out * 4,
+                2 * taps * c_out + taps * 12)
+    return read + taps * 4, taps * 12
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_PEAK_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def lookup_inputs(dev, batch: int, grid_h: int, grid_w: int, seed: int):
-    """A pyramid from seeded random fmaps and coords spread +-12 px around
-    the grid, as a RAFT forward of ``batch`` pairs on a (grid_h, grid_w)
-    grid gives the lookup."""
-    from video_features_tpu_torch.models.raft import build_corr_pyramid
-
+def seeded_lookup(batch: int, grid_h: int, grid_w: int, seed: int):
+    """Seeded random fmaps and coords spread +-12 px around the grid, as a
+    RAFT forward of ``batch`` pairs on a (grid_h, grid_w) grid gives the
+    lookup, on the CPU: (fmap1, fmap2, coords, the generator)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    f1 = torch.randn((batch, 256, grid_h, grid_w), generator=gen).to(dev)
-    f2 = torch.randn((batch, 256, grid_h, grid_w), generator=gen).to(dev)
-    pyramid = build_corr_pyramid(f1, f2)
+    f1 = torch.randn((batch, 256, grid_h, grid_w), generator=gen)
+    f2 = torch.randn((batch, 256, grid_h, grid_w), generator=gen)
     gy, gx = torch.meshgrid(torch.arange(grid_h, dtype=torch.float32),
                             torch.arange(grid_w, dtype=torch.float32),
                             indexing="ij")
     coords = torch.stack([gx, gy], -1).expand(batch, grid_h, grid_w, 2) \
         + (torch.rand((batch, grid_h, grid_w, 2), generator=gen) - 0.5) * 24
-    return pyramid, coords.contiguous().to(dev), gen
+    return f1, f2, coords.contiguous(), gen
+
+
+def lookup_inputs(dev, batch: int, grid_h: int, grid_w: int, seed: int):
+    """The pyramid and coords of :func:`seeded_lookup` on ``dev``."""
+    from video_features_tpu_torch.models.raft import build_corr_pyramid
+
+    f1, f2, coords, gen = seeded_lookup(batch, grid_h, grid_w, seed)
+    return build_corr_pyramid(f1.to(dev), f2.to(dev)), coords.to(dev), gen
 
 
 def packed_row(cl, pyramid, coords) -> dict:
@@ -181,8 +212,8 @@ def packed_row(cl, pyramid, coords) -> dict:
         raise AssertionError(f"corr_lookup_packed_cuda max abs err {err} "
                              f"(vs gather {err_gather})")
     del want, gather
-    b_ms, b_by = bound(window_cells(pyramid, coords) * 4 + q * 8
-                       + q * 324 * 4, q * 324 * 12)
+    b_ms, b_by = bound(*kernel_work(
+        "packed", q, window_cells(level_shapes(pyramid), coords)))
     return dict(
         queries=q, max_abs_err=err, max_abs_err_vs_gather=err_gather,
         ms=median_ms(lambda: cl.corr_lookup_packed_cuda(packed, metas,
@@ -202,14 +233,14 @@ def proj_row(cl, pyramid, coords, weight, bias) -> dict:
     q = coords.shape[0] * coords.shape[1] * coords.shape[2]
     got = cl.corr_lookup_proj_cuda(pyramid, coords, weight, bias)
     want = cl.corr_lookup_proj_ref(pyramid, coords, weight, bias)
+    taps = torch.rand((q, 324), device=coords.device)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not err <= 1e-4:
         raise AssertionError(f"corr_lookup_proj_cuda max abs err {err}")
     del got, want
-    b_ms, b_by = bound(
-        window_cells(pyramid, coords) * 4 + q * 8 + (324 + 1) * 256 * 4
-        + q * 256 * 4, 2 * q * 324 * 256 + q * 324 * 12)
+    b_ms, b_by = bound(*kernel_work(
+        "proj", q, window_cells(level_shapes(pyramid), coords)))
     return dict(
         queries=q, max_abs_err=err,
         ms=median_ms(lambda: cl.corr_lookup_proj_cuda(
@@ -218,7 +249,10 @@ def proj_row(cl, pyramid, coords, weight, bias) -> dict:
             pyramid, coords, weight, bias)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(lambda: torch.relu(torch.matmul(
-            grid_sample_lookup(pyramid, coords), weight) + bias)))
+            grid_sample_lookup(pyramid, coords), weight) + bias)),
+        # cuBLAS's float32 product of the same shapes alone: what the
+        # kernel's projection part could take at a library GEMM's rate
+        matmul_ms=median_ms(lambda: torch.matmul(taps, weight)))
 
 
 def check_kernels(dev):
@@ -228,8 +262,6 @@ def check_kernels(dev):
     weight = (torch.randn((324, 256), generator=gen) / 18.0).to(dev)
     bias = (torch.randn((256,), generator=gen) * 0.1).to(dev)
     q = coords.shape[0] * GRID_H * GRID_W
-    cells = window_cells(pyramid, coords)
-    tap_flops = q * 324 * 12  # 4 corner weights, 4 products, 4 adds
 
     rows = []
     with torch.inference_mode():
@@ -239,7 +271,8 @@ def check_kernels(dev):
         err = float((got - want).abs().max())
         if not err <= 1e-5:
             raise AssertionError(f"corr_lookup_level_cuda max abs err {err}")
-        b_ms, b_by = bound(cells * 4 + q * 8 + q * 324 * 4, tap_flops)
+        b_ms, b_by = bound(*kernel_work(
+            "level", q, window_cells(level_shapes(pyramid), coords)))
         rows.append(dict(
             name="corr_lookup_level_cuda", route="cuda",
             source="video_features_tpu_torch/kernels/csrc/corr_lookup.cu",
@@ -281,6 +314,72 @@ def check_kernels(dev):
     del pyramid, coords
     torch.cuda.empty_cache()
     return rows
+
+
+def ragged_inputs(dev, name: str):
+    """The small cases of tests/test_torch_corr_lookup.py, with pyramids from
+    the port's build_corr_pyramid on numpy-seeded fmaps: ``q231`` (3 pairs
+    on a 7x11 grid, Q = 231, no whole 64-query tile), ``odd`` (odd level
+    sizes, a level narrower than the 11-cell window), ``outside`` (whole
+    windows out of every level) and ``degenerate`` (levels of 1x1 and
+    0x0)."""
+    from video_features_tpu_torch.models.raft import build_corr_pyramid
+
+    rng = np.random.default_rng({"q231": 7, "odd": 3, "outside": 2,
+                                 "degenerate": 4}[name])
+    b, h8, w8, c = {"q231": (3, 7, 11, 32), "odd": (2, 13, 11, 32),
+                    "outside": (1, 12, 10, 64),
+                    "degenerate": (1, 6, 5, 16)}[name]
+    f1, f2 = (torch.from_numpy(rng.normal(size=(b, c, h8, w8)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    pyramid = build_corr_pyramid(f1, f2)
+    if name == "outside":
+        gx, gy = np.meshgrid(np.arange(w8, dtype=np.float32),
+                             np.arange(h8, dtype=np.float32))
+        coords = np.broadcast_to(np.stack([gx, gy], -1),
+                                 (b, h8, w8, 2)).copy()
+        coords[:, 0] = -50.0
+        coords[:, 1, :, 0] = w8 + 40.0
+    else:
+        coords = rng.uniform(-6.0, max(h8, w8) + 6.0,
+                             size=(b, h8, w8, 2)).astype(np.float32)
+    return pyramid, torch.from_numpy(coords).to(dev)
+
+
+def check_ragged(dev) -> dict:
+    """Level (1e-5), proj (1e-4) and packed (1e-5) against their plain
+    versions on the ragged cases; the max abs error of each."""
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+
+    rng = np.random.default_rng(9)
+    weight = torch.from_numpy((rng.normal(size=(324, 256)) * 0.05).astype(
+        np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32)).to(
+        dev)
+    errs = {}
+    with torch.inference_mode():
+        for name in ("q231", "odd", "outside", "degenerate"):
+            pyramid, coords = ragged_inputs(dev, name)
+            packed, metas = cl.pack_pyramid(pyramid)
+            e = dict(
+                queries=coords.shape[0] * coords.shape[1] * coords.shape[2],
+                levels=level_shapes(pyramid),
+                level=float((cl.corr_lookup_level_cuda(pyramid, coords)
+                             - cl.corr_lookup_gather_ref(pyramid, coords)
+                             ).abs().max()),
+                proj=float((cl.corr_lookup_proj_cuda(pyramid, coords, weight,
+                                                     bias)
+                            - cl.corr_lookup_proj_ref(pyramid, coords, weight,
+                                                      bias)).abs().max()),
+                packed=float((cl.corr_lookup_packed_cuda(packed, metas, coords)
+                              - cl.corr_lookup_packed_ref(packed, metas,
+                                                          coords)
+                              ).abs().max()))
+            if not (e["level"] <= 1e-5 and e["proj"] <= 1e-4
+                    and e["packed"] <= 1e-5):
+                raise AssertionError(f"ragged case {name}: {e}")
+            errs[name] = e
+    return errs
 
 
 def check_small_raft(dev):
@@ -371,6 +470,22 @@ def profile_run(extractor, frames) -> dict:
                             for k, v in top]}
 
 
+def kernel_resources(build) -> dict:
+    """Registers, static shared memory and spills of each kernel from the
+    built library's ``-Xptxas -v`` report, by short name (``proj_kernel``,
+    ``level_kernel``, ``packed_kernel``)."""
+    report = build.report_path(build.library_path()).read_text()
+    out = {}
+    for mangled, res in build.kernel_resources(report).items():
+        for short in ("proj_kernel", "level_kernel", "packed_kernel"):
+            if short in mangled:
+                out[short] = res
+    missing = {"proj_kernel", "level_kernel", "packed_kernel"} - set(out)
+    if missing:
+        raise AssertionError(f"no ptxas report for {sorted(missing)}")
+    return out
+
+
 def reset_counts(cl) -> None:
     cl.corr_lookup_level_cuda.launches = 0
     cl.corr_lookup_proj_cuda.launches = 0
@@ -427,7 +542,7 @@ def run_slice(dev):
     unfused_counts = read_counts(cl)
     level_launches = unfused_counts["level"]
     fwd_u = unfused.flow_stream.forwards
-    if fwd_u < 1 or unfused_counts != {"level": 4 * ITERS * fwd_u,
+    if fwd_u < 1 or unfused_counts != {"level": ITERS * fwd_u,
                                        "proj": 0, "packed": 0}:
         raise AssertionError(f"unfused path: launches {unfused_counts} for "
                              f"{fwd_u} RAFT forwards")
@@ -556,11 +671,17 @@ def main() -> int:
     set_precision("float32")
     card = card_line()
     print(card)
+    # a library left by an earlier build carries that build's report
+    cached = build.library_path().exists()
     t0 = time.perf_counter()
     build.load()
     build_s = time.perf_counter() - t0
-    print(json.dumps({"build_s": build_s, "library": build.library_path().name}))
+    print(json.dumps({"build_s": build_s, "library": build.library_path().name,
+                      "built_in_this_run": not cached,
+                      "ptxas": kernel_resources(build)}))
 
+    ragged = check_ragged(dev)
+    print(json.dumps({"ragged_max_abs_err": ragged}))
     kernels = check_kernels(dev)
     raft_err = check_small_raft(dev)
     slice_stats, proj_launches, level_launches = run_slice(dev)

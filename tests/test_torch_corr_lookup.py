@@ -30,13 +30,14 @@ def _case(name):
     """(pyramid levels (B, P, Hl, Wl) np, coords (B, H, W, 2) np) for the
     cases of tests/test_kernels.py: random coords spread slightly past the
     plane, integer coords, whole windows out of the plane, odd level sizes
-    and a pyramid that pools down to 1x1 and 0x0."""
+    and a pyramid that pools down to 1x1 and 0x0; and 3 pairs on a 7x11 grid
+    (Q = 231, no whole tile of the CUDA kernels)."""
     rng = np.random.default_rng({"random": 0, "integer": 1, "outside": 2,
                                  "odd": 3, "degenerate": 4, "wide": 5,
-                                 "groups17": 6}[name])
+                                 "groups17": 6, "q231": 7}[name])
     b, h8, w8, c = {"odd": (2, 13, 11, 32), "degenerate": (1, 6, 5, 16),
-                    "wide": (1, 3, 130, 16), "groups17": (1, 34, 43, 8)
-                    }.get(name, (1, 12, 10, 64))
+                    "wide": (1, 3, 130, 16), "groups17": (1, 34, 43, 8),
+                    "q231": (3, 7, 11, 32)}.get(name, (1, 12, 10, 64))
     f1 = rng.normal(size=(b, h8, w8, c)).astype(np.float32)
     f2 = rng.normal(size=(b, h8, w8, c)).astype(np.float32)
     if name in PACKED_CASES[len(CASES):]:
@@ -60,7 +61,7 @@ def _case(name):
     return pyramid, coords
 
 
-CASES = ["random", "integer", "outside", "odd", "degenerate"]
+CASES = ["random", "integer", "outside", "odd", "degenerate", "q231"]
 #: the packed layout's own edge cases: a level wider than 128 lanes, and
 #: 17 row groups at level 0 (past the JAX kernel's G <= 16 gate)
 PACKED_CASES = CASES + ["wide", "groups17"]
@@ -85,7 +86,9 @@ def test_level_lookup_matches_jax(name):
     gather = np.asarray(jraft.corr_lookup_gather(jp, jc))
     assert got.shape == gather.shape == coords.shape[:3] + (324,)
     np.testing.assert_allclose(got, gather, atol=1e-5, rtol=0)
-    if name != "degenerate":  # the JAX kernel gates 0x0 levels out itself
+    # the JAX kernel takes no level of zero size (degenerate's 0x0, q231's
+    # 0x1 fourth level)
+    if name not in ("degenerate", "q231"):
         pallas = np.asarray(jcl.corr_lookup_pallas(jp, jc, interpret=True))
         np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=0)
     if name == "outside":  # whole windows outside every level: exact zeros
@@ -193,6 +196,35 @@ def test_wrappers_never_fall_back_off_the_cpu(wrapper):
                                       torch.zeros(8, device="meta"))
 
 
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111proj_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111proj_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compile time = 224.609 ms
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112level_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112level_kernelEv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers, 8 bytes cumulative stack size, 28736 bytes smem
+"""
+
+
+def test_ptxas_report_gives_registers_smem_and_spills():
+    """The build keeps nvcc's -Xptxas -v report beside the library; each
+    kernel's registers, static shared memory and spills are read from it."""
+    assert "-Xptxas=-v" in build.NVCC_FLAGS
+    assert build.report_path(build.library_path()).name.endswith(
+        ".so.ptxas.txt")
+    assert build.kernel_resources(PTXAS_REPORT) == {
+        "_ZN12_GLOBAL__N_111proj_kernelEv": dict(
+            registers=128, smem_bytes=0, stack_frame_bytes=0,
+            spill_store_bytes=0, spill_load_bytes=0),
+        "_ZN12_GLOBAL__N_112level_kernelEv": dict(
+            registers=72, smem_bytes=28736, stack_frame_bytes=8,
+            spill_store_bytes=4, spill_load_bytes=4)}
+
+
 def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     """The built library is named by a digest of its sources, so an edited
     kernel is rebuilt, never served from a stale build."""
@@ -240,6 +272,23 @@ def test_cuda_kernels_match_plain_on_card(cuda_card, name):
         proj.cpu().numpy(),
         tcl.corr_lookup_proj_ref(tp, tc, weight, bias).cpu().numpy(),
         atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_proj_rejects_unsupported_shapes(cuda_card):
+    """The fused kernel takes convc1's 256 output channels and 16-byte
+    aligned weight and bias; anything else raises, never falls back."""
+    pyramid, coords = _case("q231")
+    tp = [torch.from_numpy(p).to(cuda_card) for p in pyramid]
+    tc = torch.from_numpy(coords).to(cuda_card)
+    with pytest.raises(ValueError, match="256 output channels"):
+        tcl.corr_lookup_proj_cuda(tp, tc,
+                                  torch.zeros(324, 24, device=cuda_card),
+                                  torch.zeros(24, device=cuda_card))
+    shifted = torch.zeros(324 * 256 + 1, device=cuda_card)[1:].view(324, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        tcl.corr_lookup_proj_cuda(tp, tc, shifted,
+                                  torch.zeros(256, device=cuda_card))
 
 
 def test_port_pyramid_matches_jax():

@@ -6,12 +6,12 @@ bounds each on the card are in that file):
 
   - :func:`corr_lookup_level_cuda` replaces ``_level_kernel`` (launched by
     ``corr_lookup_level_pallas``, API ``corr_lookup_pallas``): the 81-tap
-    bilinear window per level, one launch per level, written straight into
-    its 81-channel slice of the ``(B, H, W, 324)`` output;
+    bilinear window of every level, all four levels in one launch, into the
+    ``(B, H, W, 324)`` output;
   - :func:`corr_lookup_proj_cuda` replaces ``_proj_kernel`` (launched by
     ``_corr_lookup_proj_flat``, API ``corr_lookup_proj``): all four levels
-    and RAFT's motion-encoder ``convc1``, ``relu(lookup @ W + b)``, one
-    launch per GRU iteration;
+    and RAFT's motion-encoder ``convc1``, ``relu(lookup @ W + b)`` with
+    ``C = 256`` output channels, one launch per GRU iteration;
   - :func:`corr_lookup_packed_cuda` replaces ``_packed_kernel`` (launched by
     ``_corr_lookup_packed_flat``, API ``corr_lookup_packed``): the same 324
     taps as the level kernel, all four levels in one launch, read from the
@@ -277,11 +277,19 @@ def _check_lookup_inputs(pyramid: Sequence[torch.Tensor],
     return q
 
 
+def _level_args(pyramid: Sequence[torch.Tensor]) -> list:
+    """(pointer, Hl, Wl) of each level, as the C entry points take them."""
+    args = []
+    for corr in pyramid:
+        args += [corr.data_ptr(), corr.shape[2], corr.shape[3]]
+    return args
+
+
 def corr_lookup_level_cuda(pyramid: Sequence[torch.Tensor],
                            coords: torch.Tensor,
                            radius: int = RADIUS) -> torch.Tensor:
-    """Per-level lookup kernel: ``(B, H, W, 324)``, the same function as
-    :func:`corr_lookup_gather_ref`. One launch per level."""
+    """Lookup kernel: ``(B, H, W, 324)``, the same function as
+    :func:`corr_lookup_gather_ref`. One launch for all four levels."""
     if coords.device.type == "cpu":
         return corr_lookup_gather_ref(pyramid, coords, radius)
     q = _check_lookup_inputs(pyramid, coords, radius)
@@ -293,17 +301,19 @@ def corr_lookup_level_cuda(pyramid: Sequence[torch.Tensor],
     lib = build.load()
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for lvl, corr in enumerate(pyramid):
-            err = lib.vft_corr_lookup_level(
-                corr.data_ptr(), corr.shape[2], corr.shape[3],
-                coords.data_ptr(), q, lvl, out.data_ptr(), LEVELS * TAPS,
-                lvl * TAPS, stream)
-            build.check(lib, err, "corr_lookup_level_cuda")
-            corr_lookup_level_cuda.launches += 1
+        err = lib.vft_corr_lookup_level(*_level_args(pyramid),
+                                        coords.data_ptr(), q, out.data_ptr(),
+                                        stream)
+        build.check(lib, err, "corr_lookup_level_cuda")
+        corr_lookup_level_cuda.launches += 1
     return out
 
 
 corr_lookup_level_cuda.launches = 0
+
+
+#: convc1's output channels, the only width the fused kernel takes
+PROJ_C_OUT = 256
 
 
 def corr_lookup_proj_cuda(pyramid: Sequence[torch.Tensor],
@@ -312,33 +322,36 @@ def corr_lookup_proj_cuda(pyramid: Sequence[torch.Tensor],
                           radius: int = RADIUS) -> torch.Tensor:
     """Fused lookup + convc1 kernel: ``(B, H, W, C)`` =
     ``relu(lookup @ weight + bias)``, the same function as
-    :func:`corr_lookup_proj_ref`. One launch."""
+    :func:`corr_lookup_proj_ref`. One launch. On the card ``C`` must be
+    :data:`PROJ_C_OUT` (RAFT's convc1) and weight and bias 16-byte aligned,
+    else ``ValueError``."""
     if coords.device.type == "cpu":
         return corr_lookup_proj_ref(pyramid, coords, weight, bias, radius)
     q = _check_lookup_inputs(pyramid, coords, radius)
     c_out = weight.shape[-1]
+    if c_out != PROJ_C_OUT:
+        raise ValueError(f"the CUDA proj kernel takes {PROJ_C_OUT} output "
+                         f"channels (RAFT's convc1), got {c_out}")
     for name, t, shape in (("weight", weight, (LEVELS * TAPS, c_out)),
                            ("bias", bias, (c_out,))):
         if t.device != coords.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
+                or tuple(t.shape) != shape or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(
-                f"{name} must be a contiguous float32 {shape} tensor on "
-                f"{coords.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
+                f"{name} must be a contiguous, 16-byte aligned float32 "
+                f"{shape} tensor on {coords.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
     b, h, w, _ = coords.shape
     out = torch.empty((b, h, w, c_out), dtype=torch.float32,
                       device=coords.device)
     if q == 0:
         return out
     lib = build.load()
-    args = []
-    for corr in pyramid:
-        args += [corr.data_ptr(), corr.shape[2], corr.shape[3]]
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vft_corr_lookup_proj(
-            *args, coords.data_ptr(), q, weight.data_ptr(), bias.data_ptr(),
-            c_out, out.data_ptr(), stream)
+            *_level_args(pyramid), coords.data_ptr(), q, weight.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), stream)
         build.check(lib, err, "corr_lookup_proj_cuda")
         corr_lookup_proj_cuda.launches += 1
     return out

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of video_features_tpu/kernels/corr_lookup.py:
 //   - vft_corr_lookup_level: `_level_kernel` (corr_lookup_level_pallas),
-//     the 81-tap bilinear window of one pyramid level;
+//     the 81-tap bilinear window of every pyramid level, in one launch;
 //   - vft_corr_lookup_proj:  `_proj_kernel` (_corr_lookup_proj_flat),
 //     the 324 taps of all four levels projected through RAFT's motion-encoder
 //     convc1: relu(taps @ W + b).
@@ -19,21 +19,49 @@
 // reads the four corners directly, so neither the padding nor the selector
 // matmuls carry over.
 //
+// The window loader (window_cells, blend_group), shared by level and proj: a
+// warp loads the corner windows of kGroup = 4 queries at a time. With
+// p = c / 2^l, every corner of a query's 81 taps lies in the 11x11 cells
+// whose origin is (floor(px) - 4, floor(py) - 4): floor(p + d) is
+// floor(p) + d or, where the float sum rounds up to an integer, one more.
+// The warp reads those cells row by row, consecutive lanes on consecutive x,
+// into warp-private shared memory with zeros outside the plane (level through
+// registers, proj with cp.async); the blend then takes each tap's four
+// corners from there in `sample`'s order and products (a zero corner adds
+// exactly nothing, as the skipped corner did). Lane (query, y-offset) blends
+// one column of 9 taps, computing its y-terms once. Coords are read once per
+// query, by one lane, and shuffled. A centre that is not finite or whose
+// window misses the plane gives zeros, as every corner test failed before.
+// The address map is a template parameter (PlaneMap here); the packed layout
+// needs only its own map.
+//
 // What bounds them on the card (shapes of the I3D flow stream, one 64-frame
 // stack at 256x344: Q = 64 * 32 * 43 = 88,064 queries per GRU iteration):
-//   - level: bytes. Each query writes 81 floats per level and reads about a
-//     10x10 corner window; a few tens of MB per level, no arithmetic to speak
-//     of. One thread per (query, tap): neighbouring threads write neighbouring
-//     taps of one query (coalesced stores) and read one query's window.
+//   - level: bytes. Each query writes 324 floats (114 MB per call) and reads
+//     an 11-float run of each of 11 rows per level, scattered over its own
+//     planes. The bytes bound counts only the in-plane cells read (69 MB,
+//     chip_smoke.py `window_cells`); a card that fetches whole 32- or
+//     64-byte pieces moves more for such runs (tools/level_fetch_model.py
+//     models both; no counter has measured which). One launch per call
+//     for all four levels (the TPU's four pallas_calls were its block shape,
+//     not the function). A warp per 4 queries loads their windows, blends the
+//     324 taps into a staging row per query and writes the 4 rows, which are
+//     contiguous in the output, as float4 stores of whole 128-byte lines.
+//     7 KB of shared memory a warp (28 warps an SM) measured faster than
+//     staging all four levels at once or storing the taps directly.
 //   - proj: operations. The projection is 2 * Q * 324 * 256 flops (about
-//     14.6 GFLOP per iteration) in float32, which has no tensor-core path at
-//     full precision; the window reads are ~0.2 GB. One block per tile of 32
-//     queries writes its (32, 324) tap tile to shared memory (41.5 KB), then
-//     each thread owns one output channel and accumulates the 32 queries in
-//     registers over k, reading W[k, c] coalesced from L2 and four taps at a
-//     time from shared memory (a broadcast float4 load feeds four FMAs), so
-//     the loop is FMA-bound rather than shared-memory-bound. The 324-channel
-//     intermediate never reaches device memory.
+//     14.6 GFLOP per iteration) in full float32 FMA (the parity contract pins
+//     `highest`: no TF32 on the tensor cores). A block of 256 threads owns 64
+//     queries x all 256 channels; each thread an 8 x 8 register tile, so one
+//     k step is four 16-byte shared loads for 64 FMAs. W streams through two
+//     cp.async stages of 27-row chunks (one barrier a chunk); each block reads
+//     W once from L2, so W crosses L2 once per 64 queries. The taps
+//     are k-major rows of 64 queries padded to 68 floats (conflict-free for
+//     the blend's stores and the tile's loads), double-buffered by level:
+//     level l + 1's windows are copied and blended during level l's chunks,
+//     so the build interleaves with the FMAs instead of stopping them. 112 KB
+//     of dynamic shared memory and at most 128 registers let two blocks share
+//     an SM. The 324-channel intermediate never reaches device memory.
 //
 // vft_corr_lookup_packed replaces `_packed_kernel` (_corr_lookup_packed_flat):
 // the same 324 taps, all four levels in one launch, read from the lane-dense
@@ -59,9 +87,32 @@ constexpr int kWin = 2 * kRadius + 1;   // 9
 constexpr int kTaps = kWin * kWin;      // 81
 constexpr int kLevels = 4;
 constexpr int kK = kLevels * kTaps;     // 324
-constexpr int kTileQ = 32;
-constexpr int kProjThreads = 256;
-constexpr int kLevelThreads = 256;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// the window loader
+constexpr int kSide = kWin + 2;         // 11 corner rows and columns
+constexpr int kCells = kSide * kSide;   // 121
+constexpr int kGroup = 4;               // queries a warp stages at once
+constexpr int kCellLoads = (kCells + kWarp - 1) / kWarp;  // 4 per lane
+
+// level kernel
+constexpr int kLevelWarps = 4;
+// staging rows of 328 floats: 16-byte aligned, 4 rows on 4 bank offsets
+constexpr int kRowStride = kK + 4;
+
+// proj kernel
+constexpr int kCout = 256;    // convc1's output channels, the only width taken
+constexpr int kTileQ = 64;    // queries per block
+// tap rows of 68 floats: float4 loads, conflict-free blend stores
+constexpr int kTapStride = kTileQ + 4;
+constexpr int kProjWarps = 8;
+constexpr int kProjThreads = kProjWarps * kWarp;
+constexpr int kWarpQ = kTileQ / kProjWarps;   // 8 queries each warp builds
+constexpr int kChunk = 27;    // rows of W per ring stage (81 = 3 x 27)
+constexpr int kChunks = kK / kChunk;          // 12
+constexpr int kLevelChunks = kTaps / kChunk;  // 3
+constexpr int kPacketsPerChunk = kChunk * kCout / 4;  // 1,728 16-byte copies
 
 struct Pyramid {
   const float* data[kLevels];
@@ -69,104 +120,378 @@ struct Pyramid {
   int w[kLevels];
 };
 
-// Bilinear sample of one (h, w) plane at (x, y) with zeros outside the plane.
-// Corner order and weight products follow corr_lookup_gather.
-__device__ __forceinline__ float sample(const float* __restrict__ plane, int h,
-                                        int w, float x, float y) {
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float wx1 = x - x0;
-  const float wy1 = y - y0;
+// Address map of one unpadded level (Q, h, w): query q's plane and the
+// offset of its cell (r, x).
+struct PlaneMap {
+  const float* data;
+  int h, w;
+  __device__ __forceinline__ const float* query(int64_t q) const {
+    return data + q * (int64_t)h * w;
+  }
+  __device__ __forceinline__ int offset(int r, int x) const {
+    return r * w + x;
+  }
+};
+
+// Level lvl's map, selected without indexing the kernel parameter by a
+// run-time value (which would copy the Pyramid to local memory).
+__device__ __forceinline__ PlaneMap level_map(const Pyramid& p, int lvl) {
+  PlaneMap m{p.data[0], p.h[0], p.w[0]};
+#pragma unroll
+  for (int l = 1; l < kLevels; ++l) {
+    if (lvl == l) m = PlaneMap{p.data[l], p.h[l], p.w[l]};
+  }
+  return m;
+}
+
+// One query's window at one level: the level's centre p = c / 2^l, the
+// origin floor(p) - 4 of the 11x11 cells, and whether any tap can be
+// non-zero (a finite centre whose cells meet the plane; NaN fails the test).
+struct Window {
+  float px, py, bx, by;
+  bool live;
+};
+
+__device__ __forceinline__ Window window_at(float cx, float cy, float scale,
+                                            int h, int w) {
+  Window o;
+  o.px = cx * scale;
+  o.py = cy * scale;
+  o.bx = floorf(o.px) - (float)kRadius;
+  o.by = floorf(o.py) - (float)kRadius;
+  o.live = o.bx > (float)-kSide && o.bx < (float)w && o.by > (float)-kSide &&
+           o.by < (float)h;
+  return o;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 4 bytes global -> shared, asynchronously; `in` false writes a zero and
+// reads nothing (cp.async's ignore-src: `src` is not accessed).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile(
+      "{\n .reg .pred skip;\n setp.eq.u32 skip, %2, 0;\n"
+      " cp.async.ca.shared.global [%0], [%1], 4, skip;\n}\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"((unsigned)in));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The query whose coords lanes `first`, `first` + 1 hold (lane i holds float
+// i of its group's (x, y) pairs), at one level.
+__device__ __forceinline__ Window shfl_window(float xy, int first, float scale,
+                                              int h, int w) {
+  const float cx = __shfl_sync(kFull, xy, first);
+  const float cy = __shfl_sync(kFull, xy, first + 1);
+  return window_at(cx, cy, scale, h, w);
+}
+
+// The window loader's address map: for each of the kGroup queries q0 + g
+// (coords in lanes first .. first + 7) and each of this lane's cells
+// i = lane + 32 j of its 11x11 window (row by row, consecutive lanes on
+// consecutive x), calls cell(g, j, i, src, in) with the cell's address and
+// whether it lies in the plane (never for a dead window; `src` is only
+// meaningful where `in`). The level kernel loads through registers, the
+// proj kernel copies with cp.async.
+template <class Map, class Cell>
+__device__ __forceinline__ void window_cells(const Map& map, int64_t q0,
+                                             float xy, int first, float scale,
+                                             int lane, Cell&& cell) {
+  int row[kCellLoads], col[kCellLoads];
+#pragma unroll
+  for (int j = 0; j < kCellLoads; ++j) {
+    const int i = lane + j * kWarp;
+    row[j] = i / kSide;
+    col[j] = i - row[j] * kSide;
+  }
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    const Window o = shfl_window(xy, first + 2 * g, scale, map.h, map.w);
+    const int bx = o.live ? (int)o.bx : 0;
+    const int by = o.live ? (int)o.by : 0;
+#pragma unroll
+    for (int j = 0; j < kCellLoads; ++j) {
+      const int i = lane + j * kWarp;
+      if (i < kCells) {
+        const bool in = o.live && (unsigned)(by + row[j]) < (unsigned)map.h &&
+                        (unsigned)(bx + col[j]) < (unsigned)map.w;
+        cell(g, j, i,
+             map.query(q0 + g) + map.offset(by + row[j], bx + col[j]), in);
+      }
+    }
+  }
+}
+
+// The bilinear blend of one tap from its upper-left corner in a staged
+// window: corner order and weight products of corr_lookup_gather (a zero
+// corner adds exactly nothing, as the skipped out-of-plane corner did).
+__device__ __forceinline__ float corners(const float* cell, float wx1,
+                                         float wy1) {
   float acc = 0.f;
 #pragma unroll
   for (int dx = 0; dx < 2; ++dx) {
-    const float xi = x0 + dx;
     const float wx = dx ? wx1 : 1.f - wx1;
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
-      const float yi = y0 + dy;
       const float wy = dy ? wy1 : 1.f - wy1;
-      if (xi >= 0.f && xi <= (float)(w - 1) && yi >= 0.f &&
-          yi <= (float)(h - 1)) {
-        acc += wx * wy * __ldg(plane + (int64_t)yi * w + (int64_t)xi);
-      }
+      acc += wx * wy * cell[dy * kSide + dx];
     }
   }
   return acc;
 }
 
-__device__ __forceinline__ float tap(const float* __restrict__ level, int h,
-                                     int w, int64_t q, float cx, float cy,
-                                     float scale, int k) {
+// Tap k (x-offset slowest) of one staged window.
+__device__ __forceinline__ float blend(const float* win, const Window& o,
+                                       int k) {
+  if (!o.live) return 0.f;
   const int xx = k / kWin;
   const int yy = k - xx * kWin;
-  const float* plane = level + q * (int64_t)h * w;
-  return sample(plane, h, w, cx * scale + (float)(xx - kRadius),
-                cy * scale + (float)(yy - kRadius));
+  const float x = o.px + (float)(xx - kRadius);
+  const float y = o.py + (float)(yy - kRadius);
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  return corners(win + (int)(y0 - o.by) * kSide + (int)(x0 - o.bx), x - x0,
+                 y - y0);
 }
 
-__global__ void __launch_bounds__(kLevelThreads)
-level_kernel(const float* __restrict__ level, int h, int w,
-             const float* __restrict__ coords, int64_t q_total, float scale,
-             float* __restrict__ out, int out_stride, int out_offset) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q_total * kTaps) return;
-  const int64_t q = i / kTaps;
-  const int k = (int)(i - q * kTaps);
-  const float cx = coords[2 * q];
-  const float cy = coords[2 * q + 1];
-  out[q * out_stride + out_offset + k] =
-      tap(level, h, w, q, cx, cy, scale, k);
-}
-
-__global__ void __launch_bounds__(kProjThreads)
-proj_kernel(Pyramid pyr, const float* __restrict__ coords, int64_t q_total,
-            const float* __restrict__ weight, const float* __restrict__ bias,
-            int c_out, float* __restrict__ out) {
-  __shared__ __align__(16) float taps[kTileQ][kK];
-  const int64_t q0 = (int64_t)blockIdx.x * kTileQ;
-
-  // phase 1: the block's (32, 324) tap tile, one level at a time
+// The 81 taps of the kGroup queries whose windows are staged in
+// win[kGroup][121] (coords in lanes first .. first + 7), handed to
+// store(g, k, v). Lane (g, yy) = (lane % 4, lane / 4) blends the column
+// yy < 8 of query g, its y-terms computed once for the 9 x-offsets (whose
+// terms fold to constants); the 36 taps of column yy = 8 follow, one a lane.
+template <class Store>
+__device__ __forceinline__ void blend_group(const float* win, float xy,
+                                            int first, float scale, int h,
+                                            int w, int lane, Store&& store) {
+  const int g = lane % kGroup;
+  const int yy = lane / kGroup;
+  const Window o = shfl_window(xy, first + 2 * g, scale, h, w);
+  if (o.live) {
+    const float y = o.py + (float)(yy - kRadius);
+    const float y0 = floorf(y);
+    const float* row = win + g * kCells + (int)(y0 - o.by) * kSide;
 #pragma unroll
-  for (int lvl = 0; lvl < kLevels; ++lvl) {
-    const float scale = 1.f / (float)(1 << lvl);
-    for (int i = threadIdx.x; i < kTileQ * kTaps; i += blockDim.x) {
-      const int ql = i / kTaps;
-      const int k = i - ql * kTaps;
-      const int64_t q = q0 + ql;
-      float v = 0.f;
-      if (q < q_total) {
-        v = tap(pyr.data[lvl], pyr.h[lvl], pyr.w[lvl], q, coords[2 * q],
-                coords[2 * q + 1], scale, k);
-      }
-      taps[ql][lvl * kTaps + k] = v;
+    for (int xx = 0; xx < kWin; ++xx) {
+      const float x = o.px + (float)(xx - kRadius);
+      const float x0 = floorf(x);
+      store(g, xx * kWin + yy,
+            corners(row + (int)(x0 - o.bx), x - x0, y - y0));
+    }
+  } else {
+#pragma unroll
+    for (int xx = 0; xx < kWin; ++xx) store(g, xx * kWin + yy, 0.f);
+  }
+  constexpr int kLast = kGroup * kWin;  // taps of the columns yy = 8
+#pragma unroll
+  for (int j = 0; j < (kLast + kWarp - 1) / kWarp; ++j) {
+    const int e = lane + j * kWarp;
+    const int eg = (e < kLast ? e : kLast - 1) / kWin;
+    // every lane shuffles, the lanes past the 36 taps store nothing
+    const Window oe = shfl_window(xy, first + 2 * eg, scale, h, w);
+    if (e < kLast) {
+      const int k = (e - eg * kWin) * kWin + kWin - 1;
+      store(eg, k, blend(win + eg * kCells, oe, k));
     }
   }
-  __syncthreads();
+}
 
-  // phase 2: relu(taps @ W + b), one output channel per thread
-  for (int c = threadIdx.x; c < c_out; c += blockDim.x) {
-    float acc[kTileQ];
+// One group of 4 queries a warp: the group's four windows of a level go
+// through registers into shared memory, the 324 taps into a staging row per
+// query, and the 4 rows, which are contiguous in out, leave as whole-line
+// float4 stores.
+__global__ void __launch_bounds__(kLevelWarps * kWarp)
+level_kernel(Pyramid pyr, const float* __restrict__ coords, int64_t q_total,
+             float* __restrict__ out) {
+  __shared__ float win_s[kLevelWarps][kGroup * kCells];
+  __shared__ __align__(16) float row_s[kLevelWarps][kGroup * kRowStride];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t q0 = ((int64_t)blockIdx.x * kLevelWarps + warp) * kGroup;
+  if (q0 >= q_total) return;  // no block-wide barrier follows
+  const int nq = q_total - q0 < kGroup ? (int)(q_total - q0) : kGroup;
+  // lane i < 2 * nq holds float i of the group's coords; a missing query's
+  // NaN centre gives a dead window
+  const float xy = lane < 2 * nq ? coords[2 * q0 + lane] : nanf("");
+  float* win = win_s[warp];
+  float* rows = row_s[warp];
 #pragma unroll
-    for (int q = 0; q < kTileQ; ++q) acc[q] = 0.f;
-    for (int k = 0; k < kK; k += 4) {
-      const float w0 = __ldg(weight + (int64_t)(k + 0) * c_out + c);
-      const float w1 = __ldg(weight + (int64_t)(k + 1) * c_out + c);
-      const float w2 = __ldg(weight + (int64_t)(k + 2) * c_out + c);
-      const float w3 = __ldg(weight + (int64_t)(k + 3) * c_out + c);
+  for (int lvl = 0; lvl < kLevels; ++lvl) {
+    const PlaneMap map{pyr.data[lvl], pyr.h[lvl], pyr.w[lvl]};
+    const float scale = 1.f / (float)(1 << lvl);
+    float v[kGroup][kCellLoads];
+    window_cells(map, q0, xy, 0, scale, lane,
+                 [&](int g, int j, int, const float* src, bool in) {
+                   v[g][j] = in ? __ldg(src) : 0.f;
+                 });
 #pragma unroll
-      for (int q = 0; q < kTileQ; ++q) {
-        const float4 t = *reinterpret_cast<const float4*>(&taps[q][k]);
-        acc[q] = fmaf(t.x, w0, acc[q]);
-        acc[q] = fmaf(t.y, w1, acc[q]);
-        acc[q] = fmaf(t.z, w2, acc[q]);
-        acc[q] = fmaf(t.w, w3, acc[q]);
+    for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+      for (int j = 0; j < kCellLoads; ++j) {
+        const int i = lane + j * kWarp;
+        if (i < kCells) win[g * kCells + i] = v[g][j];
       }
     }
-    const float b = bias[c];
+    __syncwarp();
+    blend_group(win, xy, 0, scale, map.h, map.w, lane,
+                [&](int g, int k, float t) {
+                  rows[g * kRowStride + lvl * kTaps + k] = t;
+                });
+    __syncwarp();
+  }
+  float4* dst = reinterpret_cast<float4*>(out + q0 * kK);
+  for (int f = lane; f < nq * (kK / 4); f += kWarp) {
+    const int r = f / (kK / 4);
+    const int c = f - r * (kK / 4);
+    dst[f] = *reinterpret_cast<const float4*>(rows + r * kRowStride + 4 * c);
+  }
+}
+
+struct ProjSmem {
+  float taps[2][kTaps][kTapStride];        // level l's taps and level l + 1's
+  float w[2][kChunk * kCout];              // two stages of W chunks
+  float win[kProjWarps][kGroup * kCells];  // one query group's windows per warp
+};
+// dynamic shared memory of a block (ptxas reports only static); two blocks
+// fit the 227 KB an SM offers
+static_assert(sizeof(ProjSmem) == 114848, "proj_kernel's shared memory");
+
+// Chunk g of W (rows 27g .. 27g + 26, contiguous) into stage g % 2.
+__device__ __forceinline__ void fetch_chunk(ProjSmem& s,
+                                            const float* __restrict__ weight,
+                                            int g) {
+  float* dst = s.w[g % 2];
+  const float* src = weight + (int64_t)g * kChunk * kCout;
+  for (int i = threadIdx.x; i < kPacketsPerChunk; i += kProjThreads) {
+    cp_async16(dst + 4 * i, src + 4 * i);
+  }
+}
+
+__global__ void __launch_bounds__(kProjThreads, 2)
+proj_kernel(Pyramid pyr, const float* __restrict__ coords, int64_t q_total,
+            const float* __restrict__ weight, const float* __restrict__ bias,
+            float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ProjSmem& s = *reinterpret_cast<ProjSmem*>(smem_raw);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t q_tile = (int64_t)blockIdx.x * kTileQ;
+
+  // tap building: warp `warp` owns tile queries 8 * warp .. 8 * warp + 7,
+  // two groups of kGroup; lane i < 16 holds float i of their coords
+  const int64_t qw = q_tile + warp * kWarpQ;
+  const float xy = lane < 2 * kWarpQ && lane < 2 * (q_total - qw)
+                       ? coords[2 * qw + lane]
+                       : nanf("");
+  float* win = s.win[warp];
+  // issue the copies of group grp's windows at level lvl
+  auto stage = [&](int lvl, int grp) {
+    window_cells(level_map(pyr, lvl), qw + grp * kGroup, xy, 2 * kGroup * grp,
+                 1.f / (float)(1 << lvl), lane,
+                 [&](int g, int, int i, const float* src, bool in) {
+                   cp_async4(win + g * kCells + i, src, in);
+                 });
+    cp_async_commit();
+  };
+  // blend group grp's staged windows at level lvl into tap buffer lvl % 2
+  auto build = [&](int lvl, int grp) {
+    const PlaneMap map = level_map(pyr, lvl);
+    float* col = &s.taps[lvl % 2][0][warp * kWarpQ + grp * kGroup];
+    blend_group(win, xy, 2 * kGroup * grp, 1.f / (float)(1 << lvl), map.h,
+                map.w, lane,
+                [&](int g, int k, float t) { col[k * kTapStride + g] = t; });
+    __syncwarp();  // the windows are consumed before the next stage
+  };
+
+  // projection: thread (qg, cg) owns queries {4qg .. 4qg+3, 32+4qg .. 32+4qg+3}
+  // and channels {4cg .. 4cg+3, 128+4cg .. 128+4cg+3}; a warp spans 4 qg x 8 cg
+  const int qg = (warp / 4) * 4 + lane / 8;
+  const int cg = (warp % 4) * 8 + lane % 8;
+  float acc[8][8];
 #pragma unroll
-    for (int q = 0; q < kTileQ; ++q) {
-      if (q0 + q < q_total) out[(q0 + q) * c_out + c] = fmaxf(acc[q] + b, 0.f);
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  // level 0's taps before the loop; in the loop, level l + 1's are built
+  // during level l's chunks (its group 0 staged in chunk 0, blended in
+  // chunk 1, group 1 staged then and blended in chunk 2), so the build's
+  // latency and issue interleave with the FMAs
+  fetch_chunk(s, weight, 0);
+  cp_async_commit();
+  for (int grp = 0; grp < kWarpQ / kGroup; ++grp) {
+    stage(0, grp);
+    cp_async_wait_all();
+    __syncwarp();
+    build(0, grp);
+  }
+#pragma unroll 1
+  for (int g = 0; g < kChunks; ++g) {
+    const int lvl = g / kLevelChunks;
+    const int c = g - lvl * kLevelChunks;
+    cp_async_wait_all();
+    // chunk g, level lvl's taps and the staged windows visible to every
+    // thread; every thread is done with chunk g - 1 (whose stage the next
+    // fetch takes) and, at c == 0, with level lvl - 1's taps (whose buffer
+    // level lvl + 1's build takes)
+    __syncthreads();
+    if (lvl + 1 < kLevels) {
+      if (c > 0) build(lvl + 1, c - 1);
+      if (c < kWarpQ / kGroup) stage(lvl + 1, c);
+    }
+    if (g + 1 < kChunks) fetch_chunk(s, weight, g + 1);
+    cp_async_commit();
+    const float* ws = s.w[g % 2];
+    const float* ts = &s.taps[lvl % 2][c * kChunk][0];
+#pragma unroll
+    for (int r = 0; r < kChunk; ++r) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(ts + r * kTapStride + 4 * qg);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(ts + r * kTapStride + 32 + 4 * qg);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(ws + r * kCout + 4 * cg);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(ws + r * kCout + 128 + 4 * cg);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  const float4 bias0 = *reinterpret_cast<const float4*>(bias + 4 * cg);
+  const float4 bias1 = *reinterpret_cast<const float4*>(bias + 128 + 4 * cg);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t q = q_tile + (i < 4 ? 4 * qg + i : 32 + 4 * qg + i - 4);
+    if (q < q_total) {
+      float* row = out + q * kCout;
+      *reinterpret_cast<float4*>(row + 4 * cg) = make_float4(
+          fmaxf(acc[i][0] + bias0.x, 0.f), fmaxf(acc[i][1] + bias0.y, 0.f),
+          fmaxf(acc[i][2] + bias0.z, 0.f), fmaxf(acc[i][3] + bias0.w, 0.f));
+      *reinterpret_cast<float4*>(row + 128 + 4 * cg) = make_float4(
+          fmaxf(acc[i][4] + bias1.x, 0.f), fmaxf(acc[i][5] + bias1.y, 0.f),
+          fmaxf(acc[i][6] + bias1.z, 0.f), fmaxf(acc[i][7] + bias1.w, 0.f));
     }
   }
 }
@@ -196,7 +521,9 @@ __device__ __forceinline__ float packed_corner(const float* __restrict__ row,
   return __ldg(row + m.off + (ri / m.j) * m.k + (ri % m.j) * m.w + xi);
 }
 
-__global__ void __launch_bounds__(kLevelThreads)
+constexpr int kPackedThreads = 256;
+
+__global__ void __launch_bounds__(kPackedThreads)
 packed_kernel(const float* __restrict__ packed, int64_t k_total,
               const float* __restrict__ coords, int64_t q_total,
               PackedGeometry geo, float* __restrict__ out) {
@@ -246,36 +573,40 @@ packed_kernel(const float* __restrict__ packed, int64_t k_total,
 
 extern "C" {
 
-// One pyramid level: level (Q, h, w) f32, coords (Q, 2) f32 level-0 (x, y);
-// writes out[q * out_stride + out_offset + k] for the 81 taps k.
+// All four levels: level l (Q, h[l], w[l]) f32, coords (Q, 2) f32 level-0
+// (x, y); writes out (Q, 324), level l's 81 taps at columns 81 l ...
 // Returns the cudaError_t of the launch.
-int vft_corr_lookup_level(const float* level, int h, int w,
-                          const float* coords, int64_t q_total, int lvl,
-                          float* out, int out_stride, int out_offset,
-                          cudaStream_t stream) {
-  const int64_t threads = q_total * kTaps;
-  if (threads == 0) return (int)cudaSuccess;
-  const int64_t blocks = (threads + kLevelThreads - 1) / kLevelThreads;
-  level_kernel<<<(unsigned)blocks, kLevelThreads, 0, stream>>>(
-      level, h, w, coords, q_total, 1.f / (float)(1 << lvl), out, out_stride,
-      out_offset);
+int vft_corr_lookup_level(const float* l0, int h0, int w0, const float* l1,
+                          int h1, int w1, const float* l2, int h2, int w2,
+                          const float* l3, int h3, int w3, const float* coords,
+                          int64_t q_total, float* out, cudaStream_t stream) {
+  if (q_total == 0) return (int)cudaSuccess;
+  Pyramid pyr{{l0, l1, l2, l3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
+  const int64_t per_block = (int64_t)kLevelWarps * kGroup;
+  const int64_t blocks = (q_total + per_block - 1) / per_block;
+  level_kernel<<<(unsigned)blocks, kLevelWarps * kWarp, 0, stream>>>(
+      pyr, coords, q_total, out);
   return (int)cudaGetLastError();
 }
 
 // All four levels + convc1: level l (Q, h[l], w[l]) f32, coords (Q, 2) f32,
-// weight (324, c_out) f32 in the lookup's channel order, bias (c_out,) f32;
-// writes out (Q, c_out) = relu(lookup @ weight + bias).
+// weight (324, 256) f32 in the lookup's channel order, bias (256,) f32, both
+// 16-byte aligned; writes out (Q, 256) = relu(lookup @ weight + bias).
 int vft_corr_lookup_proj(const float* l0, int h0, int w0, const float* l1,
                          int h1, int w1, const float* l2, int h2, int w2,
                          const float* l3, int h3, int w3, const float* coords,
                          int64_t q_total, const float* weight,
-                         const float* bias, int c_out, float* out,
-                         cudaStream_t stream) {
+                         const float* bias, float* out, cudaStream_t stream) {
   if (q_total == 0) return (int)cudaSuccess;
+  // above 48 KB of shared memory only after opting in (per device)
+  const cudaError_t err = cudaFuncSetAttribute(
+      proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(ProjSmem));
+  if (err != cudaSuccess) return (int)err;
   Pyramid pyr{{l0, l1, l2, l3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   const int64_t blocks = (q_total + kTileQ - 1) / kTileQ;
-  proj_kernel<<<(unsigned)blocks, kProjThreads, 0, stream>>>(
-      pyr, coords, q_total, weight, bias, c_out, out);
+  proj_kernel<<<(unsigned)blocks, kProjThreads, sizeof(ProjSmem), stream>>>(
+      pyr, coords, q_total, weight, bias, out);
   return (int)cudaGetLastError();
 }
 
@@ -293,8 +624,8 @@ int vft_corr_lookup_packed(const float* packed, int64_t k_total,
     const int* g = geometry + 5 * l;
     geo.lvl[l] = PackedLevel{g[0], g[1], g[2], g[3], g[4]};
   }
-  const int64_t blocks = (threads + kLevelThreads - 1) / kLevelThreads;
-  packed_kernel<<<(unsigned)blocks, kLevelThreads, 0, stream>>>(
+  const int64_t blocks = (threads + kPackedThreads - 1) / kPackedThreads;
+  packed_kernel<<<(unsigned)blocks, kPackedThreads, 0, stream>>>(
       packed, k_total, coords, q_total, geo, out);
   return (int)cudaGetLastError();
 }
