@@ -12,7 +12,8 @@ that goes wrong:
 3. holds level (max abs error 1e-5), proj (1e-4) and packed (1e-5) against
    their plain versions on small ragged cases, whose query counts fill no
    whole tile: 3 pairs on a 7x11 grid (Q = 231), odd level sizes, whole
-   windows outside the plane, and a pyramid that pools to 1x1 and 0x0;
+   windows outside the plane, a pyramid that pools to 1x1 and 0x0, and NaN,
+   +-inf and +-1e30 coords (NaN in the same places, :func:`max_abs_err`);
 4. for each kernel, at the shapes its path gives it, holds the kernel
    against its plain PyTorch version on the card and times the kernel, the
    plain version and one library call of the same function
@@ -40,7 +41,10 @@ that goes wrong:
    forward (one launch per call, all four levels), and the features must
    match the fused run's (atol 1e-2, the value tier). One profiled run of
    the fused path (device time by kernel, the card's busy share), and fused
-   and unfused in turns (F U U F);
+   and unfused in turns (F U U F). Last, the fused extractor's RAFT switched
+   to ``corr_lookup_impl=packed``, counts set to 0 just before and read just
+   after: the packed kernel 20 times per forward, proj and level none, the
+   features within 1e-2 of the fused run's;
 7. drives the raft family, ``ExtractRAFT(...).extract_frames(...)``, at the
    YAML defaults (``precision=bfloat16``, 20 iterations,
    ``corr_lookup_impl=null``) with ``batch_size=32``, over 65 seeded
@@ -79,6 +83,9 @@ GRID_H, GRID_W = 32, 43  # 256x341 resized, padded to 256x344, /8
 ITERS = 20
 RAFT_BATCH = 32  # raft family pairs per RAFT forward
 RAFT_GRID_H, RAFT_GRID_W = FRAME_H // 8, FRAME_W // 8
+#: the sleep that keeps the card busy while median_ms queues its calls:
+#: about 50 ms at the H100's 1.98 GHz boost clock
+QUEUE_AHEAD_CYCLES = 100_000_000
 #: the bfloat16 flow bound of the JAX package (tests/test_raft.py)
 BF16_MEDIAN_PX, BF16_P99_PX = 0.1, 1.0
 
@@ -92,9 +99,14 @@ def card_line() -> str:
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, each between its own
+    pair of CUDA events. The card first sleeps while the host queues every
+    call, so a call whose host side outlasts its kernels (a wrapper around a
+    0.05 ms kernel) is timed by its device work alone, not by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -171,6 +183,17 @@ def bound(bytes_moved: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error of ``got`` against ``want`` where ``want`` is not NaN;
+    inf unless ``got`` is NaN in exactly the same places (a bare
+    ``(got - want).abs().max()`` is NaN as soon as one value is)."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    diff = (got - want).abs()[~nan]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def seeded_lookup(batch: int, grid_h: int, grid_w: int, seed: int):
     """Seeded random fmaps and coords spread +-12 px around the grid, as a
     RAFT forward of ``batch`` pairs on a (grid_h, grid_w) grid gives the
@@ -203,11 +226,11 @@ def packed_row(cl, pyramid, coords) -> dict:
     want = cl.corr_lookup_packed_ref(packed, metas, coords)
     gather = cl.corr_lookup_gather_ref(pyramid, coords)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
+    err = max_abs_err(got, want)
     # the gather formulation rounds the bilinear weights at another
     # magnitude (floor(c/2^l + d) against floor(c/2^l - r) + d), a few 1e-6
     # relative, so it is held to the proj kernel's 1e-4
-    err_gather = float((got - gather).abs().max())
+    err_gather = max_abs_err(got, gather)
     if not (err <= 1e-5 and err_gather <= 1e-4):
         raise AssertionError(f"corr_lookup_packed_cuda max abs err {err} "
                              f"(vs gather {err_gather})")
@@ -235,7 +258,7 @@ def proj_row(cl, pyramid, coords, weight, bias) -> dict:
     want = cl.corr_lookup_proj_ref(pyramid, coords, weight, bias)
     taps = torch.rand((q, 324), device=coords.device)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
+    err = max_abs_err(got, want)
     if not err <= 1e-4:
         raise AssertionError(f"corr_lookup_proj_cuda max abs err {err}")
     del got, want
@@ -268,7 +291,7 @@ def check_kernels(dev):
         got = cl.corr_lookup_level_cuda(pyramid, coords)
         want = cl.corr_lookup_gather_ref(pyramid, coords)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        err = max_abs_err(got, want)
         if not err <= 1e-5:
             raise AssertionError(f"corr_lookup_level_cuda max abs err {err}")
         b_ms, b_by = bound(*kernel_work(
@@ -321,15 +344,16 @@ def ragged_inputs(dev, name: str):
     the port's build_corr_pyramid on numpy-seeded fmaps: ``q231`` (3 pairs
     on a 7x11 grid, Q = 231, no whole 64-query tile), ``odd`` (odd level
     sizes, a level narrower than the 11-cell window), ``outside`` (whole
-    windows out of every level) and ``degenerate`` (levels of 1x1 and
-    0x0)."""
+    windows out of every level), ``degenerate`` (levels of 1x1 and 0x0)
+    and ``nonfinite`` (NaN, +-inf and +-1e30 coords)."""
     from video_features_tpu_torch.models.raft import build_corr_pyramid
 
     rng = np.random.default_rng({"q231": 7, "odd": 3, "outside": 2,
-                                 "degenerate": 4}[name])
+                                 "degenerate": 4, "nonfinite": 8}[name])
     b, h8, w8, c = {"q231": (3, 7, 11, 32), "odd": (2, 13, 11, 32),
                     "outside": (1, 12, 10, 64),
-                    "degenerate": (1, 6, 5, 16)}[name]
+                    "degenerate": (1, 6, 5, 16),
+                    "nonfinite": (1, 12, 10, 64)}[name]
     f1, f2 = (torch.from_numpy(rng.normal(size=(b, c, h8, w8)).astype(
         np.float32)).to(dev) for _ in range(2))
     pyramid = build_corr_pyramid(f1, f2)
@@ -343,12 +367,20 @@ def ragged_inputs(dev, name: str):
     else:
         coords = rng.uniform(-6.0, max(h8, w8) + 6.0,
                              size=(b, h8, w8, 2)).astype(np.float32)
+    if name == "nonfinite":
+        coords[0, 0, 0, 0] = np.nan
+        coords[0, 0, 1, 1] = np.nan
+        coords[0, 1, 2, 0] = np.inf
+        coords[0, 2, 3, 1] = -np.inf
+        coords[0, 3, 4, 0] = 1e30
+        coords[0, 4, 5, 1] = -1e30
     return pyramid, torch.from_numpy(coords).to(dev)
 
 
 def check_ragged(dev) -> dict:
     """Level (1e-5), proj (1e-4) and packed (1e-5) against their plain
-    versions on the ragged cases; the max abs error of each."""
+    versions on the ragged cases; the max abs error of each, NaN in the same
+    places (the packed lookup's NaN for a non-finite coord)."""
     from video_features_tpu_torch.kernels import corr_lookup as cl
 
     rng = np.random.default_rng(9)
@@ -358,23 +390,21 @@ def check_ragged(dev) -> dict:
         dev)
     errs = {}
     with torch.inference_mode():
-        for name in ("q231", "odd", "outside", "degenerate"):
+        for name in ("q231", "odd", "outside", "degenerate", "nonfinite"):
             pyramid, coords = ragged_inputs(dev, name)
             packed, metas = cl.pack_pyramid(pyramid)
             e = dict(
                 queries=coords.shape[0] * coords.shape[1] * coords.shape[2],
                 levels=level_shapes(pyramid),
-                level=float((cl.corr_lookup_level_cuda(pyramid, coords)
-                             - cl.corr_lookup_gather_ref(pyramid, coords)
-                             ).abs().max()),
-                proj=float((cl.corr_lookup_proj_cuda(pyramid, coords, weight,
-                                                     bias)
-                            - cl.corr_lookup_proj_ref(pyramid, coords, weight,
-                                                      bias)).abs().max()),
-                packed=float((cl.corr_lookup_packed_cuda(packed, metas, coords)
-                              - cl.corr_lookup_packed_ref(packed, metas,
-                                                          coords)
-                              ).abs().max()))
+                level=max_abs_err(
+                    cl.corr_lookup_level_cuda(pyramid, coords),
+                    cl.corr_lookup_gather_ref(pyramid, coords)),
+                proj=max_abs_err(
+                    cl.corr_lookup_proj_cuda(pyramid, coords, weight, bias),
+                    cl.corr_lookup_proj_ref(pyramid, coords, weight, bias)),
+                packed=max_abs_err(
+                    cl.corr_lookup_packed_cuda(packed, metas, coords),
+                    cl.corr_lookup_packed_ref(packed, metas, coords)))
             if not (e["level"] <= 1e-5 and e["proj"] <= 1e-4
                     and e["packed"] <= 1e-5):
                 raise AssertionError(f"ragged case {name}: {e}")
@@ -560,6 +590,28 @@ def run_slice(dev):
         ex.extract_frames(synthetic_frames(2 * STACK + 1, 17), 25.0)
         torch.cuda.synchronize()
         ab[name].append(2 / (time.perf_counter() - t0))
+
+    # the packed path: RAFT._lookup reads corr_lookup_impl on every forward
+    raft = fused.flow_stream.raft
+    raft.corr_lookup_impl = "packed"
+    fused.flow_stream.forwards = 0
+    reset_counts(cl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = fused.extract_frames(synthetic_frames(2 * STACK + 1, 11), 25.0)
+    torch.cuda.synchronize()
+    packed_s = time.perf_counter() - t0
+    raft.corr_lookup_impl = None
+    packed_counts = read_counts(cl)
+    fwd_p = fused.flow_stream.forwards
+    if fwd_p < 1 or packed_counts != {"level": 0, "proj": 0,
+                                      "packed": ITERS * fwd_p}:
+        raise AssertionError(f"i3d packed path: launches {packed_counts} "
+                             f"for {fwd_p} RAFT forwards")
+    diffs_p = {s: float(np.abs(packed[s] - feats[s]).max()) for s in
+               ("rgb", "flow")}
+    if not max(diffs_p.values()) <= 1e-2:
+        raise AssertionError(f"packed vs fused features differ: {diffs_p}")
     return dict(stacks=2, seconds=seconds, stacks_per_s=2 / seconds,
                 flow_forwards=fwd, proj_launches=proj_launches,
                 unfused_stacks_per_s=2 / unfused_s,
@@ -567,6 +619,10 @@ def run_slice(dev):
                 level_launches=level_launches,
                 unfused_vs_fused_max_abs=diffs,
                 fused_unfused_turns_stacks_per_s=ab,
+                packed_stacks_per_s=2 / packed_s,
+                packed_flow_forwards=fwd_p,
+                packed_launches=packed_counts["packed"],
+                packed_vs_fused_max_abs=diffs_p,
                 profile=profile), proj_launches, level_launches
 
 
@@ -697,6 +753,8 @@ def main() -> int:
         row["card"] = card
     next(r for r in kernels if r["name"] == "corr_lookup_proj_cuda")[
         "launches_raft_default"] = raft_stats["default_launches"]["proj"]
+    next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
+        "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
     raft_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))

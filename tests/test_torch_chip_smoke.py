@@ -85,3 +85,33 @@ def test_bound_picks_operations_for_proj_and_bytes_for_level(batch, grid):
     assert by == "bytes"
     # the output alone: 324 floats a query over the card's memory rate
     assert level_ms >= q * 324 * 4 / cs.HBM_BYTES_PER_S * 1e3
+
+
+def test_max_abs_err_passes_equal_nan_layouts():
+    want = torch.tensor([[1.0, float("nan"), 3.0], [float("nan"), 0.5, 0.0]])
+    got = want.clone()
+    got[0, 0] += 2.0 ** -19  # exact in float32
+    assert cs.max_abs_err(got, want) == 2.0 ** -19
+    assert cs.max_abs_err(want, want) == 0.0
+    every = torch.full((2, 3), float("nan"))
+    assert cs.max_abs_err(every, every) == 0.0
+
+
+@pytest.mark.parametrize("where", ["got", "want"])
+def test_max_abs_err_fails_a_nan_in_one_place_only(where):
+    want = torch.tensor([1.0, float("nan"), 3.0])
+    got = want.clone()
+    (got if where == "got" else want)[2] = float("nan")
+    assert not cs.max_abs_err(got, want) <= 1e-5
+
+
+def test_ragged_phase_runs_its_cases_on_the_cpu():
+    """On the CPU every wrapper takes its plain version, so the phase holds
+    each plain version against itself: every case runs, the ``nonfinite``
+    one included (NaN, +-inf and +-1e30 coords), with no error."""
+    _, coords = cs.ragged_inputs(torch.device("cpu"), "nonfinite")
+    assert torch.isnan(coords).sum() == 2 and torch.isinf(coords).sum() == 2
+    errs = cs.check_ragged(torch.device("cpu"))
+    assert set(errs) == {"q231", "odd", "outside", "degenerate", "nonfinite"}
+    for e in errs.values():
+        assert e["level"] == e["proj"] == e["packed"] == 0.0

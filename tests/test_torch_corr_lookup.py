@@ -9,8 +9,12 @@ numpy-seeded pyramids and coords. Tolerances: the level and packed lookups
 compared exactly (byte for byte). The packed lookup also runs on two cases
 of its own: a level wider than 128 (``j = 1``, ``k = 256``) and a pyramid
 with 17 row groups, which the JAX kernel's VMEM gate refuses (there it is
-held against the JAX gather only). The card-only test holds each CUDA
-kernel against its plain version on the card.
+held against the JAX gather only). The ``nonfinite`` case has NaN, +inf,
+-inf and +-1e30 coords: the plain versions return, as the JAX functions do,
+zeros from the gather (``relu(bias)`` from the projection) and NaN from the
+packed and one-hot formulations (their weights ``c - floor(c)`` are NaN),
+held NaN for NaN. The card-only test holds each CUDA kernel against its
+plain version on the card.
 """
 import numpy as np
 import pytest
@@ -30,11 +34,13 @@ def _case(name):
     """(pyramid levels (B, P, Hl, Wl) np, coords (B, H, W, 2) np) for the
     cases of tests/test_kernels.py: random coords spread slightly past the
     plane, integer coords, whole windows out of the plane, odd level sizes
-    and a pyramid that pools down to 1x1 and 0x0; and 3 pairs on a 7x11 grid
-    (Q = 231, no whole tile of the CUDA kernels)."""
+    and a pyramid that pools down to 1x1 and 0x0; 3 pairs on a 7x11 grid
+    (Q = 231, no whole tile of the CUDA kernels); and non-finite and huge
+    coords."""
     rng = np.random.default_rng({"random": 0, "integer": 1, "outside": 2,
                                  "odd": 3, "degenerate": 4, "wide": 5,
-                                 "groups17": 6, "q231": 7}[name])
+                                 "groups17": 6, "q231": 7,
+                                 "nonfinite": 8}[name])
     b, h8, w8, c = {"odd": (2, 13, 11, 32), "degenerate": (1, 6, 5, 16),
                     "wide": (1, 3, 130, 16), "groups17": (1, 34, 43, 8),
                     "q231": (3, 7, 11, 32)}.get(name, (1, 12, 10, 64))
@@ -58,10 +64,18 @@ def _case(name):
     else:
         coords = rng.uniform(-6.0, max(h8, w8) + 6.0,
                              size=(b, h8, w8, 2)).astype(np.float32)
+    if name == "nonfinite":
+        coords[0, 0, 0, 0] = np.nan   # x
+        coords[0, 0, 1, 1] = np.nan   # y
+        coords[0, 1, 2, 0] = np.inf
+        coords[0, 2, 3, 1] = -np.inf
+        coords[0, 3, 4, 0] = 1e30     # finite, far outside every level
+        coords[0, 4, 5, 1] = -1e30
     return pyramid, coords
 
 
-CASES = ["random", "integer", "outside", "odd", "degenerate", "q231"]
+CASES = ["random", "integer", "outside", "odd", "degenerate", "q231",
+         "nonfinite"]
 #: the packed layout's own edge cases: a level wider than 128 lanes, and
 #: 17 row groups at level 0 (past the JAX kernel's G <= 16 gate)
 PACKED_CASES = CASES + ["wide", "groups17"]
@@ -69,6 +83,18 @@ PACKED_CASES = CASES + ["wide", "groups17"]
 
 def _torch(pyramid, coords):
     return [torch.from_numpy(p) for p in pyramid], torch.from_numpy(coords)
+
+
+def _finite(coords):
+    """(B, H, W) mask of the queries whose two coords are finite."""
+    return np.isfinite(coords).all(-1)
+
+
+def test_nonfinite_case_has_nan_inf_and_huge_coords():
+    _, coords = _case("nonfinite")
+    assert np.isnan(coords).sum() == 2 and np.isinf(coords).sum() == 2
+    assert (np.abs(coords) == np.float32(1e30)).sum() == 2
+    assert _finite(coords).sum() == coords.size // 2 - 4
 
 
 def test_degenerate_case_pools_to_empty_levels():
@@ -85,14 +111,20 @@ def test_level_lookup_matches_jax(name):
     jp, jc = [jnp.asarray(p) for p in pyramid], jnp.asarray(coords)
     gather = np.asarray(jraft.corr_lookup_gather(jp, jc))
     assert got.shape == gather.shape == coords.shape[:3] + (324,)
-    np.testing.assert_allclose(got, gather, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, gather, atol=1e-5, rtol=0,
+                               equal_nan=True)
     # the JAX kernel takes no level of zero size (degenerate's 0x0, q231's
-    # 0x1 fourth level)
+    # 0x1 fourth level), and its one-hot selectors give NaN, not the
+    # gather's zeros, for a non-finite coord
+    finite = _finite(coords)
     if name not in ("degenerate", "q231"):
         pallas = np.asarray(jcl.corr_lookup_pallas(jp, jc, interpret=True))
-        np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got[finite], pallas[finite], atol=1e-5,
+                                   rtol=0)
     if name == "outside":  # whole windows outside every level: exact zeros
         assert np.all(got[:, 0] == 0.0)
+    # a non-finite coord: zeros, as the JAX gather gives
+    assert np.all(got[~finite] == 0.0)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -101,7 +133,8 @@ def test_onehot_lookup_matches_jax(name):
     got = tcl.corr_lookup_onehot_ref(*_torch(pyramid, coords)).numpy()
     want = np.asarray(jcl.corr_lookup_onehot(
         [jnp.asarray(p) for p in pyramid], jnp.asarray(coords)))
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, equal_nan=True)
+    assert np.isnan(got[~_finite(coords)]).all()
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -120,12 +153,22 @@ def test_proj_lookup_matches_jax(name):
     kernel = np.asarray(jcl.corr_lookup_proj(
         stacked, metas, jc, jnp.asarray(weight), jnp.asarray(bias),
         interpret=True))
+    gather = np.asarray(jraft.corr_lookup_gather(jp, jc))
     assert got.shape == ref.shape == coords.shape[:3] + (24,)
-    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
-    np.testing.assert_allclose(got, kernel, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got, np.maximum(gather @ weight + bias, 0),
+                               atol=1e-4, rtol=0)
+    # the JAX projections' one-hot selectors give NaN for a non-finite coord
+    # (the Pallas kernel only for a NaN); the gather's zeros give relu(bias)
+    finite = _finite(coords)
+    np.testing.assert_allclose(got[finite], ref[finite], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[finite], kernel[finite], atol=1e-4,
+                               rtol=0)
     if name == "outside":  # zeros rule: relu(bias) exactly
         np.testing.assert_array_equal(
             got[:, 0], np.broadcast_to(np.maximum(bias, 0), got[:, 0].shape))
+    np.testing.assert_array_equal(
+        got[~finite],
+        np.broadcast_to(np.maximum(bias, 0), got[~finite].shape))
 
 
 @pytest.mark.parametrize("hl,wl", [(0, 0), (1, 1), (3, 5), (30, 40),
@@ -161,14 +204,20 @@ def test_packed_lookup_matches_jax(name):
     jp, jc = [jnp.asarray(p) for p in pyramid], jnp.asarray(coords)
     gather = np.asarray(jraft.corr_lookup_gather(jp, jc))
     assert got.shape == gather.shape == coords.shape[:3] + (324,)
-    np.testing.assert_allclose(got, gather, atol=1e-5, rtol=0)
+    # a non-finite coord: NaN weights (c - floor(c)), so NaN taps where the
+    # gather gives zeros, as the JAX packed kernel gives
+    finite = _finite(coords)
+    np.testing.assert_allclose(got[finite], gather[finite], atol=1e-5,
+                               rtol=0)
+    assert np.isnan(got[~finite]).all()
     supported = jcl.fused_lookup_supported(jp)
     assert supported == (name != "groups17")
     if supported:
         jpacked, jmetas = jcl.pack_pyramid(jp)
         kernel = np.asarray(jcl.corr_lookup_packed(jpacked, jmetas, jc,
                                                    interpret=True))
-        np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=0,
+                                   equal_nan=True)
     if name == "outside":  # whole windows outside every level: exact zeros
         assert np.all(got[:, 0] == 0.0)
     if name == "degenerate":  # the 0x0 level's 81 taps are zeros

@@ -33,7 +33,10 @@ Beside each kernel is its plain PyTorch version, :func:`corr_lookup_gather_ref`
 the packed plane through the same address map as the kernel). A wrapper
 takes the plain version only for a CPU tensor; for a CUDA tensor it launches
 its kernel or raises. Each wrapper counts its kernel launches in a plain
-integer attribute, ``launches``.
+integer attribute, ``launches``. A NaN or infinite coord gives what the JAX
+counterpart gives: zeros from the gather (``relu(bias)`` from the
+projection), NaN from the packed lookup, whose weights ``c - floor(c)`` are
+NaN; kernel and plain version agree.
 """
 from __future__ import annotations
 
@@ -86,8 +89,9 @@ def corr_lookup_gather_ref(pyramid: Sequence[torch.Tensor],
         for xi, wxf in ((x0, 1.0 - wx1), (x0 + 1, wx1)):
             for yi, wyf in ((y0, 1.0 - wy1), (y0 + 1, wy1)):
                 valid = (xi >= 0) & (xi <= wl - 1) & (yi >= 0) & (yi <= hl - 1)
-                idx = (yi.clamp(0, hl - 1) * wl
-                       + xi.clamp(0, wl - 1)).to(torch.int64)
+                # the index only from in-range corners: a non-finite coord
+                # would cast to an index out of bounds
+                idx = torch.where(valid, yi * wl + xi, 0.0).to(torch.int64)
                 val = torch.gather(flat, 2, idx)
                 acc = acc + torch.where(valid, wxf * wyf * val, 0.0)
         out.append(acc)
@@ -225,9 +229,14 @@ def corr_lookup_packed_ref(packed: torch.Tensor,
 
         def corner(dx: int, dy: int) -> torch.Tensor:
             x, r = xs + dx, ys + dy
-            valid = (x >= 0) & (x <= m.wl - 1) & (r >= 0) & (r <= m.hl - 1)
-            xi = x.clamp(0, m.wl - 1).to(torch.int64)
-            ri = r.clamp(0, m.hl - 1).to(torch.int64)
+            x_in = (x >= 0) & (x <= m.wl - 1)
+            r_in = (r >= 0) & (r <= m.hl - 1)
+            valid = x_in & r_in
+            # the lane only from in-range columns and rows (a non-finite
+            # coord would cast to an index out of bounds); the weights keep
+            # its NaN
+            xi = torch.where(x_in, x, 0.0).to(torch.int64)
+            ri = torch.where(r_in, r, 0.0).to(torch.int64)
             lane = m.off + (ri // m.j) * m.k + (ri % m.j) * m.wl + xi
             val = torch.gather(packed, 1, lane.reshape(q, n * n))
             return torch.where(valid, val.reshape(q, n, n), 0.0)
@@ -365,10 +374,16 @@ def corr_lookup_packed_cuda(packed: torch.Tensor,
                             coords: torch.Tensor,
                             radius: int = RADIUS) -> torch.Tensor:
     """Packed lookup kernel: ``(B, H, W, 324)``, the same function as
-    :func:`corr_lookup_packed_ref` (and as :func:`corr_lookup_gather_ref` on
-    the unpacked levels). One launch for all four levels. No size gate: the
-    JAX ``fused_lookup_supported`` limit (``G <= 16``, 2 MiB per query) is
-    the TPU's VMEM envelope, and this kernel reads device memory directly."""
+    :func:`corr_lookup_packed_ref`, bit for bit, NaN where a coord is not
+    finite (and, on finite coords, as :func:`corr_lookup_gather_ref` on the
+    unpacked levels within float32 rounding). One launch for all four
+    levels: a warp stages the 10x10 corner cells of 4 queries per level in
+    shared memory through the layout's address map, blends each query's 81
+    taps with its four shared weights and writes the 4 rows as whole lines.
+    Bound by bytes: the window cells read and the taps written. No size
+    gate: the JAX ``fused_lookup_supported`` limit (``G <= 16``, 2 MiB per
+    query) is the TPU's VMEM envelope, and this kernel reads device memory
+    directly."""
     if coords.device.type == "cpu":
         return corr_lookup_packed_ref(packed, metas, coords, radius)
     q = _check_coords(coords, radius, len(metas))

@@ -32,8 +32,6 @@
 // one column of 9 taps, computing its y-terms once. Coords are read once per
 // query, by one lane, and shuffled. A centre that is not finite or whose
 // window misses the plane gives zeros, as every corner test failed before.
-// The address map is a template parameter (PlaneMap here); the packed layout
-// needs only its own map.
 //
 // What bounds them on the card (shapes of the I3D flow stream, one 64-frame
 // stack at 256x344: Q = 64 * 32 * 43 = 88,064 queries per GRU iteration):
@@ -66,17 +64,25 @@
 // vft_corr_lookup_packed replaces `_packed_kernel` (_corr_lookup_packed_flat):
 // the same 324 taps, all four levels in one launch, read from the lane-dense
 // packed (Q, K_total) plane of pack_pyramid. Level l's row r lives in group
-// r / j_l at sub-row r % j_l, so the corner (r, x) of query q is the float at
+// r / j_l at sub-row r % j_l, so the cell (r, x) of query q is the float at
 // q * K_total + off_l + (r / j_l) * k_l + (r % j_l) * w_l + x. The TPU kernel
 // selects a row's group with a G-way select-accumulate and the corners with
-// one-hot matmuls (Mosaic has no gather); here each thread computes that
-// address and reads its four corners directly. The bounds test is on (r, x)
-// against the level's (h_l, w_l), never on the zero fill of the phantom rows
-// and the lane tail. One thread per (query, tap): neighbouring threads write
-// neighbouring taps of one query (coalesced stores) and read one query's
-// packed row through L1. Bound: bytes, as for the level kernel; the packed
-// plane's zero fill is never read. No size gate: JAX's G <= 16 and 2 MiB per
-// query limits are the TPU's VMEM envelope.
+// one-hot matmuls (Mosaic has no gather). Here a warp stages the windows of
+// 4 queries as level does, but in the packed formulation's own geometry and
+// rounding, which it must keep to match JAX bit for bit: the origin is
+// (ix, iy) = floor(c / 2^l - 4), tap (xx, yy) has its corners at
+// (ix + xx + {0, 1}, iy + yy + {0, 1}), so the window is 10x10 cells from
+// (ix, iy) (the gather's 11x11 from floor(p) - 4 can sit one cell off), and
+// the four weights (1-fx)(1-fy), fx(1-fy), (1-fx)fy, fx fy are computed once
+// per query and level and shared by its 81 taps. The address map runs once
+// per staged cell, its division by j_l a multiply by the reciprocal; the
+// bounds test is on (r, x) against the level's (h_l, w_l), never on the zero
+// fill of the phantom rows and the lane tail, and compares floats first. A
+// window outside the plane blends zero cells with the query's weights: 0 for
+// a finite centre, NaN for a NaN or infinite one, as JAX gives; a 0x0 level
+// gives exact zeros. Bound: bytes, as for the level kernel (the same cells
+// and output; the packed plane's zero fill is never read). No size gate:
+// JAX's G <= 16 and 2 MiB per query limits are the TPU's VMEM envelope.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,6 +106,16 @@ constexpr int kCellLoads = (kCells + kWarp - 1) / kWarp;  // 4 per lane
 constexpr int kLevelWarps = 4;
 // staging rows of 328 floats: 16-byte aligned, 4 rows on 4 bank offsets
 constexpr int kRowStride = kK + 4;
+
+// packed kernel: its own 10x10 window from floor(c / 2^l - 4)
+constexpr int kPackedWarps = 4;
+constexpr int kPackedSide = kWin + 1;                     // 10
+constexpr int kPackedCells = kPackedSide * kPackedSide;   // 100
+constexpr int kPackedLoads = (kPackedCells + kWarp - 1) / kWarp;  // 4
+// staged rows of 12 floats, queries 137 floats apart: the blend's reads are
+// free of bank conflicts, the loader's stores 2-way
+constexpr int kPackedPitch = 12;
+constexpr int kPackedStride = 137;
 
 // proj kernel
 constexpr int kCout = 256;    // convc1's output channels, the only width taken
@@ -209,8 +225,8 @@ __device__ __forceinline__ Window shfl_window(float xy, int first, float scale,
 // whether it lies in the plane (never for a dead window; `src` is only
 // meaningful where `in`). The level kernel loads through registers, the
 // proj kernel copies with cp.async.
-template <class Map, class Cell>
-__device__ __forceinline__ void window_cells(const Map& map, int64_t q0,
+template <class Cell>
+__device__ __forceinline__ void window_cells(const PlaneMap& map, int64_t q0,
                                              float xy, int first, float scale,
                                              int lane, Cell&& cell) {
   int row[kCellLoads], col[kCellLoads];
@@ -311,6 +327,18 @@ __device__ __forceinline__ void blend_group(const float* win, float xy,
   }
 }
 
+// The staged taps of a warp's nq <= 4 queries (rows of kRowStride floats),
+// which are contiguous in out, as float4 stores of whole 128-byte lines.
+__device__ __forceinline__ void store_rows(const float* rows, int64_t q0,
+                                           int nq, int lane, float* out) {
+  float4* dst = reinterpret_cast<float4*>(out + q0 * kK);
+  for (int f = lane; f < nq * (kK / 4); f += kWarp) {
+    const int r = f / (kK / 4);
+    const int c = f - r * (kK / 4);
+    dst[f] = *reinterpret_cast<const float4*>(rows + r * kRowStride + 4 * c);
+  }
+}
+
 // One group of 4 queries a warp: the group's four windows of a level go
 // through registers into shared memory, the 324 taps into a staging row per
 // query, and the 4 rows, which are contiguous in out, leave as whole-line
@@ -354,12 +382,7 @@ level_kernel(Pyramid pyr, const float* __restrict__ coords, int64_t q_total,
                 });
     __syncwarp();
   }
-  float4* dst = reinterpret_cast<float4*>(out + q0 * kK);
-  for (int f = lane; f < nq * (kK / 4); f += kWarp) {
-    const int r = f / (kK / 4);
-    const int c = f - r * (kK / 4);
-    dst[f] = *reinterpret_cast<const float4*>(rows + r * kRowStride + 4 * c);
-  }
+  store_rows(rows, q0, nq, lane, out);
 }
 
 struct ProjSmem {
@@ -506,67 +529,160 @@ struct PackedGeometry {
   PackedLevel lvl[kLevels];
 };
 
-// Corner (r, x) of one query's packed row, zero outside the level's plane.
-// r and x arrive as floats (floor of a coordinate plus an integer offset) and
-// are compared before any integer conversion, so far-away coords cannot wrap.
-__device__ __forceinline__ float packed_corner(const float* __restrict__ row,
-                                               const PackedLevel& m, float r,
-                                               float x) {
-  if (!(r >= 0.f && r <= (float)(m.h - 1) && x >= 0.f &&
-        x <= (float)(m.w - 1))) {
-    return 0.f;
-  }
-  const int ri = (int)r;
-  const int xi = (int)x;
-  return __ldg(row + m.off + (ri / m.j) * m.k + (ri % m.j) * m.w + xi);
+// One query's window at one level in the packed formulation (JAX
+// _packed_kernel, corr_lookup_packed_ref), rounded op by op as there:
+// origin (ix, iy) = floor(c / 2^l - 4), the four weights every tap shares,
+// and whether the 10x10 cells from the origin meet the plane. The test
+// compares floats, so a far-away centre never reaches an integer conversion;
+// NaN and inf fail it (and make the weights NaN).
+struct PackedWindow {
+  float ix, iy, w00, w10, w01, w11;
+  bool live;
+};
+
+__device__ __forceinline__ PackedWindow packed_window(float cx, float cy,
+                                                      float scale,
+                                                      const PackedLevel& m) {
+  PackedWindow o;
+  const float px0 = __fsub_rn(__fmul_rn(cx, scale), (float)kRadius);
+  const float py0 = __fsub_rn(__fmul_rn(cy, scale), (float)kRadius);
+  o.ix = floorf(px0);
+  o.iy = floorf(py0);
+  const float fx = __fsub_rn(px0, o.ix);
+  const float fy = __fsub_rn(py0, o.iy);
+  const float gx = __fsub_rn(1.f, fx);
+  const float gy = __fsub_rn(1.f, fy);
+  o.w00 = __fmul_rn(gx, gy);
+  o.w10 = __fmul_rn(fx, gy);
+  o.w01 = __fmul_rn(gx, fy);
+  o.w11 = __fmul_rn(fx, fy);
+  o.live = o.ix > (float)-kPackedSide && o.ix < (float)m.w &&
+           o.iy > (float)-kPackedSide && o.iy < (float)m.h;
+  return o;
 }
 
-constexpr int kPackedThreads = 256;
+// The window of the query whose coords lanes `first`, `first` + 1 hold.
+__device__ __forceinline__ PackedWindow shfl_packed_window(
+    float xy, int first, float scale, const PackedLevel& m) {
+  const float cx = __shfl_sync(kFull, xy, first);
+  const float cy = __shfl_sync(kFull, xy, first + 1);
+  return packed_window(cx, cy, scale, m);
+}
 
-__global__ void __launch_bounds__(kPackedThreads)
+// Tap (xx, yy) from its corner c = cell (yy, xx) of a staged window: the
+// blend of JAX _packed_kernel in its order, rounded op by op (no FMA
+// contraction), like the plain version. A zero cell outside the plane gives
+// what the plain version's zero corner gives (0, or NaN with NaN weights).
+__device__ __forceinline__ float packed_tap(const float* c,
+                                            const PackedWindow& o) {
+  float v = __fmul_rn(o.w00, c[0]);
+  v = __fadd_rn(v, __fmul_rn(o.w10, c[1]));
+  v = __fadd_rn(v, __fmul_rn(o.w01, c[kPackedPitch]));
+  return __fadd_rn(v, __fmul_rn(o.w11, c[kPackedPitch + 1]));
+}
+
+// One group of 4 queries a warp, level by level: the 4 windows of 10x10
+// cells go through registers into shared memory (row r of query q at
+// q * K_total + off + (r / j) * k + (r % j) * w, the division by j a
+// multiply by its float reciprocal, exact for r < 2^22), the 324 taps into a
+// staging row per query, and the 4 rows, which are contiguous in out, leave
+// as whole-line float4 stores.
+__global__ void __launch_bounds__(kPackedWarps * kWarp)
 packed_kernel(const float* __restrict__ packed, int64_t k_total,
               const float* __restrict__ coords, int64_t q_total,
               PackedGeometry geo, float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q_total * kK) return;
-  const int64_t q = i / kK;
-  const int t = (int)(i - q * kK);
-  const int lvl = t / kTaps;
-  const int tap = t - lvl * kTaps;
-  const int xx = tap / kWin;  // x-offset slowest
-  const int yy = tap - xx * kWin;
-  const float cx = coords[2 * q];
-  const float cy = coords[2 * q + 1];
-  const float* row = packed + q * k_total;
-  float v = 0.f;
+  __shared__ float win_s[kPackedWarps][kGroup * kPackedStride];
+  __shared__ __align__(16) float row_s[kPackedWarps][kGroup * kRowStride];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t q0 = ((int64_t)blockIdx.x * kPackedWarps + warp) * kGroup;
+  if (q0 >= q_total) return;  // no block-wide barrier follows
+  const int nq = q_total - q0 < kGroup ? (int)(q_total - q0) : kGroup;
+  // lane i < 2 * nq holds float i of the group's coords; a missing query's
+  // NaN centre gives a dead window (its taps are never stored)
+  const float xy = lane < 2 * nq ? coords[2 * q0 + lane] : nanf("");
+  float* win = win_s[warp];
+  float* rows = row_s[warp];
+  // this lane's cells i = lane + 32 c of a window, row by row, consecutive
+  // lanes on consecutive x
+  int crow[kPackedLoads], ccol[kPackedLoads];
+#pragma unroll
+  for (int c = 0; c < kPackedLoads; ++c) {
+    const int i = lane + c * kWarp;
+    crow[c] = i / kPackedSide;
+    ccol[c] = i - crow[c] * kPackedSide;
+  }
+  // the blend: lane (g, yy) = (lane % 4, lane / 4) takes the column yy < 8
+  // of query g; the 36 taps of the columns yy = 8 follow, one a lane
+  const int bg = lane % kGroup;
+  const int byy = lane / kGroup;
+  constexpr int kLast = kGroup * kWin;
 #pragma unroll
   for (int l = 0; l < kLevels; ++l) {
-    if (l != lvl) continue;  // static index into geo: no local-memory copy
-    const PackedLevel& m = geo.lvl[l];
-    if (m.h == 0) break;  // a 0x0 level: every tap is zero
+    const PackedLevel m = geo.lvl[l];  // static index: no local-memory copy
+    float* taps = rows + l * kTaps;
+    if (m.h == 0) {  // a 0x0 level: exact zeros, whatever the coords
+      for (int f = lane; f < kGroup * kTaps; f += kWarp) {
+        const int g = f / kTaps;
+        taps[g * kRowStride + f - g * kTaps] = 0.f;
+      }
+      continue;
+    }
     const float scale = 1.f / (float)(1 << l);
-    const float px0 = __fsub_rn(__fmul_rn(cx, scale), (float)kRadius);
-    const float py0 = __fsub_rn(__fmul_rn(cy, scale), (float)kRadius);
-    const float ix = floorf(px0);
-    const float iy = floorf(py0);
-    const float fx = __fsub_rn(px0, ix);
-    const float fy = __fsub_rn(py0, iy);
-    const float x0 = ix + (float)xx;
-    const float r0 = iy + (float)yy;
-    const float v00 = packed_corner(row, m, r0, x0);
-    const float v10 = packed_corner(row, m, r0, x0 + 1.f);
-    const float v01 = packed_corner(row, m, r0 + 1.f, x0);
-    const float v11 = packed_corner(row, m, r0 + 1.f, x0 + 1.f);
-    // the blend of JAX _packed_kernel, rounded op by op (no FMA contraction)
-    // like the plain version
-    const float gx = __fsub_rn(1.f, fx);
-    const float gy = __fsub_rn(1.f, fy);
-    v = __fmul_rn(__fmul_rn(gx, gy), v00);
-    v = __fadd_rn(v, __fmul_rn(__fmul_rn(fx, gy), v10));
-    v = __fadd_rn(v, __fmul_rn(__fmul_rn(gx, fy), v01));
-    v = __fadd_rn(v, __fmul_rn(__fmul_rn(fx, fy), v11));
+    const float inv_j = 1.f / (float)m.j;
+    float v[kGroup][kPackedLoads];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const PackedWindow o = shfl_packed_window(xy, 2 * g, scale, m);
+      const int ix = o.live ? (int)o.ix : 0;
+      const int iy = o.live ? (int)o.iy : 0;
+      const float* src = packed + (q0 + g) * k_total + m.off;
+#pragma unroll
+      for (int c = 0; c < kPackedLoads; ++c) {
+        const int r = iy + crow[c];
+        const int x = ix + ccol[c];
+        v[g][c] = 0.f;
+        if (o.live && lane + c * kWarp < kPackedCells &&
+            (unsigned)r < (unsigned)m.h && (unsigned)x < (unsigned)m.w) {
+          const int grp = (int)(((float)r + 0.5f) * inv_j);
+          v[g][c] = __ldg(src + grp * m.k + (r - grp * m.j) * m.w + x);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+      for (int c = 0; c < kPackedLoads; ++c) {
+        if (lane + c * kWarp < kPackedCells) {
+          win[g * kPackedStride + crow[c] * kPackedPitch + ccol[c]] = v[g][c];
+        }
+      }
+    }
+    __syncwarp();
+    {
+      const PackedWindow o = shfl_packed_window(xy, 2 * bg, scale, m);
+      const float* cell = win + bg * kPackedStride + byy * kPackedPitch;
+#pragma unroll
+      for (int xx = 0; xx < kWin; ++xx) {
+        taps[bg * kRowStride + xx * kWin + byy] = packed_tap(cell + xx, o);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < (kLast + kWarp - 1) / kWarp; ++c) {
+      const int e = lane + c * kWarp;
+      const int eg = (e < kLast ? e : kLast - 1) / kWin;
+      // every lane shuffles, the lanes past the 36 taps store nothing
+      const PackedWindow o = shfl_packed_window(xy, 2 * eg, scale, m);
+      if (e < kLast) {
+        const int xx = e - eg * kWin;
+        taps[eg * kRowStride + xx * kWin + kWin - 1] = packed_tap(
+            win + eg * kPackedStride + (kWin - 1) * kPackedPitch + xx, o);
+      }
+    }
+    __syncwarp();  // the window is consumed before the next level's
   }
-  out[i] = v;
+  __syncwarp();  // every lane's taps are in the rows
+  store_rows(rows, q0, nq, lane, out);
 }
 
 }  // namespace
@@ -612,20 +728,20 @@ int vft_corr_lookup_proj(const float* l0, int h0, int w0, const float* l1,
 
 // All four levels from the packed plane: packed (Q, k_total) f32, coords
 // (Q, 2) f32 level-0 (x, y), geometry = 4 x (h, w, j, k, off) host ints
-// (h == 0 for a 0x0 level); writes out (Q, 324).
+// (h == 0 for a 0x0 level); writes out (Q, 324), 16-byte aligned.
 int vft_corr_lookup_packed(const float* packed, int64_t k_total,
                            const float* coords, int64_t q_total,
                            const int* geometry, float* out,
                            cudaStream_t stream) {
-  const int64_t threads = q_total * kK;
-  if (threads == 0) return (int)cudaSuccess;
+  if (q_total == 0) return (int)cudaSuccess;
   PackedGeometry geo;
   for (int l = 0; l < kLevels; ++l) {
     const int* g = geometry + 5 * l;
     geo.lvl[l] = PackedLevel{g[0], g[1], g[2], g[3], g[4]};
   }
-  const int64_t blocks = (threads + kPackedThreads - 1) / kPackedThreads;
-  packed_kernel<<<(unsigned)blocks, kPackedThreads, 0, stream>>>(
+  const int64_t per_block = (int64_t)kPackedWarps * kGroup;
+  const int64_t blocks = (q_total + per_block - 1) / per_block;
+  packed_kernel<<<(unsigned)blocks, kPackedWarps * kWarp, 0, stream>>>(
       packed, k_total, coords, q_total, geo, out);
   return (int)cudaGetLastError();
 }
