@@ -57,9 +57,33 @@ that goes wrong:
    own bfloat16 bound: the fused kernel projects in float32, the packed
    path runs convc1 in bfloat16). Pairs/s of both in turns (D P P D), and
    one profiled run of the default path;
-8. prints one JSON line of the i3d slice's numbers, one of the raft
-   family's, one of the kernels' numbers, and last
-   ``{"ok": true, "device": {...}}``.
+8. drives the pwc family, ``ExtractPWC(...).extract_frames(...)``, at the
+   YAML defaults (``precision=bfloat16``) with ``batch_size=32``, over 65
+   seeded synthetic 240x320 frames (64 flows, two PWC forwards): the flows
+   ``(64, 2, 240, 320)`` and finite, the timestamps those of frames 0..64,
+   no lookup kernel launched; then the same in ``float32``, the bfloat16
+   flows within the JAX package's bfloat16 band of the float32 ones
+   (cosine >= 0.98, max abs <= 2.0 px, ``telemetry/parity.py``). Pairs/s of
+   both in turns (B F F B), one profiled run of the default path, with the
+   device time of the cost volume and the warp read off profiler ranges;
+9. drives I3D with PWC flow, ``ExtractI3D(...).extract_frames(...)`` at the
+   i3d YAML defaults (``flow_type=pwc``, both streams, float32,
+   ``flow_stack_batch=auto``) with ``clip_batch_size=2`` and
+   ``resize=device``, over the slice's 129 frames (two 64-frame stacks at
+   256x341, so PWC works at 256x384): features ``(2, 1024)`` per stream and
+   finite, no lookup kernel launched; then ``precision=bfloat16``, its
+   features within the head band of the float32 run's (cosine >= 0.99,
+   max abs <= 0.5). Stacks/s of both in turns (F B B F), one profiled run
+   of each (cost volume and warp ranges as above). Then ``flow_type=raft precision=bfloat16`` once,
+   counts set to 0 just before and read just after: proj 20 launches per
+   RAFT forward, its features in the same band against the slice's fused
+   float32 run. Last, the plain cost volume alone (CUDA events) at the five
+   decoder levels' shapes of one stack's 64 pairs, in float32 and
+   bfloat16, its sum per stack and its share of the profiled run's device
+   time;
+10. prints one JSON line each of the i3d slice's, the raft family's, the
+   pwc family's and the i3d PWC phase's numbers, one of the kernels'
+   numbers, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX, and needs no cv2, PIL or yaml: the frames are
 synthetic and the configs are built in code.
@@ -88,6 +112,15 @@ RAFT_GRID_H, RAFT_GRID_W = FRAME_H // 8, FRAME_W // 8
 QUEUE_AHEAD_CYCLES = 100_000_000
 #: the bfloat16 flow bound of the JAX package (tests/test_raft.py)
 BF16_MEDIAN_PX, BF16_P99_PX = 0.1, 1.0
+PWC_BATCH = 32  # pwc family pairs per PWC forward
+#: the JAX package's bfloat16 bands (telemetry/parity.py TOLERANCES): PWC
+#: flows ("pwc", *), I3D features ("*", "head")
+PWC_BF16_COS, PWC_BF16_MAX_PX = 0.98, 2.0
+HEAD_COS, HEAD_MAX_ABS = 0.99, 0.5
+#: PWC's decoder levels at 256x384 (256x341 frames resized to /64):
+#: (level, H, W, C) of the cost volume's inputs
+PWC_LEVELS = ((2, 64, 96, 32), (3, 32, 48, 64), (4, 16, 24, 96),
+              (5, 8, 12, 128), (6, 4, 6, 196))
 
 
 def card_line() -> str:
@@ -464,23 +497,47 @@ def synthetic_frames(n: int, seed: int):
         yield frame.clip(0, 255).astype(np.uint8), t / 25 * 1000.0, t
 
 
-def profile_run(extractor, frames) -> dict:
+def annotated(module, names):
+    """Wrap each function ``module.<name>`` in a profiler range of that name
+    (undone by calling the returned function), so a profile can attribute
+    device time to it."""
+    saved = {name: getattr(module, name) for name in names}
+    for name, fn in saved.items():
+        def ranged(*args, _fn=fn, _name=name, **kwargs):
+            with torch.profiler.record_function(_name):
+                return _fn(*args, **kwargs)
+        setattr(module, name, ranged)
+    return lambda: [setattr(module, n, f) for n, f in saved.items()]
+
+
+def profile_run(extractor, frames, ranges=None) -> dict:
     """Device time by kernel over one warm ``extract_frames`` run
-    (torch.profiler), and the share of the wall time the card was busy
-    (the union of the kernels' intervals, so nothing counts twice)."""
+    (torch.profiler), the share of the wall time the card was busy (the
+    union of the kernels' intervals, so nothing counts twice), the host's
+    top operators by self CPU time, and the device time of each function
+    of ``ranges`` (``(module, [names])``, wrapped by :func:`annotated`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    undo = annotated(*ranges) if ranges else None
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        extractor.extract_frames(iter(frames), 25.0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            extractor.extract_frames(iter(frames), 25.0)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        if undo:
+            undo()
+    names = ranges[1] if ranges else []
+    # a range also shows on the device as an annotation spanning its
+    # kernels (gaps included): not a kernel, so left out of the spans
     spans = sorted({(e.time_range.start, e.time_range.end, e.name)
                     for e in prof.events()
-                    if e.device_type == DeviceType.CUDA})
+                    if e.device_type == DeviceType.CUDA
+                    and e.name not in names})
     if not spans:
         return {"device_time": "not measured (no CUDA events traced)",
                 "wall_ms": wall_us / 1e3}
@@ -492,12 +549,30 @@ def profile_run(extractor, frames) -> dict:
         ms, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (end - start) / 1e3, calls + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / wall_us,
-            "kernel_ms_total": sum(v[0] for v in by_name.values()),
-            "top_kernels": [{"name": k[:90], "ms": v[0], "calls": v[1]}
-                            for k, v in top]}
+    averages = prof.key_averages()
+    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    out = {"wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy_us / 1e3,
+           "device_busy_share": busy_us / wall_us,
+           "kernel_ms_total": sum(v[0] for v in by_name.values()),
+           "top_kernels": [{"name": k[:90], "ms": v[0], "calls": v[1]}
+                           for k, v in top],
+           "top_host_ops": [{"name": e.key[:60],
+                             "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                             "calls": e.count} for e in host]}
+    if ranges:
+        # the kernels launched inside each range, summed over its calls
+        # (0 where the profiler linked none: then "not measured")
+        kernel_us = dict.fromkeys(names, 0.0)
+        for e in prof.events():
+            if e.name in names and e.device_type == DeviceType.CPU:
+                kernel_us[e.name] += e.device_time_total
+        out["ranges"] = {
+            name: ({"kernel_ms": us / 1e3, "share_of_busy": us / busy_us}
+                   if us > 0 else "not measured")
+            for name, us in kernel_us.items()}
+    return out
 
 
 def kernel_resources(build) -> dict:
@@ -623,7 +698,7 @@ def run_slice(dev):
                 packed_flow_forwards=fwd_p,
                 packed_launches=packed_counts["packed"],
                 packed_vs_fused_max_abs=diffs_p,
-                profile=profile), proj_launches, level_launches
+                profile=profile), proj_launches, level_launches, feats
 
 
 def raft_config(out_dir: str, **over):
@@ -715,6 +790,204 @@ def run_raft_family(dev):
     return stats
 
 
+def band(got: np.ndarray, want: np.ndarray) -> dict:
+    """Cosine and max abs difference of ``got`` against ``want``."""
+    a, b = got.ravel().astype(np.float64), want.ravel().astype(np.float64)
+    return {"cos": float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))),
+            "max_abs": float(np.abs(a - b).max())}
+
+
+def timed(extractor, frames):
+    """(features, seconds) of one ``extract_frames`` run on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = extractor.extract_frames(iter(frames), 25.0)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pwc_ranges():
+    """PWC's plain cost volume and warp, for :func:`profile_run`."""
+    from video_features_tpu_torch.models import pwc
+    return pwc, ["correlation_volume", "bilinear_warp"]
+
+
+def pwc_config(out_dir: str, **over):
+    """The pwc family's YAML defaults (configs/pwc.yml), on the card, with
+    ``batch_size=32``."""
+    from video_features_tpu_torch.config import Config
+    cfg = dict(feature_type="pwc", extraction_fps=None,
+               extraction_total=None, fps_mode="select", side_size=None,
+               resize="auto", resize_to_smaller_edge=True,
+               batch_size=PWC_BATCH, device="cuda", video_decode="inline",
+               on_extraction="print", output_path=out_dir,
+               tmp_path="tmp/chip_smoke", weights_path=None,
+               allow_random_weights=True, precision="bfloat16")
+    cfg.update(over)
+    return Config(cfg)
+
+
+def run_pwc_family(dev):
+    """The pwc family at its defaults (bfloat16) and in float32, over 65
+    synthetic frames: 64 flows in two PWC forwards of 32 pairs."""
+    from video_features_tpu_torch.extractors.pwc import ExtractPWC
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+
+    n_frames = 2 * PWC_BATCH + 1
+    frames = list(synthetic_frames(n_frames, 23))
+    want_ts = [t / 25 * 1000.0 for t in range(n_frames)]
+    runs = {}
+    for precision in ("bfloat16", "float32"):
+        ex = ExtractPWC(pwc_config("output/chip_smoke", precision=precision))
+        if ex.model.dtype != getattr(torch, precision):
+            raise AssertionError(f"pwc {precision}: model {ex.model.dtype}")
+        ex.extract_frames(iter(frames), 25.0)  # cuDNN set-up at this shape
+        reset_counts(cl)
+        out, seconds = timed(ex, frames)
+        if any(read_counts(cl).values()):
+            raise AssertionError(f"pwc {precision}: lookup kernels "
+                                 f"launched {read_counts(cl)}")
+        flow = out["pwc"]
+        if flow.shape != (n_frames - 1, 2, FRAME_H, FRAME_W) \
+                or flow.dtype != np.float32 or not np.isfinite(flow).all():
+            raise AssertionError(f"pwc {precision}: flow {flow.shape} "
+                                 f"{flow.dtype} or non-finite")
+        if out["timestamps_ms"].tolist() != want_ts:
+            raise AssertionError(f"pwc {precision}: timestamps "
+                                 f"{out['timestamps_ms']}")
+        runs[precision] = dict(extractor=ex, flow=flow, seconds=seconds)
+    vs_f32 = band(runs["bfloat16"]["flow"], runs["float32"]["flow"])
+    vs_f32.update(cos_limit=PWC_BF16_COS, max_abs_limit_px=PWC_BF16_MAX_PX)
+    if not (vs_f32["cos"] >= PWC_BF16_COS
+            and vs_f32["max_abs"] <= PWC_BF16_MAX_PX):
+        raise AssertionError(f"pwc bfloat16 vs float32 flow: {vs_f32}")
+    turns = {"bfloat16": [], "float32": []}
+    for precision in ("bfloat16", "float32", "float32", "bfloat16"):
+        _, seconds = timed(runs[precision]["extractor"], frames)
+        turns[precision].append((n_frames - 1) / seconds)
+    profile = profile_run(runs["bfloat16"]["extractor"], frames,
+                          pwc_ranges())
+    profile["pairs"] = n_frames - 1
+    f32_abs = np.abs(runs["float32"]["flow"])
+    stats = dict(pairs=n_frames - 1, batch_size=PWC_BATCH,
+                 flow_forwards=-(-(n_frames - 1) // PWC_BATCH),
+                 flow_abs_px=dict(median=float(np.median(f32_abs)),
+                                  max=float(f32_abs.max())),
+                 bf16_vs_f32_flow=vs_f32, turns_pairs_per_s=turns,
+                 profile=profile)
+    for precision in ("bfloat16", "float32"):
+        stats[f"{precision}_pairs_per_s"] = \
+            (n_frames - 1) / runs[precision]["seconds"]
+    return stats
+
+
+def cost_volume_times(dev, busy_ms, stacks: int) -> dict:
+    """The plain cost volume alone at the decoder levels' shapes of one
+    stack's 64 pairs, float32 and bfloat16 (CUDA-event medians), with each
+    level's bytes bound (the two inputs read once, the 81 channels written
+    once, over the card's memory rate); the float32 sum per stack and its
+    share of ``busy_ms``, the device busy time of a profiled run of
+    ``stacks`` stacks (not measured when the profiler traced no device
+    time)."""
+    from video_features_tpu_torch.kernels.cost_volume import cost_volume_nchw
+
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    out = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            levels = []
+            for level, h, w, c in PWC_LEVELS:
+                f1, f2 = (torch.randn((STACK, c, h, w), generator=gen).to(
+                    dev, dtype) for _ in range(2))
+                size = f1.element_size()
+                bytes_moved = STACK * h * w * (2 * c + 81) * size
+                levels.append(dict(
+                    level=level, shape=[STACK, c, h, w],
+                    ms=median_ms(lambda: cost_volume_nchw(f1, f2)),
+                    bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3))
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            out[name] = dict(levels=levels, ms_per_stack=sum(
+                lv["ms"] for lv in levels))
+    out["share_of_profiled_busy"] = "not measured" if busy_ms is None \
+        else out["float32"]["ms_per_stack"] * stacks / busy_ms
+    return out
+
+
+def run_i3d_pwc(dev, fused_feats):
+    """I3D at its YAML defaults (flow_type=pwc, float32) and in bfloat16 on
+    the slice's frames; then flow_type=raft in bfloat16 once, against the
+    slice's fused float32 features ``fused_feats``."""
+    from video_features_tpu_torch.extractors.i3d import ExtractI3D
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+
+    frames = list(synthetic_frames(2 * STACK + 1, 11))
+    runs = {}
+    for precision in ("float32", "bfloat16"):
+        ex = ExtractI3D(slice_config("output/chip_smoke", flow_type="pwc",
+                                     flow_stack_batch="auto",
+                                     precision=precision))
+        ex.extract_frames(synthetic_frames(2 * STACK + 1, 7), 25.0)
+        ex.flow_stream.forwards = 0
+        reset_counts(cl)
+        feats, seconds = timed(ex, frames)
+        if any(read_counts(cl).values()):
+            raise AssertionError(f"i3d pwc {precision}: lookup kernels "
+                                 f"launched {read_counts(cl)}")
+        for s in ("rgb", "flow"):
+            if feats[s].shape != (2, 1024) or not np.isfinite(feats[s]).all():
+                raise AssertionError(f"i3d pwc {precision} {s}: shape "
+                                     f"{feats[s].shape} or non-finite")
+        runs[precision] = dict(extractor=ex, feats=feats, seconds=seconds,
+                               flow_forwards=ex.flow_stream.forwards)
+    bf16_vs_f32 = {s: band(runs["bfloat16"]["feats"][s],
+                           runs["float32"]["feats"][s])
+                   for s in ("rgb", "flow")}
+    if not all(b["cos"] >= HEAD_COS and b["max_abs"] <= HEAD_MAX_ABS
+               for b in bf16_vs_f32.values()):
+        raise AssertionError(f"i3d pwc bfloat16 vs float32: {bf16_vs_f32}")
+    turns = {"float32": [], "bfloat16": []}
+    for precision in ("float32", "bfloat16", "bfloat16", "float32"):
+        _, seconds = timed(runs[precision]["extractor"], frames)
+        turns[precision].append(2 / seconds)
+    profile = profile_run(runs["float32"]["extractor"], frames, pwc_ranges())
+    profile["stacks"] = 2
+    profile_bf16 = profile_run(runs["bfloat16"]["extractor"], frames,
+                               pwc_ranges())
+    stats = dict(stacks=2, bf16_vs_f32=bf16_vs_f32,
+                 band=dict(cos=HEAD_COS, max_abs=HEAD_MAX_ABS),
+                 turns_stacks_per_s=turns, profile=profile,
+                 profile_bfloat16=profile_bf16)
+    for precision in ("float32", "bfloat16"):
+        stats[f"{precision}_stacks_per_s"] = 2 / runs[precision]["seconds"]
+        stats[f"{precision}_flow_forwards"] = runs[precision]["flow_forwards"]
+    del runs
+    torch.cuda.empty_cache()
+
+    raft = ExtractI3D(slice_config("output/chip_smoke",
+                                   precision="bfloat16"))
+    reset_counts(cl)
+    feats, seconds = timed(raft, frames)
+    counts = read_counts(cl)
+    fwd = raft.flow_stream.forwards
+    if fwd < 1 or counts != {"level": 0, "proj": ITERS * fwd, "packed": 0}:
+        raise AssertionError(f"i3d raft bfloat16: launches {counts} for "
+                             f"{fwd} RAFT forwards")
+    raft_vs_fused = {s: band(feats[s], fused_feats[s])
+                     for s in ("rgb", "flow")}
+    if not all(b["cos"] >= HEAD_COS and b["max_abs"] <= HEAD_MAX_ABS
+               for b in raft_vs_fused.values()):
+        raise AssertionError(f"i3d raft bfloat16 vs fused float32: "
+                             f"{raft_vs_fused}")
+    stats["raft_bfloat16"] = dict(
+        flow_forwards=fwd, launches=counts, vs_fused_float32=raft_vs_fused,
+        cold_stacks_per_s=2 / seconds)
+    del raft
+    torch.cuda.empty_cache()
+    stats["cost_volume"] = cost_volume_times(
+        dev, profile.get("device_busy_ms"), 2)
+    return stats, counts["proj"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -740,8 +1013,12 @@ def main() -> int:
     print(json.dumps({"ragged_max_abs_err": ragged}))
     kernels = check_kernels(dev)
     raft_err = check_small_raft(dev)
-    slice_stats, proj_launches, level_launches = run_slice(dev)
+    slice_stats, proj_launches, level_launches, fused_feats = run_slice(dev)
     raft_stats = run_raft_family(dev)
+    torch.cuda.empty_cache()
+    pwc_stats = run_pwc_family(dev)
+    torch.cuda.empty_cache()
+    i3d_pwc_stats, proj_launches_bf16 = run_i3d_pwc(dev, fused_feats)
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -751,14 +1028,20 @@ def main() -> int:
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["card"] = card
-    next(r for r in kernels if r["name"] == "corr_lookup_proj_cuda")[
-        "launches_raft_default"] = raft_stats["default_launches"]["proj"]
+    proj_row = next(r for r in kernels
+                    if r["name"] == "corr_lookup_proj_cuda")
+    proj_row["launches_raft_default"] = raft_stats["default_launches"]["proj"]
+    proj_row["launches_i3d_raft_bfloat16"] = proj_launches_bf16
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
     raft_stats["card"] = card
+    pwc_stats["card"] = card
+    i3d_pwc_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
+    print(json.dumps({"pwc_family": pwc_stats}))
+    print(json.dumps({"i3d_pwc": i3d_pwc_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,20 +4,24 @@ A state dict in the reference's torch key layout goes through the JAX
 ``params_from_torch`` and back through the port's bridge and must come back
 tensor for tensor; a JAX tree goes the other way round and must come back
 array for array; and the port's modules carry the reference's key layout,
-so such a state dict loads with ``strict=True``.
+so such a state dict loads with ``strict=True``. PWC's transposed
+convolutions, stored flipped in the JAX tree, invert exactly and compute
+the same function on both sides.
 """
 import numpy as np
 import pytest
 import torch
 
 from video_features_tpu.models import i3d as ji3d
+from video_features_tpu.models import pwc as jpwc
 from video_features_tpu.models import raft as jraft
 from video_features_tpu_torch.models import i3d as ti3d
+from video_features_tpu_torch.models import pwc as tpwc
 from video_features_tpu_torch.models import raft as traft
 from video_features_tpu_torch.weights import bridge
 
 #: keys as the reference checkpoints spell them (raft-sintel.pth,
-#: i3d_rgb.pt), with the shapes those modules have
+#: i3d_rgb.pt, pwc_net_sintel.pt), with the shapes those modules have
 REFERENCE_KEYS = {
     "raft": {
         "fnet.conv1.weight": (64, 3, 7, 7),
@@ -39,11 +43,28 @@ REFERENCE_KEYS = {
         "mixed_5c.branch_0.conv3d.weight": (384, 832, 1, 1, 1),
         "conv3d_0c_1x1.conv3d.bias": (400,),
     },
+    "pwc": {
+        "moduleExtractor.moduleOne.0.weight": (16, 3, 3, 3),
+        "moduleExtractor.moduleSix.4.bias": (196,),
+        "moduleSix.moduleOne.0.weight": (128, 81, 3, 3),
+        "moduleSix.moduleSix.0.weight": (2, 529, 3, 3),
+        "moduleFiv.moduleUpflow.weight": (2, 2, 4, 4),
+        "moduleFiv.moduleUpfeat.weight": (529, 2, 4, 4),
+        "moduleTwo.moduleUpfeat.weight": (597, 2, 4, 4),
+        "moduleTwo.moduleFiv.0.weight": (32, 533, 3, 3),
+        "moduleRefiner.moduleMain.0.weight": (128, 565, 3, 3),
+        "moduleRefiner.moduleMain.12.bias": (2,),
+    },
 }
+#: each family's JAX converter and the port's bridge back
+CONVERTERS = {"raft": (jraft.params_from_torch, bridge.raft_state_from_jax),
+              "i3d": (ji3d.params_from_torch, bridge.i3d_state_from_jax),
+              "pwc": (jpwc.params_from_torch, bridge.pwc_state_from_jax)}
 
 
 def _model(name):
-    return traft.RAFT(iters=1) if name == "raft" else ti3d.I3D(400)
+    return {"raft": lambda: traft.RAFT(iters=1), "i3d": lambda: ti3d.I3D(400),
+            "pwc": tpwc.PWCNet}[name]()
 
 
 def _torch_layout_state(name, seed=3):
@@ -58,20 +79,18 @@ def _torch_layout_state(name, seed=3):
     return sd
 
 
-@pytest.mark.parametrize("name", ["raft", "i3d"])
+@pytest.mark.parametrize("name", ["raft", "i3d", "pwc"])
 def test_port_modules_carry_reference_keys(name):
     sd = _model(name).state_dict()
     for key, shape in REFERENCE_KEYS[name].items():
         assert tuple(sd[key].shape) == shape, key
 
 
-@pytest.mark.parametrize("name", ["raft", "i3d"])
+@pytest.mark.parametrize("name", ["raft", "i3d", "pwc"])
 def test_torch_state_round_trips_through_jax(name):
     sd = _torch_layout_state(name)
-    to_jax = jraft.params_from_torch if name == "raft" \
-        else ji3d.params_from_torch
-    back = (bridge.raft_state_from_jax if name == "raft"
-            else bridge.i3d_state_from_jax)(to_jax(sd))
+    to_jax, from_jax = CONVERTERS[name]
+    back = from_jax(to_jax(sd))
     assert set(back) == set(sd)
     for k, v in sd.items():
         assert torch.equal(back[k], v), k
@@ -81,16 +100,15 @@ def test_torch_state_round_trips_through_jax(name):
         assert torch.equal(v, sd[k]), k
 
 
-@pytest.mark.parametrize("name", ["raft", "i3d"])
+@pytest.mark.parametrize("name", ["raft", "i3d", "pwc"])
 def test_jax_tree_round_trips_through_torch(name):
-    """JAX-layout tree (HWIO/DHWIO kernels, scale/mean/var) -> bridge ->
-    the JAX converter gives the same tree back."""
+    """JAX-layout tree (HWIO/DHWIO kernels, scale/mean/var, PWC's flipped
+    transposed-conv kernels) -> bridge -> the JAX converter gives the same
+    tree back."""
     sd = _torch_layout_state(name, seed=7)
-    to_jax = jraft.params_from_torch if name == "raft" \
-        else ji3d.params_from_torch
+    to_jax, from_jax = CONVERTERS[name]
     tree = to_jax(sd)
-    again = to_jax((bridge.raft_state_from_jax if name == "raft"
-                    else bridge.i3d_state_from_jax)(tree))
+    again = to_jax(from_jax(tree))
 
     def flat(t, p=""):
         out = {}
@@ -118,6 +136,38 @@ def test_convc1_rows_stay_in_lookup_order():
     enc.convc1.weight.data.copy_(sd["update_block.encoder.convc1.weight"])
     w, _ = enc.convc1_matrix()
     np.testing.assert_array_equal(w.detach().numpy(), k[0, 0])
+
+
+@pytest.mark.parametrize("name,c_in", [("moduleUpflow", 2),
+                                        ("moduleUpfeat", 529)])
+def test_pwc_transposed_conv_inverts_exactly(name, c_in):
+    """A flipped HWIO kernel of the JAX tree comes back as the IOHW weight
+    it was built from, element for element, and both compute the same
+    ConvTranspose2d(k=4, stride=2, pad=1) on one input (a kernel left
+    unflipped or transposed the generic way would not)."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(c_in)
+    w = rng.normal(size=(c_in, 2, 4, 4)).astype(np.float32)
+    b = rng.normal(size=(2,)).astype(np.float32)
+    tree = jpwc.params_from_torch({
+        f"moduleFiv.{name}.weight": torch.from_numpy(w),
+        f"moduleFiv.{name}.bias": torch.from_numpy(b)})
+    kernel = tree["moduleFiv"][f"{name}_kernel"]
+    assert kernel.shape == (4, 4, c_in, 2)
+    sd = bridge.pwc_state_from_jax(tree)
+    np.testing.assert_array_equal(sd[f"moduleFiv.{name}.weight"].numpy(), w)
+    np.testing.assert_array_equal(sd[f"moduleFiv.{name}.bias"].numpy(), b)
+    x = rng.normal(size=(1, 5, 6, c_in)).astype(np.float32)
+    want = np.asarray(jpwc.conv_transpose_4s2p1(
+        jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(b)))
+    up = tpwc.Decoder(5).moduleUpflow if c_in == 2 else \
+        tpwc.Decoder(5).moduleUpfeat
+    up.load_state_dict({"weight": sd[f"moduleFiv.{name}.weight"],
+                        "bias": sd[f"moduleFiv.{name}.bias"]})
+    with torch.no_grad():
+        got = up(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert got.shape == want.shape == (1, 10, 12, 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
 
 
 def test_seeded_init_is_deterministic():

@@ -115,3 +115,36 @@ def test_ragged_phase_runs_its_cases_on_the_cpu():
     assert set(errs) == {"q231", "odd", "outside", "degenerate", "nonfinite"}
     for e in errs.values():
         assert e["level"] == e["proj"] == e["packed"] == 0.0
+
+
+def test_pwc_levels_are_the_models_pyramid_at_256x384():
+    """The cost volume's timing shapes are PWCNet's decoder levels for the
+    i3d phase's frames: 240x320 resized to 256x341, then to /64 multiples
+    (256x384) inside the net."""
+    from video_features_tpu_torch.models import pwc
+    assert (-(-341 // 64) * 64, -(-256 // 64) * 64) == (384, 256)
+    with torch.inference_mode():
+        feats = pwc.Extractor()(torch.zeros((1, 3, 256, 384)))
+    for level, h, w, c in cs.PWC_LEVELS:
+        assert tuple(feats[level - 1].shape[1:]) == (c, h, w), level
+    assert [lv for lv, *_ in cs.PWC_LEVELS] == [lv for lv, _ in
+                                                 sorted(pwc.LEVELS)]
+
+
+def test_annotated_wraps_and_restores():
+    """The profiler ranges wrap a module's functions by name, keep their
+    results, and put the originals back."""
+    import types
+    mod = types.SimpleNamespace(f=lambda x: x + 1, g=lambda x: 2 * x)
+    f, g = mod.f, mod.g
+    undo = cs.annotated(mod, ["f", "g"])
+    assert mod.f is not f and mod.f(1) == 2 and mod.g(3) == 6
+    undo()
+    assert mod.f is f and mod.g is g
+
+
+def test_band_is_cosine_and_max_abs():
+    a = np.array([1.0, 2.0, 2.0], np.float32)
+    assert cs.band(a, a) == {"cos": pytest.approx(1.0), "max_abs": 0.0}
+    got = cs.band(a + np.array([0.0, 0.0, 0.5], np.float32), a)
+    assert got["max_abs"] == 0.5 and 0.99 < got["cos"] < 1.0

@@ -38,7 +38,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_ONLY_KEYS = {"video_decode"}
 
 
-@pytest.mark.parametrize("family", ["raft", "i3d"])
+@pytest.mark.parametrize("family", ["raft", "i3d", "pwc"])
 def test_yaml_defaults_match_jax(family):
     jax_cfg = yaml.safe_load(
         (REPO / "video_features_tpu" / "configs" / f"{family}.yml").read_text())
@@ -47,8 +47,8 @@ def test_yaml_defaults_match_jax(family):
     shared = set(jax_cfg) & set(port_cfg)
     assert {k: port_cfg[k] for k in shared} == {k: jax_cfg[k] for k in shared}
     assert set(port_cfg) - set(jax_cfg) == PORT_ONLY_KEYS
-    assert port_cfg["precision"] == ("bfloat16" if family == "raft"
-                                     else "float32")
+    assert port_cfg["precision"] == ("float32" if family == "i3d"
+                                     else "bfloat16")
 
 
 def _stream(n):
@@ -193,8 +193,9 @@ def test_sanity_check_validates_raft_keys(tmp_path, sample_video, key, value):
 
 
 def test_family_defaults_and_device(tmp_path, sample_video):
-    """The YAML default precision reaches the model; i3d bfloat16 still
-    raises naming its ROADMAP item; device=auto never falls back."""
+    """The YAML default precision reaches the model; i3d bfloat16 builds
+    bfloat16 models (cast I3D weights; PWC on float32 weights, its heads
+    float32); device=auto never falls back."""
     from video_features_tpu_torch.extractors.raft import ExtractRAFT
     cfg = tconfig.load_config("raft", _overrides(tmp_path, sample_video))
     del cfg["precision"]
@@ -202,12 +203,21 @@ def test_family_defaults_and_device(tmp_path, sample_video):
     assert ex.precision == "bfloat16" and ex.model.dtype == torch.bfloat16
     assert next(ex.model.parameters()).dtype == torch.bfloat16
     assert ex.model.cnet.norm1.running_var.dtype == torch.bfloat16
-    i3d = tconfig.load_config("i3d", {"feature_type": "i3d",
-                                      "precision": "bfloat16",
-                                      "device": "cpu"})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md 'i3d precision=bfloat16'"):
-        tconfig.check_ported(i3d)
+    from video_features_tpu_torch.extractors.i3d import ExtractI3D
+    i3d = ExtractI3D(tconfig.load_config("i3d", {
+        "feature_type": "i3d", "precision": "bfloat16", "device": "cpu",
+        "allow_random_weights": True}))
+    assert i3d.flow_type == "pwc" and i3d.dtype == torch.bfloat16
+    for model in (i3d.rgb_model, i3d.flow_stream.i3d):
+        assert next(model.parameters()).dtype == torch.bfloat16
+        assert model.conv3d_1a_7x7.batch3d.running_var.dtype == \
+            torch.bfloat16
+    pwc = i3d.flow_stream.pwc
+    assert pwc.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in pwc.parameters())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        tconfig.check_ported(tconfig.Config(
+            {"feature_type": "r21d", "precision": "bfloat16"}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=cpu"):
             ExtractRAFT(tconfig.load_config("raft", dict(cfg, device="auto")))

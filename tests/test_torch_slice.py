@@ -258,7 +258,6 @@ def test_sinks_write_and_skip(tmp_path, sink):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("precision", "bfloat16"),
     ("cache", True), ("telemetry", True), ("trace", True), ("health", True),
     ("parity", True), ("roofline", True), ("video_decode", "process"),
     ("video_decode", "parallel"), ("fps_mode", "reencode"),
@@ -327,16 +326,17 @@ def test_cli_writes_outputs(sample_video, tmp_path):
 
 def test_cli_rejects_unported_families():
     from video_features_tpu_torch.registry import get_extractor_cls
-    for family in ("resnet", "pwc", "clip"):
+    for family in ("resnet", "r21d", "clip"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_extractor_cls(family)
     assert get_extractor_cls("i3d").__name__ == "ExtractI3D"
     assert get_extractor_cls("raft").__name__ == "ExtractRAFT"
+    assert get_extractor_cls("pwc").__name__ == "ExtractPWC"
 
 
 def test_port_imports_no_jax_and_no_lazy_host_deps():
     """Every module of the port imports under a finder that refuses jax,
-    flax and video_features_tpu; importing the i3d and raft extractors
+    flax and video_features_tpu; importing the i3d, raft and pwc extractors
     pulls in neither cv2 nor PIL nor yaml."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -351,6 +351,7 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
         sys.meta_path.insert(0, Refuse())
         import video_features_tpu_torch.extractors.i3d
         import video_features_tpu_torch.extractors.raft
+        import video_features_tpu_torch.extractors.pwc
         lazy = [m for m in ("cv2", "PIL", "yaml") if m in sys.modules]
         assert not lazy, lazy
         import video_features_tpu_torch as pkg
@@ -364,7 +365,7 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stdout + run.stderr
-    assert int(run.stdout.split()[-1]) >= 22
+    assert int(run.stdout.split()[-1]) >= 25
 
 
 def test_chip_smoke_imports_no_jax():

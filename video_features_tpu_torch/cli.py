@@ -1,5 +1,5 @@
-"""CLI: ``python -m video_features_tpu_torch feature_type=i3d flow_type=raft
-key=value ...`` or ``feature_type=raft key=value ...``.
+"""CLI: ``python -m video_features_tpu_torch feature_type=i3d key=value ...``
+(or ``feature_type=raft``, ``feature_type=pwc``).
 
 The JAX package's dotlist surface: the family's YAML defaults merged under
 the ``key=value`` overrides, validated, then each video extracted with

@@ -2,8 +2,9 @@
 
 The port's own copy of ``video_features_tpu/config.py`` (``Config``,
 ``parse_dotlist``, ``merge``, ``load_config``) with a ``sanity_check`` cut to
-the keys the ported families (``i3d``, ``raft``) run. ``yaml`` is imported
-only where YAML is parsed, so importing the extractors needs no ``yaml``.
+the keys the ported families (``i3d``, ``raft``, ``pwc``) run. ``yaml`` is
+imported only where YAML is parsed, so importing the extractors needs no
+``yaml``.
 
 Keys whose features are not ported yet raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item that will port them, instead of being ignored.
@@ -133,7 +134,7 @@ def video_list(video_paths: Union[str, Sequence[str], None] = None,
 
 def check_ported(args: Config) -> None:
     """Raise ``NotImplementedError`` for keys the port does not run yet
-    (``precision=bfloat16`` is ported for ``raft`` only)."""
+    (``precision=bfloat16`` is ported for ``device.BF16_FAMILIES``)."""
     for key in _UNPORTED_FLAGS:
         if args.get(key):
             raise NotImplementedError(
@@ -156,9 +157,9 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     The subset of ``video_features_tpu.config.sanity_check`` the ported
     families need: video list, unique stems, out != tmp, i3d
     ``stack_size >= 10``, ``extraction_fps``/``extraction_total`` exclusive,
-    ``resize``, ``corr_lookup_impl``/``fuse_convc1``, the raft keys
-    ``iters``, ``batch_size``, ``side_size`` and ``resize_to_smaller_edge``
-    (``ExtractRAFT`` checks ``finetuned_on``), the unported keys, the device
+    ``resize``, ``corr_lookup_impl``/``fuse_convc1``, the flow families'
+    keys ``iters``, ``batch_size``, ``side_size`` and
+    ``resize_to_smaller_edge`` (``ExtractRAFT`` checks ``finetuned_on``), the unported keys, the device
     (``args.device`` becomes ``cpu``, ``cuda`` or ``cuda:N``) and the
     ``feature_type`` namespacing of ``output_path``/``tmp_path``."""
     check_ported(args)

@@ -11,9 +11,7 @@ from typing import Optional
 import torch
 
 #: families whose ``precision=bfloat16`` mode is ported
-BF16_FAMILIES = ("raft",)
-#: the ROADMAP.md item that will port ``precision=bfloat16`` for i3d
-ROADMAP_I3D_BF16 = "ROADMAP.md 'i3d precision=bfloat16'"
+BF16_FAMILIES = ("raft", "pwc", "i3d")
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -45,8 +43,8 @@ def precision_dtype(precision: Optional[str],
                     feature_type: Optional[str] = None) -> torch.dtype:
     """The working dtype of ``precision`` for ``feature_type``:
     ``float32`` everywhere, ``bfloat16`` for the families whose bfloat16
-    mode is ported (``raft``); any other family raises
-    ``NotImplementedError`` naming the ROADMAP item that will port it."""
+    mode is ported (``BF16_FAMILIES``); any other family raises
+    ``NotImplementedError`` naming the ROADMAP queue that will port it."""
     precision = precision or "float32"
     if precision == "float32":
         return torch.float32
@@ -54,7 +52,7 @@ def precision_dtype(precision: Optional[str],
         if feature_type not in BF16_FAMILIES:
             raise NotImplementedError(
                 f"precision=bfloat16 is not ported yet for feature_type="
-                f"{feature_type!r} ({ROADMAP_I3D_BF16}); it is for "
+                f"{feature_type!r} (ROADMAP.md Queue 1); it is for "
                 f"{', '.join(BF16_FAMILIES)}")
         return torch.bfloat16
     raise ValueError(f"precision={precision!r}: expected 'float32' or "
@@ -67,9 +65,10 @@ def set_precision(precision: Optional[str],
     and pin full-float32 matmuls and convolutions for both modes: cuDNN
     defaults to TF32 convolutions on Hopper, which keeps ~3 decimal digits
     and would break parity with the JAX reference's ``highest`` precision
-    pin, and in ``bfloat16`` mode the float32 parts (the correlation
-    pyramid, the lookup, the norm statistics) stay full float32 as on the
-    JAX CPU reference. Returns the working dtype."""
+    pin, and in ``bfloat16`` mode the float32 parts (RAFT's correlation
+    pyramid and lookup, PWC's flow heads and upflow, the norm statistics)
+    stay full float32 as on the JAX CPU reference. Returns the working
+    dtype."""
     dtype = precision_dtype(precision, feature_type)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -7,6 +7,11 @@ stream's I3D on centre-cropped 224 inputs scaled to [-1, 1], and record one
 ``timestamps_ms`` per completed stack, ``last_idx / fps * 1000`` (the pts of
 the frame just decoded, extract_i3d.py:122).
 
+The flow stream runs ``flow_type=pwc`` (the YAML default) or ``raft``
+(``extractors/i3d_flow.py``). ``precision=bfloat16`` casts both streams'
+I3D weights (``cast_floating_``) and their inputs before ScaleTo1_1; the
+features come back float32.
+
 Stacks group into ``clip_batch_size`` batches. A group crosses to the card
 once as uint8; under ``resize=device`` it is resized there (PIL's
 coefficients as two matmuls), both streams run on the device, and only the
@@ -27,6 +32,7 @@ import torch
 
 from ..config import Config
 from ..models import i3d as i3d_model
+from ..models.common import cast_floating_
 from ..ops import host_transforms as ht
 from ..runner import Runner
 from ..utils.io import Prefetcher, VideoSource
@@ -46,12 +52,7 @@ class ExtractI3D(BaseExtractor):
         for stream in self.streams:
             if stream not in ("rgb", "flow"):
                 raise NotImplementedError(f"Unknown I3D stream: {stream}")
-        self.flow_type = args.get("flow_type", "pwc")
-        if "flow" in self.streams and self.flow_type != "raft":
-            raise NotImplementedError(
-                f"flow_type={self.flow_type!r} is not ported yet (ROADMAP.md "
-                "Queue 1 #5 'PWC and I3D with PWC flow'); pass "
-                "flow_type=raft")
+        self.flow_type = args.get("flow_type", "pwc")  # reference default
         self.min_side_size = 256
         self.central_crop_size = 224
         self.extraction_fps = args.get("extraction_fps")
@@ -62,10 +63,11 @@ class ExtractI3D(BaseExtractor):
 
         self.rgb_model = None
         if "rgb" in self.streams:
-            self.rgb_model = load_weights(
+            rgb = load_weights(
                 i3d_model.I3D(400, in_channels=3), args.get("weights_path"),
-                self.allow_random, SEED_I3D_RGB, "i3d_rgb"
-            ).to(self.device).eval()
+                self.allow_random, SEED_I3D_RGB, "i3d_rgb")
+            self.rgb_model = cast_floating_(rgb, self.dtype).to(
+                self.device).eval()
         self.flow_stream = FlowStream(self, args) \
             if "flow" in self.streams else None
         self.resize_mode = self._resolve_resize_mode(args)
@@ -83,7 +85,7 @@ class ExtractI3D(BaseExtractor):
         i = (group.shape[2] - c) // 2
         j = (group.shape[3] - c) // 2
         return i3d_forward(self.rgb_model,
-                           group[:, :-1, i:i + c, j:j + c])
+                           group[:, :-1, i:i + c, j:j + c], self.dtype)
 
     def _forward_group(self, group: torch.Tensor) -> torch.Tensor:
         """(G, T+1, H, W, 3) uint8 on the device -> (S, G, 1024)."""

@@ -1,0 +1,33 @@
+"""PWC-Net flow extractor (port of ``video_features_tpu/extractors/pwc.py``,
+reference models/pwc/extract_pwc.py): the sintel checkpoint, the optional
+edge resize (``side_size``, ``resize``); no padder, since ``PWCNet`` resizes
+to multiples of 64 inside and scales the flow back (pwc_net.py:267-296).
+
+``precision=bfloat16`` (the YAML default) runs PWC's bfloat16 mode
+(``models/pwc.py``): its weights stay float32 and are cast per layer at use,
+and the flow tensors, warp coordinates and flow heads stay float32;
+``float32`` is the parity path.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import Config
+from ..models import pwc as pwc_model
+from .base import load_weights
+from .flow import OpticalFlowExtractor
+from .i3d_flow import SEED_PWC
+
+
+class ExtractPWC(OpticalFlowExtractor):
+
+    def __init__(self, args: Config) -> None:
+        super().__init__(args)
+        model = load_weights(pwc_model.PWCNet(dtype=self.dtype),
+                             args.get("weights_path"), self.allow_random,
+                             SEED_PWC, "pwc_sintel")
+        self.model = model.to(self.device).eval()
+
+    def flow(self, pairs: torch.Tensor) -> torch.Tensor:
+        """(B, 2, H, W, 3) uint8 -> (B, H, W, 2) float32."""
+        return self.model(pairs[:, 0], pairs[:, 1])

@@ -9,8 +9,10 @@ head. The dense convolutions stay cuDNN through ``F.conv3d``: no Pallas
 kernel computes them in the JAX package either.
 
 Public layout is the JAX one: ``(N, T, 224, 224, C)`` in [-1, 1] ->
-``(N, 1024)`` features or ``(N, num_classes)`` logits. Module names follow
-the reference's keys (``mixed_3b.branch_1.0.conv3d.weight``,
+``(N, 1024)`` features or ``(N, num_classes)`` logits, in the input's
+dtype (``precision=bfloat16`` feeds bfloat16 inputs to cast weights,
+``cast_floating_``). Module names follow the reference's keys
+(``mixed_3b.branch_1.0.conv3d.weight``,
 ``conv3d_1a_7x7.batch3d.running_mean``), so ``i3d_rgb.pt`` /
 ``i3d_flow.pt`` load with ``load_state_dict``.
 """
@@ -52,6 +54,23 @@ def max_pool_tf_ceil(x: torch.Tensor, window: Sequence[int],
     whose overhang cells never win."""
     x = F.pad(x, _pad_arg(tf_same_pads(window, strides)))
     return F.max_pool3d(x, tuple(window), tuple(strides), ceil_mode=True)
+
+
+def window_mean(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool3d((2, 7, 7), stride 1) on NCDHW as the JAX ``reduce_window``
+    computes it: the 98 window terms added one at a time in the activation
+    dtype, in window order (t, then h, then w), then divided by 98. In
+    bfloat16 each partial sum rounds, as in the JAX package's jitted CPU
+    run; ``F.avg_pool3d`` would sum in float32 (and has no bfloat16 CPU
+    kernel)."""
+    t, h, w = x.shape[2:]
+    acc = torch.zeros_like(x[:, :, :t - 1, :h - 6, :w - 6])
+    for dt in range(2):
+        for dh in range(7):
+            for dw in range(7):
+                acc = acc + x[:, :, dt:dt + t - 1, dh:dh + h - 6,
+                              dw:dw + w - 6]
+    return acc / 98
 
 
 class Unit3D(nn.Module):
@@ -163,7 +182,7 @@ class I3D(nn.Module):
             raise ValueError(
                 f"I3D head needs a (2,7,7) pool window, got {(t, h, w)}; "
                 "use stack_size >= 10 and 224x224 crops")
-        x = F.avg_pool3d(x, (2, 7, 7), stride=1)
+        x = window_mean(x)
         if not features:
             x = self.conv3d_0c_1x1(x)
         return x[:, :, :, 0, 0].mean(dim=2)

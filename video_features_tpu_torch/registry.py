@@ -1,12 +1,14 @@
-"""feature_type -> extractor class. ``i3d`` and ``raft`` are ported so far;
-the other families of the JAX package raise ``NotImplementedError``."""
+"""feature_type -> extractor class. ``i3d``, ``raft`` and ``pwc`` are ported
+so far; the other families of the JAX package raise
+``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
 from typing import Type
 
-_DISPATCH = {"i3d": ("i3d", "ExtractI3D"), "raft": ("raft", "ExtractRAFT")}
-_NOT_PORTED = ("resnet", "r21d", "s3d", "clip", "vggish", "pwc")
+_DISPATCH = {"i3d": ("i3d", "ExtractI3D"), "raft": ("raft", "ExtractRAFT"),
+             "pwc": ("pwc", "ExtractPWC")}
+_NOT_PORTED = ("resnet", "r21d", "s3d", "clip", "vggish")
 
 
 def get_extractor_cls(feature_type: str) -> Type:

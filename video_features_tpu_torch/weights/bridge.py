@@ -1,9 +1,10 @@
 """Parameter bridges into the port's ``state_dict`` layout, and seeded init.
 
-``raft_state_from_jax`` / ``i3d_state_from_jax`` map a JAX parameter tree
-(nested dicts of numpy arrays, as ``video_features_tpu.models.*.init_params``
-or ``params_from_torch`` build them) onto the port's modules, whose names are
-the reference checkpoints' keys. They invert the JAX ``params_from_torch``:
+``raft_state_from_jax`` / ``i3d_state_from_jax`` / ``pwc_state_from_jax``
+map a JAX parameter tree (nested dicts of numpy arrays, as
+``video_features_tpu.models.*.init_params`` or ``params_from_torch`` build
+them) onto the port's modules, whose names are the reference checkpoints'
+keys. They invert the JAX ``params_from_torch``:
 
   - conv kernels HWIO -> OIHW, 3D kernels DHWIO -> OIDHW;
   - BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``
@@ -13,6 +14,13 @@ the reference checkpoints' keys. They invert the JAX ``params_from_torch``:
     returns under ``update_block.mask``, and a batch-norm RAFT block's
     ``downsample.1`` is written under ``norm3`` too (the reference registers
     that module twice).
+
+PWC's transposed convolutions (``moduleUpflow`` / ``moduleUpfeat``) are raw
+params in the JAX tree, stored as the spatially flipped HWIO kernel of the
+input-dilated convolution they become (``params_from_torch`` builds them from
+torch's IOHW ``ConvTranspose2d`` weight); the inverse is
+``transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1]``, not the generic HWIO ->
+OIHW.
 
 RAFT's ``convc1`` kernel ``(1, 1, 324, 256)`` has its rows in the lookup's
 channel order (per level, tap ``k = xx * 9 + yy``, x-offset slowest); that is
@@ -116,6 +124,35 @@ def _i3d_key(mod_path: str) -> str:
 def i3d_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX I3D tree -> the port's (and the reference's) I3D state dict."""
     return _to_state(params, _i3d_key)
+
+
+_PWC_SEQ = re.compile(r"^(module[A-Za-z]+)_(\d+)$")
+_PWC_UPCONV = re.compile(r"^(moduleUp(?:flow|feat))_(kernel|bias)$")
+
+
+def _pwc_key(mod_path: str) -> str:
+    return ".".join(_PWC_SEQ.sub(r"\1.\2", p) for p in mod_path.split("/"))
+
+
+def pwc_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX PWC tree -> the port's (and the reference's) PWC state dict."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        mod_path, leaf = path.rsplit("/", 1)
+        key = _pwc_key(mod_path)
+        arr = np.asarray(value, dtype=np.float32)
+        up = _PWC_UPCONV.match(leaf)
+        if up and up.group(2) == "kernel":  # flipped HWIO -> IOHW
+            state[f"{key}.{up.group(1)}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(
+                    np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]))
+        elif up:
+            state[f"{key}.{up.group(1)}.bias"] = torch.from_numpy(arr.copy())
+        elif leaf == "kernel":
+            state[f"{key}.weight"] = _kernel_to_torch(arr)
+        else:
+            state[f"{key}.{leaf}"] = torch.from_numpy(arr.copy())
+    return state
 
 
 def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
