@@ -81,12 +81,38 @@ that goes wrong:
    decoder levels' shapes of one stack's 64 pairs, in float32 and
    bfloat16, its sum per stack and its share of the profiled run's device
    time;
-10. prints one JSON line each of the i3d slice's, the raft family's, the
-   pwc family's and the i3d PWC phase's numbers, one of the kernels'
-   numbers, and last ``{"ok": true, "device": {...}}``.
+10. drives R(2+1)D, ``ExtractR21D(...).extract_frames(...)`` at the r21d
+   YAML defaults (``r2plus1d_18_16_kinetics``, stack = step = 16,
+   ``clip_batch_size=8``, float32 with the float32 wire), over 257 seeded
+   synthetic 240x320 frames through the port's ``R21DTransform`` (16 clips
+   of 112x112 in two full groups): features ``(16, 512)`` and finite, the
+   windows those of ``form_slices(257, 16, 16)``, no lookup kernel
+   launched; then ``precision=bfloat16`` (the uint8 wire), its features
+   within the head band of the float32 run's (cosine >= 0.99, max abs <=
+   0.5); then ``ingest=yuv420`` once (float32): ``yuv420_packed_to_rgb`` on
+   the card against its CPU result on frames packed by the port's numpy
+   I420 encoder (max abs error 1e-4), and the features in the same band;
+   then ``r2plus1d_34_8_ig65m_ft_kinetics`` once on 16 frames (2 clips of
+   8): shape and finite values. Clips/s of the whole ``extract_frames``
+   run of each dtype, the host transform's ms per frame, clips/s of the
+   card's part (the transformed frames through the clip windows, the
+   copy, the forward and back) in turns (F B B F), and one profiled
+   ``extract_frames`` run of each dtype;
+11. drives S3D, ``ExtractS3D(...).extract_frames(...)`` at the s3d YAML
+   defaults (stack = step = 64, ``clip_batch_size=8``, float32), over 513
+   seeded synthetic 240x320 frames at 25 fps through ``S3DTransform`` (8
+   stacks of 224x224 in one full group): features ``(8, 1024)`` and
+   finite, the windows those of ``form_slices(513, 64, 64)``, no lookup
+   kernel launched; then ``precision=bfloat16``, within the head band.
+   Stacks/s as for R(2+1)D;
+12. prints one JSON line each of the i3d slice's, the raft family's, the
+   pwc family's, the i3d PWC phase's, the r21d phase's and the s3d phase's
+   numbers, one of the kernels' numbers, and last
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX, and needs no cv2, PIL or yaml: the frames are
-synthetic and the configs are built in code.
+synthetic, the configs are built in code, and the clip-stack transforms and
+the I420 encoder are numpy.
 """
 from __future__ import annotations
 
@@ -117,6 +143,10 @@ PWC_BATCH = 32  # pwc family pairs per PWC forward
 #: flows ("pwc", *), I3D features ("*", "head")
 PWC_BF16_COS, PWC_BF16_MAX_PX = 0.98, 2.0
 HEAD_COS, HEAD_MAX_ABS = 0.99, 0.5
+#: the clip-stack phases: frames, window (stack = step) and clips per group
+R21D_FRAMES, R21D_STACK = 257, 16
+S3D_FRAMES, S3D_STACK = 513, 64
+CLIP_BATCH = 8
 #: PWC's decoder levels at 256x384 (256x341 frames resized to /64):
 #: (level, H, W, C) of the cost volume's inputs
 PWC_LEVELS = ((2, 64, 96, 32), (3, 32, 48, 64), (4, 16, 24, 96),
@@ -988,6 +1018,158 @@ def run_i3d_pwc(dev, fused_feats):
     return stats, counts["proj"]
 
 
+def clip_config(feature_type: str, **over):
+    """The r21d or s3d YAML defaults (configs/*.yml), on the card."""
+    from video_features_tpu_torch.config import Config
+    cfg = dict(feature_type=feature_type, stack_size=None, step_size=None,
+               clip_batch_size=CLIP_BATCH, extraction_fps=None,
+               fps_mode="select", device="cuda", video_decode="inline",
+               on_extraction="print", output_path="output/chip_smoke",
+               tmp_path="tmp/chip_smoke", show_pred=False, weights_path=None,
+               allow_random_weights=True, precision="float32", ingest=None)
+    if feature_type == "r21d":
+        cfg["model_name"] = "r2plus1d_18_16_kinetics"
+    else:
+        cfg.update(stack_size=S3D_STACK, step_size=S3D_STACK,
+                   extraction_fps=25)
+    cfg.update(over)
+    return Config(cfg)
+
+
+def clip_windows(extractor, n_frames: int):
+    """The ``(start, end)`` windows ``extractor`` forms over ``n_frames``
+    frames (placeholders: the windowing does not read them)."""
+    return [w for w, _ in extractor._iter_stacks(
+        (np.zeros(1), i / 25 * 1000.0, i) for i in range(n_frames))]
+
+
+def in_head_band(b: dict) -> bool:
+    return b["cos"] >= HEAD_COS and b["max_abs"] <= HEAD_MAX_ABS
+
+
+def wire_frames(extractor, frames):
+    """``frames`` through the extractor's host transform, and the mean ms
+    per frame it took."""
+    t0 = time.perf_counter()
+    out = [(extractor.host_transform(f), t, i) for f, t, i in frames]
+    return out, (time.perf_counter() - t0) * 1e3 / len(frames)
+
+
+def card_part(extractor, wire) -> float:
+    """Seconds of the card's part of a run: transformed frames through the
+    clip windows, the copy, the forward and back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    extractor._features(iter(wire))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def clip_phase(feature_type: str, n_frames: int, dim: int, unit: str):
+    """One clip-stack family in float32 (the YAML default) and bfloat16
+    over ``n_frames`` seeded frames: the main-path run of each through
+    ``extract_frames`` with every launch count set to 0 just before and
+    read just after (no lookup kernel runs), the checks, the host
+    transform's ms per frame, the card's part in turns (F B B F), one
+    profiled run of each. Returns (stats, the frames, the float32
+    features)."""
+    from video_features_tpu_torch.extractors.r21d import ExtractR21D
+    from video_features_tpu_torch.extractors.s3d import ExtractS3D
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils.lists import form_slices
+
+    cls = ExtractR21D if feature_type == "r21d" else ExtractS3D
+    frames = list(synthetic_frames(n_frames, 31))
+    runs = {}
+    for precision in ("float32", "bfloat16"):
+        ex = cls(clip_config(feature_type, precision=precision))
+        wire, transform_ms = wire_frames(ex, frames)
+        card_part(ex, wire)  # the first call at a shape sets up cuDNN
+        reset_counts(cl)
+        feats, seconds = timed(ex, frames)
+        feats = feats[feature_type]
+        if any(read_counts(cl).values()):
+            raise AssertionError(f"{feature_type} {precision}: lookup "
+                                 f"kernels launched {read_counts(cl)}")
+        windows = form_slices(n_frames, ex.stack_size, ex.step_size)
+        if clip_windows(ex, n_frames) != windows:
+            raise AssertionError(f"{feature_type}: windows "
+                                 f"{clip_windows(ex, n_frames)}")
+        if feats.shape != (len(windows), dim) or \
+                not np.isfinite(feats).all():
+            raise AssertionError(f"{feature_type} {precision}: shape "
+                                 f"{feats.shape} or non-finite")
+        runs[precision] = dict(extractor=ex, feats=feats, seconds=seconds,
+                               wire=wire, transform_ms=transform_ms,
+                               ingest=ex.ingest)
+    rows = len(runs["float32"]["feats"])
+    vs_f32 = band(runs["bfloat16"]["feats"], runs["float32"]["feats"])
+    if not in_head_band(vs_f32):
+        raise AssertionError(f"{feature_type} bfloat16 vs float32: {vs_f32}")
+    turns = {"float32": [], "bfloat16": []}
+    for precision in ("float32", "bfloat16", "bfloat16", "float32"):
+        r = runs[precision]
+        turns[precision].append(rows / card_part(r["extractor"], r["wire"]))
+    stats = dict(frames=n_frames, rows=rows, clip_batch_size=CLIP_BATCH,
+                 bf16_vs_f32=vs_f32,
+                 band=dict(cos=HEAD_COS, max_abs=HEAD_MAX_ABS),
+                 **{f"card_part_turns_{unit}_per_s": turns})
+    for precision, r in runs.items():
+        profile = profile_run(r["extractor"], frames)
+        profile[unit] = rows
+        stats[precision] = dict(
+            ingest=r["ingest"], seconds=r["seconds"],
+            **{f"{unit}_per_s": rows / r["seconds"]},
+            host_transform_ms_per_frame=r["transform_ms"], profile=profile)
+    feats = runs["float32"]["feats"]
+    del runs
+    torch.cuda.empty_cache()
+    return stats, frames, feats
+
+
+def run_r21d(dev):
+    """R(2+1)D at the r21d YAML defaults and in bfloat16 (clip_phase),
+    then ``ingest=yuv420`` once and the 34-layer variant once."""
+    from video_features_tpu_torch.extractors.r21d import ExtractR21D
+    from video_features_tpu_torch.ops import colorspace
+    from video_features_tpu_torch.ops.host_transforms import R21DTransform
+
+    stats, frames, feats = clip_phase("r21d", R21D_FRAMES, 512, "clips")
+    to_u8 = R21DTransform("uint8")
+    packed = np.stack([colorspace.rgb_to_yuv420(to_u8(f))
+                       for f, _, _ in frames[:R21D_STACK]])
+    want = colorspace.yuv420_packed_to_rgb(torch.from_numpy(packed), 112, 112)
+    got = colorspace.yuv420_packed_to_rgb(torch.from_numpy(packed).to(dev),
+                                          112, 112)
+    err = max_abs_err(got.cpu(), want)
+    if not err <= 1e-4:
+        raise AssertionError(f"yuv420_packed_to_rgb card vs CPU: {err}")
+    yuv = ExtractR21D(clip_config("r21d", ingest="yuv420"))
+    yuv_feats, yuv_s = timed(yuv, frames)
+    yuv_band = band(yuv_feats["r21d"], feats)
+    if yuv_feats["r21d"].shape != feats.shape or not in_head_band(yuv_band):
+        raise AssertionError(f"r21d yuv420 vs float32: {yuv_band}")
+    del yuv
+    r34 = ExtractR21D(clip_config(
+        "r21d", model_name="r2plus1d_34_8_ig65m_ft_kinetics"))
+    r34_feats, r34_s = timed(r34, frames[:16])
+    if r34_feats["r21d"].shape != (2, 512) or \
+            not np.isfinite(r34_feats["r21d"]).all():
+        raise AssertionError(f"r34_8: {r34_feats['r21d'].shape}")
+    del r34
+    torch.cuda.empty_cache()
+    stats["yuv420"] = dict(rgb_card_vs_cpu_max_abs_err=err,
+                           vs_float32=yuv_band,
+                           cold_clips_per_s=len(feats) / yuv_s)
+    stats["r2plus1d_34_8"] = dict(clips=2, cold_seconds=r34_s)
+    return stats
+
+
+def run_s3d(dev):
+    """S3D at the s3d YAML defaults and in bfloat16 (clip_phase)."""
+    return clip_phase("s3d", S3D_FRAMES, 1024, "stacks")[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1019,6 +1201,9 @@ def main() -> int:
     pwc_stats = run_pwc_family(dev)
     torch.cuda.empty_cache()
     i3d_pwc_stats, proj_launches_bf16 = run_i3d_pwc(dev, fused_feats)
+    torch.cuda.empty_cache()
+    r21d_stats = run_r21d(dev)
+    s3d_stats = run_s3d(dev)
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -1038,10 +1223,14 @@ def main() -> int:
     raft_stats["card"] = card
     pwc_stats["card"] = card
     i3d_pwc_stats["card"] = card
+    r21d_stats["card"] = card
+    s3d_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
     print(json.dumps({"i3d_pwc": i3d_pwc_stats}))
+    print(json.dumps({"r21d": r21d_stats}))
+    print(json.dumps({"s3d": s3d_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

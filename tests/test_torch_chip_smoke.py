@@ -148,3 +148,54 @@ def test_band_is_cosine_and_max_abs():
     assert cs.band(a, a) == {"cos": pytest.approx(1.0), "max_abs": 0.0}
     got = cs.band(a + np.array([0.0, 0.0, 0.5], np.float32), a)
     assert got["max_abs"] == 0.5 and 0.99 < got["cos"] < 1.0
+
+
+@pytest.mark.parametrize("feature_type,frames,stack,rows", [
+    ("r21d", cs.R21D_FRAMES, cs.R21D_STACK, 16),
+    ("s3d", cs.S3D_FRAMES, cs.S3D_STACK, 8)])
+def test_clip_phases_cut_full_groups_at_the_yaml_defaults(
+        feature_type, frames, stack, rows):
+    """257 frames at r21d's default 16/16 make 16 clips, two full groups of
+    8; 513 frames at s3d's 64/64 make 8 stacks, one full group; the
+    phases' extractors resolve the YAML defaults (float32 wire in float32,
+    uint8 in bfloat16)."""
+    from video_features_tpu_torch.extractors.r21d import ExtractR21D
+    from video_features_tpu_torch.extractors.s3d import ExtractS3D
+    from video_features_tpu_torch.utils.lists import form_slices
+
+    cls = ExtractR21D if feature_type == "r21d" else ExtractS3D
+    for precision, ingest in (("float32", "float32"), ("bfloat16", "uint8")):
+        ex = cls(cs.clip_config(feature_type, device="cpu",
+                                precision=precision))
+        assert (ex.stack_size, ex.step_size) == (stack, stack)
+        assert ex.clip_batch_size == cs.CLIP_BATCH and ex.ingest == ingest
+        windows = cs.clip_windows(ex, frames)
+        assert windows == form_slices(frames, stack, stack)
+        assert len(windows) == rows and rows % cs.CLIP_BATCH == 0
+    assert cs.clip_windows(ex, stack - 1) == []
+
+
+def test_head_band_check():
+    a = np.random.default_rng(0).normal(size=(8, 64))
+    assert cs.in_head_band(cs.band(a + 0.4, a)) is False  # cos < 0.99
+    assert cs.in_head_band(cs.band(a * 1.001, a))
+    far = a.copy()
+    far[0, 0] += 0.6  # one value past the max abs limit
+    assert not cs.in_head_band(cs.band(far, a))
+
+
+def test_yuv420_phase_packs_with_the_ports_numpy_encoder():
+    """The frames the r21d phase packs on the host: R21DTransform's uint8
+    crop through the port's I420 encoder (no cv2), decoded back within the
+    encoder's rounding."""
+    from video_features_tpu_torch.ops import colorspace
+    from video_features_tpu_torch.ops.host_transforms import R21DTransform
+
+    frame = next(cs.synthetic_frames(1, 3))[0]
+    u8 = R21DTransform("uint8")(frame)
+    packed = colorspace.rgb_to_yuv420(u8)
+    assert packed.shape == (112 * 112 * 3 // 2,) and packed.dtype == np.uint8
+    back = colorspace.yuv420_packed_to_rgb(torch.from_numpy(packed), 112,
+                                           112).numpy()
+    # luma exact to rounding; chroma of a 2x2 block's top-left pixel
+    assert np.median(np.abs(back - u8)) < 8

@@ -13,8 +13,9 @@ held against the JAX gather only). The ``nonfinite`` case has NaN, +inf,
 -inf and +-1e30 coords: the plain versions return, as the JAX functions do,
 zeros from the gather (``relu(bias)`` from the projection) and NaN from the
 packed and one-hot formulations (their weights ``c - floor(c)`` are NaN),
-held NaN for NaN. The card-only test holds each CUDA kernel against its
-plain version on the card.
+held NaN for NaN. The card-only tests, which hold each CUDA kernel against
+its plain version on the card, are in tests/test_torch_cuda.py, which
+imports no JAX and so can be collected on a machine without it.
 """
 import numpy as np
 import pytest
@@ -24,7 +25,6 @@ import jax.numpy as jnp
 
 from video_features_tpu.kernels import corr_lookup as jcl
 from video_features_tpu.models import raft as jraft
-from video_features_tpu_torch.device import set_precision
 from video_features_tpu_torch.kernels import build
 from video_features_tpu_torch.kernels import corr_lookup as tcl
 from video_features_tpu_torch.models import raft as traft
@@ -284,60 +284,6 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
     after = build.library_path()
     assert before != after and after.parent == build.BUILD_DIR
     assert after.name.startswith("libvft_kernels_")
-
-
-@pytest.fixture
-def cuda_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", PACKED_CASES)
-def test_cuda_kernels_match_plain_on_card(cuda_card, name):
-    pyramid, coords = _case(name)
-    tp = [torch.from_numpy(p).to(cuda_card) for p in pyramid]
-    tc = torch.from_numpy(coords).to(cuda_card)
-    rng = np.random.default_rng(9)
-    weight = torch.from_numpy((rng.normal(size=(324, 256)) * 0.05).astype(
-        np.float32)).to(cuda_card)
-    bias = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32)).to(
-        cuda_card)
-    set_precision("float32")  # the plain projection's matmul in full f32
-    level = tcl.corr_lookup_level_cuda(tp, tc)
-    proj = tcl.corr_lookup_proj_cuda(tp, tc, weight, bias)
-    packed, metas = tcl.pack_pyramid(tp)
-    taps = tcl.corr_lookup_packed_cuda(packed, metas, tc)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(
-        taps.cpu().numpy(),
-        tcl.corr_lookup_packed_ref(packed, metas, tc).cpu().numpy(),
-        atol=1e-5, rtol=0)
-    np.testing.assert_allclose(
-        level.cpu().numpy(),
-        tcl.corr_lookup_gather_ref(tp, tc).cpu().numpy(), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(
-        proj.cpu().numpy(),
-        tcl.corr_lookup_proj_ref(tp, tc, weight, bias).cpu().numpy(),
-        atol=1e-4, rtol=0)
-
-
-@pytest.mark.cuda
-def test_cuda_proj_rejects_unsupported_shapes(cuda_card):
-    """The fused kernel takes convc1's 256 output channels and 16-byte
-    aligned weight and bias; anything else raises, never falls back."""
-    pyramid, coords = _case("q231")
-    tp = [torch.from_numpy(p).to(cuda_card) for p in pyramid]
-    tc = torch.from_numpy(coords).to(cuda_card)
-    with pytest.raises(ValueError, match="256 output channels"):
-        tcl.corr_lookup_proj_cuda(tp, tc,
-                                  torch.zeros(324, 24, device=cuda_card),
-                                  torch.zeros(24, device=cuda_card))
-    shifted = torch.zeros(324 * 256 + 1, device=cuda_card)[1:].view(324, 256)
-    with pytest.raises(ValueError, match="aligned"):
-        tcl.corr_lookup_proj_cuda(tp, tc, shifted,
-                                  torch.zeros(256, device=cuda_card))
 
 
 def test_port_pyramid_matches_jax():

@@ -1,0 +1,198 @@
+"""The port's fault-tolerance runtime and key gating against the JAX package.
+
+- Every key of the JAX YAMLs whose plane the port does not run raises
+  ``NotImplementedError`` naming its ROADMAP.md Queue 1 item when set away
+  from its default, in every ported family; at the default it passes.
+- ``RetryPolicy`` and ``classify`` agree with the JAX ones (defaults,
+  backoff delays under one seeded rng, the category of each exception).
+- The CLI on a video that fails (a file that is not a video), in process,
+  against the JAX CLI in process, both reading one seeded checkpoint: the
+  same number of tries (``retry_attempts``, the YAML default 3), the same
+  ``_failures.jsonl`` record fields and verdict, the quarantine skip on a
+  rerun, ``retry_failed=true`` trying again and appending a record; and
+  both ``main()`` return None. Run as processes, both CLIs exit 0 when a
+  video fails.
+"""
+import contextlib
+import io
+import json
+import os
+import random
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from video_features_tpu.utils import faults as jfaults
+from video_features_tpu_torch import config as tconfig
+from video_features_tpu_torch.utils import faults as tfaults
+
+REPO = Path(__file__).resolve().parents[1]
+FAMILIES = ("i3d", "raft", "pwc", "r21d", "s3d")
+
+
+GATED_CASES = [
+    ("video_deadline_s", 5, 5), ("inject", "seed=1;sink.fsync=enospc@n1", 5),
+    ("distributed", True, 6), ("mesh_devices", 2, 6),
+    ("video_workers", 4, 6), ("video_workers", "auto", 6),
+    ("cross_video_batching", True, 6), ("cache", True, 7),
+    ("cache_dir", "/c", 7), ("cache_scope", "tenant", 7),
+    ("compile_cache", True, 8), ("compile_cache_dir", "/c", 8),
+    ("compilation_cache_dir", "/c", 8), ("fleet", "queue", 8),
+    ("fleet_lease_s", 30, 8), ("fleet_max_reclaims", 5, 8),
+    ("fleet_canary", True, 8), ("serve_slo_s", 0.5, 8),
+    ("telemetry", True, 9), ("metrics_interval_s", 5, 9),
+    ("trace", True, 9), ("health", True, 9), ("parity", True, 9),
+    ("roofline", True, 9), ("history", True, 9), ("alerts", True, 9),
+    ("config", "other.yml", None)]
+
+
+@pytest.mark.parametrize("key,value,item", GATED_CASES)
+def test_gated_keys_raise_naming_their_item(key, value, item):
+    assert key in tconfig.GATED_KEYS and tconfig.GATED_KEYS[key][1] == item
+    match = "ROADMAP.md Queue 1" + (f" #{item}" if item else "")
+    for family in FAMILIES:
+        cfg = tconfig.load_config(family)
+        tconfig.check_ported(cfg)
+        with pytest.raises(NotImplementedError, match=match):
+            tconfig.check_ported(tconfig.merge(cfg, tconfig.Config(
+                {key: value})))
+
+
+def test_every_gated_key_is_tested_and_in_every_yaml():
+    """``cross_video_batching`` is a launch key of the JAX package, in no
+    YAML; every other gated key is in every port YAML."""
+    assert {k for k, _, _ in GATED_CASES} == set(tconfig.GATED_KEYS)
+    for family in FAMILIES:
+        missing = set(tconfig.GATED_KEYS) - set(tconfig.load_config(family))
+        assert missing == {"cross_video_batching"}, family
+
+
+def test_show_pred_is_ported_for_the_clip_stack_families_only():
+    for family in FAMILIES:
+        cfg = tconfig.merge(tconfig.load_config(family),
+                            tconfig.Config({"show_pred": True}))
+        if family in ("r21d", "s3d"):
+            tconfig.check_ported(cfg)
+        else:
+            with pytest.raises(NotImplementedError, match="show_pred"):
+                tconfig.check_ported(cfg)
+
+
+def test_retry_policy_matches_jax():
+    cfg = tconfig.load_config("r21d")
+    want = jfaults.RetryPolicy.from_config(cfg)
+    got = tfaults.RetryPolicy.from_config(cfg)
+    assert (got.attempts, got.backoff_s, got.retry_failed) == \
+        (want.attempts, want.backoff_s, want.retry_failed) == (3, 0.5, False)
+    want.rng, got.rng = random.Random(3), random.Random(3)
+    assert [got.backoff_delay(k) for k in range(1, 10)] == \
+        [want.backoff_delay(k) for k in range(1, 10)]
+    for bad in ({"retry_attempts": 0}, {"retry_backoff_s": -1}):
+        with pytest.raises(ValueError):
+            tfaults.RetryPolicy.from_config(bad)
+
+
+@pytest.mark.parametrize("exc", [
+    ValueError("Cannot determine fps"), KeyError("k"), IndexError("i"),
+    NotImplementedError("x"), TypeError("t"), ImportError("m"),
+    RuntimeError("blip"), MemoryError(), OSError(5, "EIO"),
+    OSError(28, "No space left on device"), ConnectionError("reset")])
+def test_classify_matches_jax(exc):
+    assert tfaults.classify(exc) == jfaults.classify(exc)
+
+
+def r21d_checkpoint(path):
+    from video_features_tpu_torch.models.r21d import R2Plus1D
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+    torch.save(seeded_init_(R2Plus1D(), 0).state_dict(), path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """Three in-process runs of each package's CLI on one broken video:
+    the first, a rerun, and a rerun with ``retry_failed=true``; per run the
+    return value, stdout and the journal's records."""
+    from video_features_tpu.cli import main as jmain
+    from video_features_tpu_torch.cli import main as tmain
+
+    tmp = tmp_path_factory.mktemp("faults")
+    bad = tmp / "broken.mp4"
+    bad.write_bytes(b"not a video")
+    ckpt = r21d_checkpoint(tmp / "r21d.pt")
+    out = {}
+    for name, main in (("jax", jmain), ("port", tmain)):
+        root = tmp / name
+        base = ["feature_type=r21d", "device=cpu", f"weights_path={ckpt}",
+                "on_extraction=save_numpy", "retry_backoff_s=0",
+                f"output_path={root / 'o'}", f"tmp_path={root / 't'}",
+                f"video_paths={bad}"]
+        journal = root / "o" / "r21d" / "r2plus1d_18_16_kinetics" / \
+            "_failures.jsonl"
+        runs = []
+        for extra in ([], [], ["retry_failed=true"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = main(base + extra)
+            records = [json.loads(line) for line in
+                       journal.read_text().splitlines()]
+            runs.append(dict(rc=rc, out=buf.getvalue(), records=records))
+        out[name] = runs
+    return out
+
+
+def test_failed_video_journal_matches_jax(cli_runs):
+    for name, runs in cli_runs.items():
+        first = runs[0]
+        assert len(first["records"]) == 1, name
+        rec = first["records"][0]
+        assert rec["category"] == "POISON" and rec["attempts"] == 3, rec
+        assert first["out"].count("An error occurred extracting") == 3
+    j, t = cli_runs["jax"][0]["records"][0], \
+        cli_runs["port"][0]["records"][0]
+    assert set(t) == set(j)
+    assert (t["category"], t["attempts"], t["error"]) == \
+        (j["category"], j["attempts"], j["error"])
+
+
+def test_rerun_skips_quarantined_video_as_jax(cli_runs):
+    for name, runs in cli_runs.items():
+        second = runs[1]
+        assert "is quarantined by" in second["out"], name
+        assert "An error occurred" not in second["out"]
+        assert second["records"] == runs[0]["records"]
+
+
+def test_retry_failed_tries_again_as_jax(cli_runs):
+    for name, runs in cli_runs.items():
+        third = runs[2]
+        assert third["out"].count("An error occurred extracting") == 3, name
+        assert len(third["records"]) == 2
+        assert third["records"][1]["attempts"] == 3
+
+
+def test_main_returns_none_as_jax(cli_runs):
+    assert [r["rc"] for r in cli_runs["jax"]] == \
+        [r["rc"] for r in cli_runs["port"]] == [None] * 3
+
+
+def test_exit_status_on_failed_video_matches_jax(tmp_path):
+    bad = tmp_path / "broken.mp4"
+    bad.write_bytes(b"not a video")
+    ckpt = r21d_checkpoint(tmp_path / "r21d.pt")
+    args = ["feature_type=r21d", "device=cpu", f"weights_path={ckpt}",
+            "retry_attempts=1", f"output_path={tmp_path / 'o'}",
+            f"tmp_path={tmp_path / 't'}", f"video_paths={bad}"]
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    codes = []
+    for cmd in ([sys.executable, "-m", "video_features_tpu_torch"],
+                [sys.executable, str(REPO / "main.py")]):
+        run = subprocess.run(cmd + args, cwd=tmp_path, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert "An error occurred extracting" in run.stdout, run.stderr
+        codes.append(run.returncode)
+    assert codes == [0, 0]

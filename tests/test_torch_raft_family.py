@@ -10,9 +10,9 @@ back by the bridge to the same weights: ``precision=float32``, ``resize=host``, 
 the ``raft`` flows within atol 1e-3 px (two recurrent iterations of f32
 convs in another summation order), ``fps`` and ``timestamps_ms`` exact. One
 CLI run at the YAML defaults (``precision=bfloat16``) writes the three
-``.npy`` outputs and skips on a rerun. The two packages' YAML defaults
-agree on every shared key; only the port-only ``video_decode`` key is
-allowed to differ.
+``.npy`` outputs and skips on a rerun. Each port family's YAML carries
+every key of the JAX one at the same default; only the port-only
+``video_decode`` key is added.
 """
 import os
 import subprocess
@@ -38,17 +38,20 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_ONLY_KEYS = {"video_decode"}
 
 
-@pytest.mark.parametrize("family", ["raft", "i3d", "pwc"])
+@pytest.mark.parametrize("family", ["raft", "i3d", "pwc", "r21d", "s3d"])
 def test_yaml_defaults_match_jax(family):
+    """Every key of the JAX YAML is in the port's at the same default, and
+    the port adds only ``video_decode``; the defaults pass
+    ``check_ported``."""
     jax_cfg = yaml.safe_load(
         (REPO / "video_features_tpu" / "configs" / f"{family}.yml").read_text())
     port_cfg = yaml.safe_load((REPO / "video_features_tpu_torch" / "configs"
                                / f"{family}.yml").read_text())
-    shared = set(jax_cfg) & set(port_cfg)
-    assert {k: port_cfg[k] for k in shared} == {k: jax_cfg[k] for k in shared}
-    assert set(port_cfg) - set(jax_cfg) == PORT_ONLY_KEYS
-    assert port_cfg["precision"] == ("float32" if family == "i3d"
-                                     else "bfloat16")
+    assert set(jax_cfg) == set(port_cfg) - PORT_ONLY_KEYS
+    assert {k: port_cfg[k] for k in jax_cfg} == jax_cfg
+    assert port_cfg["precision"] == ("bfloat16" if family in ("raft", "pwc")
+                                     else "float32")
+    tconfig.check_ported(tconfig.load_config(family))
 
 
 def _stream(n):
@@ -217,7 +220,7 @@ def test_family_defaults_and_device(tmp_path, sample_video):
     assert all(p.dtype == torch.float32 for p in pwc.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         tconfig.check_ported(tconfig.Config(
-            {"feature_type": "r21d", "precision": "bfloat16"}))
+            {"feature_type": "resnet", "precision": "bfloat16"}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=cpu"):
             ExtractRAFT(tconfig.load_config("raft", dict(cfg, device="auto")))

@@ -326,18 +326,21 @@ def test_cli_writes_outputs(sample_video, tmp_path):
 
 def test_cli_rejects_unported_families():
     from video_features_tpu_torch.registry import get_extractor_cls
-    for family in ("resnet", "r21d", "clip"):
+    for family in ("resnet", "clip", "vggish"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_extractor_cls(family)
     assert get_extractor_cls("i3d").__name__ == "ExtractI3D"
     assert get_extractor_cls("raft").__name__ == "ExtractRAFT"
     assert get_extractor_cls("pwc").__name__ == "ExtractPWC"
+    assert get_extractor_cls("r21d").__name__ == "ExtractR21D"
+    assert get_extractor_cls("s3d").__name__ == "ExtractS3D"
 
 
 def test_port_imports_no_jax_and_no_lazy_host_deps():
-    """Every module of the port imports under a finder that refuses jax,
-    flax and video_features_tpu; importing the i3d, raft and pwc extractors
-    pulls in neither cv2 nor PIL nor yaml."""
+    """Every module of the port, and tests/test_torch_cuda.py, imports under
+    a finder that refuses jax, flax and video_features_tpu; importing the
+    i3d, raft, pwc, r21d and s3d extractors and the card-only tests pulls in
+    neither cv2 nor PIL nor yaml."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -352,6 +355,9 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
         import video_features_tpu_torch.extractors.i3d
         import video_features_tpu_torch.extractors.raft
         import video_features_tpu_torch.extractors.pwc
+        import video_features_tpu_torch.extractors.r21d
+        import video_features_tpu_torch.extractors.s3d
+        import tests.test_torch_cuda
         lazy = [m for m in ("cv2", "PIL", "yaml") if m in sys.modules]
         assert not lazy, lazy
         import video_features_tpu_torch as pkg
@@ -365,7 +371,7 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stdout + run.stderr
-    assert int(run.stdout.split()[-1]) >= 25
+    assert int(run.stdout.split()[-1]) >= 35
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,23 +1,29 @@
-"""CLI: ``python -m video_features_tpu_torch feature_type=i3d key=value ...``
-(or ``feature_type=raft``, ``feature_type=pwc``).
+"""CLI: ``python -m video_features_tpu_torch feature_type=<family> key=value
+...`` for the ported families (``registry.py``).
 
 The JAX package's dotlist surface: the family's YAML defaults merged under
-the ``key=value`` overrides, validated, then each video extracted with
-per-video error isolation (a failing video is reported and the run goes
-on), writing ``{output_path}/{feature_type}/{stem}_{key}.npy`` under
-``save_numpy``.
+the ``key=value`` overrides, validated, then each video extracted under the
+fault-tolerance runtime (``utils/faults.py``, ``utils/sinks.py
+safe_extract``): ``retry_attempts`` tries with backoff, and for file sinks
+the ``{output_path}/_failures.jsonl`` journal that quarantines POISON
+videos on a rerun unless ``retry_failed=true``. A failing video is reported
+and the run goes on; as in the JAX CLI, the exit status is 0 whether or not
+videos failed. Outputs: ``{output_path}/{feature_type}/{stem}_{key}.npy``
+under ``save_numpy``.
 """
 from __future__ import annotations
 
 import sys
-import traceback
+import time
 from typing import List, Optional
 
 from .config import load_config, parse_dotlist, sanity_check, video_list
 from .registry import get_extractor_cls
+from .utils.faults import FailureJournal, RetryPolicy
+from .utils.sinks import safe_extract
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None) -> None:
     overrides = parse_dotlist(sys.argv[1:] if argv is None else argv)
     feature_type = overrides.get("feature_type")
     if not feature_type:
@@ -26,15 +32,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = load_config(feature_type, overrides)
     sanity_check(args)
     extractor = cls(args)
-    failed = 0
-    for path in video_list(args.get("video_paths"),
-                           args.get("file_with_video_paths")):
-        try:
-            extractor._extract(path)
-        except KeyboardInterrupt:
-            raise
-        except Exception:
-            failed += 1
-            print(f"An error occurred while extracting {path}:")
-            traceback.print_exc()
-    return 1 if failed else 0
+    policy = RetryPolicy.from_config(args)
+    journal = (FailureJournal(args.output_path)
+               if args.get("on_extraction", "print") != "print" else None)
+    paths = video_list(args.get("video_paths"),
+                       args.get("file_with_video_paths"))
+    tally = {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
+    failures: List[dict] = []
+    t0 = time.perf_counter()
+    for path in paths:
+        tally[safe_extract(extractor._extract, path, policy=policy,
+                           journal=journal,
+                           on_terminal_failure=failures.append)] += 1
+    summary = (f"{sum(tally.values())}/{len(paths)} videos in "
+               f"{time.perf_counter() - t0:.1f}s: {tally['done']} extracted, "
+               f"{tally['skipped']} already done, {tally['error']} failed")
+    if tally["quarantined"]:
+        summary += f", {tally['quarantined']} quarantined"
+    print(summary)
+    if failures and journal is not None:
+        print(f"failure journal: {journal.path} (retry_failed=true re-runs "
+              "quarantined videos)")

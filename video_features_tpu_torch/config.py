@@ -2,12 +2,13 @@
 
 The port's own copy of ``video_features_tpu/config.py`` (``Config``,
 ``parse_dotlist``, ``merge``, ``load_config``) with a ``sanity_check`` cut to
-the keys the ported families (``i3d``, ``raft``, ``pwc``) run. ``yaml`` is
-imported only where YAML is parsed, so importing the extractors needs no
-``yaml``.
+the keys the ported families (``registry.py``) run. ``yaml`` is imported
+only where YAML is parsed, so importing the extractors needs no ``yaml``.
 
-Keys whose features are not ported yet raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that will port them, instead of being ignored.
+Every port YAML carries every key of its JAX twin at the JAX default. A key
+whose plane the port does not run yet is accepted at its default only; any
+other value raises ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1
+item that will port it (:data:`GATED_KEYS`), instead of being ignored.
 """
 from __future__ import annotations
 
@@ -19,11 +20,45 @@ from .device import precision_dtype, resolve_device
 
 _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 
-#: the ROADMAP.md item that ports the keys below and the decode/fps modes
-_ROADMAP_KEYS = "ROADMAP.md 'unported keys'"
-#: switches that must stay off (null/false) in the ported families
-_UNPORTED_FLAGS = ("cache", "telemetry", "trace", "health", "parity",
-                   "roofline", "show_pred")
+#: key -> (the values the port accepts, the ROADMAP.md Queue 1 item that
+#: ports the key's plane; None for ``config``, which the JAX package reads
+#: at no value either)
+GATED_KEYS = {
+    # fault tolerance and decode (#5): the deadline watchdog needs the decode
+    # sources' cancel hooks
+    "video_deadline_s": ((None,), 5),
+    "inject": ((None,), 5),
+    # batching and multi-GPU data parallelism (#6)
+    "distributed": ((None, False), 6),
+    "mesh_devices": ((None,), 6),
+    "video_workers": ((None, 1), 6),
+    "cross_video_batching": ((None, False), 6),
+    # multi-family CLI and the feature cache (#7)
+    "cache": ((None, False), 7),
+    "cache_dir": ((None,), 7),
+    "cache_scope": ((None, "shared"), 7),
+    # warm serving, compile caches and the fleet (#8)
+    "compile_cache": ((None, "auto", False), 8),
+    "compile_cache_dir": ((None,), 8),
+    "compilation_cache_dir": ((None, "auto"), 8),
+    "fleet": ((None, "static"), 8),
+    "fleet_lease_s": ((None, 60), 8),
+    "fleet_max_reclaims": ((None, 3), 8),
+    "fleet_canary": ((None, False), 8),
+    "serve_slo_s": ((None,), 8),
+    # device-facing telemetry (#9)
+    "telemetry": ((None, False), 9),
+    "trace": ((None, False), 9),
+    "health": ((None, False), 9),
+    "parity": ((None, False), 9),
+    "roofline": ((None, False), 9),
+    "history": ((None, False), 9),
+    "alerts": ((None, False), 9),
+    "metrics_interval_s": ((None, 30), 9),
+    "config": ((None,), None),
+}
+#: families whose ``show_pred`` is ported
+SHOW_PRED_FAMILIES = ("r21d", "s3d")
 
 
 class Config(dict):
@@ -132,23 +167,38 @@ def video_list(video_paths: Union[str, Sequence[str], None] = None,
     return paths
 
 
+def _roadmap(item: Optional[int]) -> str:
+    return "ROADMAP.md Queue 1" + (f" #{item}" if item else "")
+
+
 def check_ported(args: Config) -> None:
-    """Raise ``NotImplementedError`` for keys the port does not run yet
-    (``precision=bfloat16`` is ported for ``device.BF16_FAMILIES``)."""
-    for key in _UNPORTED_FLAGS:
-        if args.get(key):
+    """Raise ``NotImplementedError`` for a value the port does not run yet:
+    a :data:`GATED_KEYS` key away from its default, ``show_pred`` outside
+    :data:`SHOW_PRED_FAMILIES`, ``video_decode=process|parallel``,
+    ``fps_mode=reencode``, and ``precision=bfloat16`` outside
+    ``device.BF16_FAMILIES``."""
+    for key, (accepted, item) in GATED_KEYS.items():
+        value = args.get(key)
+        if value not in accepted:
             raise NotImplementedError(
-                f"{key}={args.get(key)!r} is not ported yet ({_ROADMAP_KEYS})")
-    precision_dtype(args.get("precision"), args.get("feature_type"))
+                f"{key}={value!r} is not ported yet ({_roadmap(item)}); "
+                f"the port accepts {' or '.join(map(repr, accepted))}")
+    feature_type = args.get("feature_type")
+    if args.get("show_pred") and feature_type not in SHOW_PRED_FAMILIES:
+        raise NotImplementedError(
+            f"show_pred=true is not ported yet for feature_type="
+            f"{feature_type!r} ({_roadmap(None)}); it is for "
+            f"{', '.join(SHOW_PRED_FAMILIES)}")
+    precision_dtype(args.get("precision"), feature_type)
     decode = args.get("video_decode") or "inline"
     if decode in ("process", "parallel"):
         raise NotImplementedError(
-            f"video_decode={decode!r} is not ported yet ({_ROADMAP_KEYS})")
+            f"video_decode={decode!r} is not ported yet ({_roadmap(5)})")
     if decode != "inline":
         raise ValueError(f"video_decode={decode!r}: expected 'inline'")
     if (args.get("fps_mode") or "select") == "reencode":
         raise NotImplementedError(
-            f"fps_mode='reencode' is not ported yet ({_ROADMAP_KEYS})")
+            f"fps_mode='reencode' is not ported yet ({_roadmap(5)})")
 
 
 def sanity_check(args: Config, *, require_videos: bool = True) -> None:
@@ -159,11 +209,33 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     ``stack_size >= 10``, ``extraction_fps``/``extraction_total`` exclusive,
     ``resize``, ``corr_lookup_impl``/``fuse_convc1``, the flow families'
     keys ``iters``, ``batch_size``, ``side_size`` and
-    ``resize_to_smaller_edge`` (``ExtractRAFT`` checks ``finetuned_on``), the unported keys, the device
-    (``args.device`` becomes ``cpu``, ``cuda`` or ``cuda:N``) and the
-    ``feature_type`` namespacing of ``output_path``/``tmp_path``."""
+    ``resize_to_smaller_edge`` (``ExtractRAFT`` checks ``finetuned_on``),
+    the clip-stack families' ``model_name`` and ``ingest``, the retry keys,
+    the unported keys, the device (``args.device`` becomes ``cpu``,
+    ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
+    namespacing of ``output_path``/``tmp_path``."""
     check_ported(args)
     args.device = str(resolve_device(args.get("device")))
+    if args.feature_type in ("r21d", "s3d"):
+        from .registry import get_extractor_cls
+        cls = get_extractor_cls(args.feature_type)
+        if args.feature_type == "r21d":
+            from .models.r21d import VARIANTS
+            if args.get("model_name") not in VARIANTS:
+                raise NotImplementedError(
+                    f"Model {args.get('model_name')} not found; expected "
+                    f"one of {sorted(VARIANTS)}")
+        ingest = args.get("ingest")
+        if ingest is not None and ingest not in cls.supported_ingest:
+            raise NotImplementedError(
+                f"ingest={ingest!r}; {cls.__name__} supports "
+                f"{cls.supported_ingest}")
+    ra = args.get("retry_attempts")
+    if ra is not None and int(ra) < 1:
+        raise ValueError(f"retry_attempts={ra!r}: need an int >= 1")
+    rb = args.get("retry_backoff_s")
+    if rb is not None and float(rb) < 0:
+        raise ValueError(f"retry_backoff_s={rb!r}: need a float >= 0")
 
     if require_videos:
         if not (args.get("file_with_video_paths") or args.get("video_paths")):

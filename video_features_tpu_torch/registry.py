@@ -1,5 +1,5 @@
-"""feature_type -> extractor class. ``i3d``, ``raft`` and ``pwc`` are ported
-so far; the other families of the JAX package raise
+"""feature_type -> extractor class. ``i3d``, ``raft``, ``pwc``, ``r21d``
+and ``s3d`` are ported so far; the other families of the JAX package raise
 ``NotImplementedError``."""
 from __future__ import annotations
 
@@ -7,8 +7,9 @@ import importlib
 from typing import Type
 
 _DISPATCH = {"i3d": ("i3d", "ExtractI3D"), "raft": ("raft", "ExtractRAFT"),
-             "pwc": ("pwc", "ExtractPWC")}
-_NOT_PORTED = ("resnet", "r21d", "s3d", "clip", "vggish")
+             "pwc": ("pwc", "ExtractPWC"), "r21d": ("r21d", "ExtractR21D"),
+             "s3d": ("s3d", "ExtractS3D")}
+_NOT_PORTED = ("resnet", "clip", "vggish")
 
 
 def get_extractor_cls(feature_type: str) -> Type:

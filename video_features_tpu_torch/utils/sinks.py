@@ -7,7 +7,9 @@
     ``save_pickle`` (.pkl), each written atomically (temp file, fsync,
     rename);
   - :func:`is_already_exist`: every key file exists AND loads, so a file
-    torn by a killed worker counts as absent and is extracted again.
+    torn by a killed worker counts as absent and is extracted again;
+  - :func:`safe_extract`: one video under the retry policy and failure
+    journal of ``utils/faults.py``.
 """
 from __future__ import annotations
 
@@ -15,10 +17,13 @@ import io
 import os
 import pickle
 import tempfile
+import traceback
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
+
+from . import faults
 
 EXTS = {"save_numpy": ".npy", "save_pickle": ".pkl"}
 
@@ -119,3 +124,76 @@ def action_on_extraction(feats_dict: Dict[str, np.ndarray], video_path: str,
             print("Warning: the value is empty for", key, "@", video_path)
         writer(make_path(output_path, video_path, key, EXTS[on_extraction]),
                value)
+
+
+def safe_extract(extract_fn: Callable, video_path: str,
+                 policy: Optional[faults.RetryPolicy] = None,
+                 journal: Optional[faults.FailureJournal] = None,
+                 on_terminal_failure: Optional[Callable[[dict], None]] = None
+                 ) -> str:
+    """Run one video with per-video error isolation (the inline-decode part
+    of the JAX ``utils/sinks.py safe_extract``; KeyboardInterrupt is
+    re-raised):
+
+      - a video whose latest ``journal`` record is POISON is skipped
+        (``'quarantined'``) unless ``policy.retry_failed``;
+      - each failure is classified; TRANSIENT and POISON get up to
+        ``policy.attempts`` tries with the policy's backoff, FATAL fails at
+        once;
+      - a terminal failure appends one ``journal`` record and is passed to
+        ``on_terminal_failure``;
+      - a ``retry_failed`` success lifts the video's quarantine.
+
+    ``policy=None`` is a single attempt. Returns ``'done'``, ``'skipped'``
+    (the outputs already exist), ``'quarantined'`` or ``'error'``."""
+    if policy is None:
+        policy = faults.RetryPolicy()
+    if journal is not None and not policy.retry_failed:
+        rec = journal.poison_record(video_path)
+        if rec is not None:
+            print(f'"{video_path}" is quarantined by {journal.path} '
+                  f'(category={rec.get("category")}, '
+                  f'attempts={rec.get("attempts")}) — skipping. '
+                  "Pass retry_failed=true to re-run it.")
+            return "quarantined"
+
+    t0 = policy.clock()
+    category = None
+    err_repr = ""
+    attempts_made = 0
+    for attempt in range(1, policy.attempts + 1):
+        attempts_made = attempt
+        try:
+            result = extract_fn(video_path)
+            if attempt > 1:
+                print(f'Recovered "{video_path}" on attempt '
+                      f"{attempt}/{policy.attempts}")
+            if journal is not None and policy.retry_failed \
+                    and journal.poison_record(video_path) is not None:
+                journal.resolve(video_path)
+            return "done" if result is not None else "skipped"
+        except Exception as e:
+            category = faults.classify(e)
+            err_repr = f"{type(e).__name__}: {e}"
+            print(f"An error occurred extracting features for: {video_path} "
+                  f"(attempt {attempt}/{policy.attempts}, "
+                  f"category={category})")
+            traceback.print_exc()
+            if category == faults.FATAL:
+                break
+            if attempt < policy.attempts:
+                delay = policy.backoff_delay(attempt)
+                if delay > 0:
+                    print(f"Retrying \"{video_path}\" in {delay:.2f}s ...")
+                    policy.sleep(delay)
+
+    elapsed = policy.clock() - t0
+    rec = {"video": str(video_path), "category": category,
+           "attempts": attempts_made, "error": err_repr,
+           "elapsed_s": round(float(elapsed), 3)}
+    if journal is not None:
+        rec = journal.record(video_path, category, attempts_made, err_repr,
+                             elapsed)
+    if on_terminal_failure is not None:
+        on_terminal_failure(rec)
+    return "error"

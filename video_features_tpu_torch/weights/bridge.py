@@ -1,16 +1,19 @@
 """Parameter bridges into the port's ``state_dict`` layout, and seeded init.
 
-``raft_state_from_jax`` / ``i3d_state_from_jax`` / ``pwc_state_from_jax``
-map a JAX parameter tree (nested dicts of numpy arrays, as
+``raft_state_from_jax`` / ``i3d_state_from_jax`` / ``pwc_state_from_jax`` /
+``r21d_state_from_jax`` / ``s3d_state_from_jax`` map a JAX parameter tree (nested dicts of numpy arrays, as
 ``video_features_tpu.models.*.init_params`` or ``params_from_torch`` build
 them) onto the port's modules, whose names are the reference checkpoints'
 keys. They invert the JAX ``params_from_torch``:
 
-  - conv kernels HWIO -> OIHW, 3D kernels DHWIO -> OIDHW;
+  - conv kernels HWIO -> OIHW, 3D kernels DHWIO -> OIDHW, dense kernels
+    (in, out) -> (out, in);
   - BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``
     (plus ``num_batches_tracked``, which the JAX tree drops);
   - Sequential indices come back out of the flat names (``layer1_0`` ->
-    ``layer1.0``, ``branch_1_0`` -> ``branch_1.0``), RAFT's ``update_mask``
+    ``layer1.0``, ``branch_1_0`` -> ``branch_1.0``; R(2+1)D's and S3D's
+    named submodules go back to torchvision's and the reference's
+    Sequential indices), RAFT's ``update_mask``
     returns under ``update_block.mask``, and a batch-norm RAFT block's
     ``downsample.1`` is written under ``norm3`` too (the reference registers
     that module twice).
@@ -153,6 +156,51 @@ def pwc_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             state[f"{key}.{leaf}"] = torch.from_numpy(arr.copy())
     return state
+
+
+#: R(2+1)D: JAX submodule -> torchvision ``VideoResNet`` Sequential path
+_R21D_STEM = {"stem_conv_s": "stem.0", "stem_bn_s": "stem.1",
+              "stem_conv_t": "stem.3", "stem_bn_t": "stem.4"}
+_R21D_BLOCK = {"conv1/conv_s": "conv1.0.0", "conv1/bn_mid": "conv1.0.1",
+               "conv1/conv_t": "conv1.0.3", "bn1": "conv1.1",
+               "conv2/conv_s": "conv2.0.0", "conv2/bn_mid": "conv2.0.1",
+               "conv2/conv_t": "conv2.0.3", "bn2": "conv2.1",
+               "downsample_conv": "downsample.0",
+               "downsample_bn": "downsample.1"}
+
+
+def _r21d_key(mod_path: str) -> str:
+    if "/" not in mod_path:  # the stem's modules, or the head's fc
+        return _R21D_STEM.get(mod_path, mod_path)
+    block, sub = mod_path.split("/", 1)
+    return block.replace("_", ".") + "." + _R21D_BLOCK[sub]
+
+
+def r21d_state_from_jax(params: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX R(2+1)D ``{'backbone', 'head'}`` trees -> the port's (and
+    torchvision's) ``R2Plus1D`` state dict, ``fc`` included."""
+    return _to_state({**params["backbone"], **params["head"]}, _r21d_key)
+
+
+#: S3D: JAX block name -> index in the reference's ``base`` Sequential
+_S3D_BASE = {"stem_sep1": "0", "stem_basic": "2", "stem_sep2": "3",
+             "m3b": "5", "m3c": "6", "m4b": "8", "m4c": "9", "m4d": "10",
+             "m4e": "11", "m4f": "12", "m5b": "14", "m5c": "15"}
+
+
+def _s3d_key(mod_path: str) -> str:
+    if mod_path == "fc":
+        return "fc.0"
+    block, *rest = mod_path.split("/")
+    rest = [re.sub(r"^(branch\d)_(\d)$", r"\1.\2", p) for p in rest]
+    return ".".join(["base", _S3D_BASE[block]] + rest)
+
+
+def s3d_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX S3D tree (classifier ``fc`` included) -> the port's (and the
+    reference's) S3D state dict."""
+    return _to_state(params, _s3d_key)
 
 
 def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
