@@ -105,14 +105,33 @@ that goes wrong:
    finite, the windows those of ``form_slices(513, 64, 64)``, no lookup
    kernel launched; then ``precision=bfloat16``, within the head band.
    Stacks/s as for R(2+1)D;
-12. prints one JSON line each of the i3d slice's, the raft family's, the
-   pwc family's, the i3d PWC phase's, the r21d phase's and the s3d phase's
-   numbers, one of the kernels' numbers, and last
+12. drives ResNet, ``ExtractResNet(...).extract_frames(...)`` at the
+   resnet YAML defaults (``resnet50``, ``batch_size=1``, float32) with
+   ``resize=device``, over 32 seeded synthetic 240x320 frames; then
+   ``batch_size=64`` in float32 and bfloat16 over 256 frames, then
+   ``resize=host`` (PIL on the host), ``ingest=yuv420`` (I420 planes
+   converted on the card) and ``resnet18`` once beside. Every run: the
+   features ``(N, 2048)`` (``(N, 512)`` for resnet18) and finite, the
+   timestamps those of frames 0..N-1, no lookup kernel launched (counts set
+   to 0 just before and read just after). Bfloat16 within the head band
+   of float32, batch 1 and ``resize=host`` within the value tier (max abs
+   1e-2) of batch 64 with ``resize=device``, yuv420 against uint8 cosine
+   >= 0.99. Frames/s of float32 and bfloat16 in turns (F B B F), FLOPs per
+   frame (``torch.utils.flop_counter`` on meta tensors), one profiled run
+   of each and of batch 1 (busy share, top device items, launches per
+   batch);
+13. drives CLIP the same way, ``ExtractCLIP`` at the clip YAML defaults
+   (``ViT-B/32``, 512-d, bicubic to 224), with ``RN50`` (1024-d, the
+   ModifiedResNet and its attention pool) once beside;
+14. prints one JSON line each of the i3d slice's, the raft family's, the
+   pwc family's, the i3d PWC phase's, the r21d, s3d, resnet and clip
+   phases' numbers, one of the kernels' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX, and needs no cv2, PIL or yaml: the frames are
+It imports nothing of JAX and needs no cv2 or yaml: the frames are
 synthetic, the configs are built in code, and the clip-stack transforms and
-the I420 encoder are numpy.
+the I420 encoder are numpy. PIL is needed by the frame-wise phases'
+``resize=host`` runs only.
 """
 from __future__ import annotations
 
@@ -147,6 +166,11 @@ HEAD_COS, HEAD_MAX_ABS = 0.99, 0.5
 R21D_FRAMES, R21D_STACK = 257, 16
 S3D_FRAMES, S3D_STACK = 513, 64
 CLIP_BATCH = 8
+#: the frame-wise phases: frames and batch of the batched runs, and the
+#: frames of the run at the YAML default batch_size=1
+FRAME_FRAMES, FRAME_BATCH, FRAME_BATCH1_FRAMES = 256, 64, 32
+#: the value tier (compare_runs bands): resize=device against resize=host
+VALUE_ATOL = 1e-2
 #: PWC's decoder levels at 256x384 (256x341 frames resized to /64):
 #: (level, H, W, C) of the cost volume's inputs
 PWC_LEVELS = ((2, 64, 96, 32), (3, 32, 48, 64), (4, 16, 24, 96),
@@ -550,13 +574,13 @@ def profile_run(extractor, frames, ranges=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     undo = annotated(*ranges) if ranges else None
-    torch.cuda.synchronize()
+    synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             extractor.extract_frames(iter(frames), 25.0)
-            torch.cuda.synchronize()
+            synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
         if undo:
@@ -586,6 +610,7 @@ def profile_run(extractor, frames, ranges=None) -> dict:
            "device_busy_ms": busy_us / 1e3,
            "device_busy_share": busy_us / wall_us,
            "kernel_ms_total": sum(v[0] for v in by_name.values()),
+           "kernel_launches": sum(v[1] for v in by_name.values()),
            "top_kernels": [{"name": k[:90], "ms": v[0], "calls": v[1]}
                            for k, v in top],
            "top_host_ops": [{"name": e.key[:60],
@@ -827,12 +852,24 @@ def band(got: np.ndarray, want: np.ndarray) -> dict:
             "max_abs": float(np.abs(a - b).max())}
 
 
+def synchronize() -> None:
+    """Wait for the card (nothing to wait for on the CPU, where the tests
+    run the phases' helpers)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def empty_cache() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def timed(extractor, frames):
     """(features, seconds) of one ``extract_frames`` run on the card."""
-    torch.cuda.synchronize()
+    synchronize()
     t0 = time.perf_counter()
     out = extractor.extract_frames(iter(frames), 25.0)
-    torch.cuda.synchronize()
+    synchronize()
     return out, time.perf_counter() - t0
 
 
@@ -1170,6 +1207,171 @@ def run_s3d(dev):
     return clip_phase("s3d", S3D_FRAMES, 1024, "stacks")[0]
 
 
+def frame_config(feature_type: str, **over):
+    """The resnet or clip YAML defaults (configs/*.yml: resnet50 or
+    ViT-B/32, ``batch_size=1``, float32), on the card, with
+    ``resize=device``."""
+    from video_features_tpu_torch.config import Config
+    cfg = dict(feature_type=feature_type, batch_size=1, extraction_fps=None,
+               extraction_total=None, fps_mode="select", device="cuda",
+               video_decode="inline", on_extraction="print",
+               output_path="output/chip_smoke", tmp_path="tmp/chip_smoke",
+               show_pred=False, weights_path=None, allow_random_weights=True,
+               precision="float32", ingest=None, resize="device")
+    if feature_type == "resnet":
+        cfg["model_name"] = "resnet50"
+    else:
+        cfg.update(model_name="ViT-B/32", pred_texts=None, bpe_path=None,
+                   model_parallel=1, vision_attn="dense")
+    cfg.update(over)
+    return Config(cfg)
+
+
+def frame_flops(extractor) -> float:
+    """Forward FLOPs per frame of a frame-wise extractor's image backbone
+    at its crop (``torch.utils.flop_counter`` on meta tensors)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from video_features_tpu_torch.models import clip, resnet
+
+    with torch.device("meta"):
+        if extractor.feature_type == "resnet":
+            forward = resnet.ResNet(extractor.model_name)
+        else:
+            forward = clip.CLIP(extractor.cfg).encode_image
+        x = torch.zeros((1, extractor.crop_size, extractor.crop_size, 3))
+    with FlopCounterMode(display=False) as counter:
+        forward(x)
+    return float(counter.get_total_flops())
+
+
+def frame_phase(feature_type: str, dim: int, other_model: str,
+                other_dim: int, n_frames: int = FRAME_FRAMES,
+                batch: int = FRAME_BATCH, n_batch1: int = FRAME_BATCH1_FRAMES,
+                **over) -> dict:
+    """One frame-wise family: the YAML defaults (batch_size=1) over 32
+    seeded frames; batch_size=64 in float32 and bfloat16 over 256; then
+    resize=host, ingest=yuv420 and ``other_model`` once beside. Every
+    extract_frames run is checked (shape, finite, timestamps, no lookup
+    kernel launched, counts set to 0 just before and read just after);
+    bfloat16 against float32 in the head band, batch 1 and resize=host
+    against batch 64 in the value tier, yuv420 against uint8 at cosine
+    0.99. Frames/s of float32 and bfloat16 in turns (F B B F), one
+    profiled run of each and of batch 1. ``over`` goes into every config
+    (the CPU tests run the phase with ``device=cpu`` and small models)."""
+    from video_features_tpu_torch.extractors.clip import ExtractCLIP
+    from video_features_tpu_torch.extractors.resnet import ExtractResNet
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+
+    cls = ExtractResNet if feature_type == "resnet" else ExtractCLIP
+    frames = list(synthetic_frames(n_frames, 41))
+
+    def config(**kw):
+        return frame_config(feature_type, **{**over, **kw})
+
+    def run(ex, n_frames):
+        """(features, seconds) of one checked run over the first
+        ``n_frames`` frames, after one batch that sets up cuDNN."""
+        used = frames[:n_frames]
+        ex.extract_frames(iter(used[:ex.batch_size]), 25.0)
+        reset_counts(cl)
+        out, seconds = timed(ex, used)
+        what = f"{feature_type} {ex.model_name} {ex.precision} " \
+            f"batch {ex.batch_size} {ex.resize_mode} {ex.ingest}"
+        if any(read_counts(cl).values()):
+            raise AssertionError(f"{what}: lookup kernels launched "
+                                 f"{read_counts(cl)}")
+        feats = out[feature_type]
+        want_dim = dim if ex.model_name == default_model else other_dim
+        if feats.shape != (n_frames, want_dim) or feats.dtype != np.float32 \
+                or not np.isfinite(feats).all():
+            raise AssertionError(f"{what}: features {feats.shape} "
+                                 f"{feats.dtype} or non-finite")
+        if out["timestamps_ms"].tolist() != [t / 25 * 1000.0
+                                             for t in range(n_frames)]:
+            raise AssertionError(f"{what}: timestamps "
+                                 f"{out['timestamps_ms']}")
+        return feats, seconds
+
+    batch1 = cls(config())
+    default_model = batch1.model_name
+    b1_feats, b1_s = run(batch1, n_batch1)
+    b1_profile = profile_run(batch1, frames[:n_batch1])
+    del batch1
+    runs = {}
+    for precision in ("float32", "bfloat16"):
+        ex = cls(config(batch_size=batch, precision=precision))
+        feats, seconds = run(ex, n_frames)
+        runs[precision] = dict(extractor=ex, feats=feats, seconds=seconds)
+    f32 = runs["float32"]["feats"]
+    vs_f32 = band(runs["bfloat16"]["feats"], f32)
+    if not in_head_band(vs_f32):
+        raise AssertionError(f"{feature_type} bfloat16 vs float32: {vs_f32}")
+    b1_vs_b64 = float(np.abs(b1_feats - f32[:n_batch1]).max())
+    if not b1_vs_b64 <= VALUE_ATOL:
+        raise AssertionError(f"{feature_type} batch 1 vs 64: {b1_vs_b64}")
+
+    host = cls(config(batch_size=batch, resize="host"))
+    host_feats, host_s = run(host, n_frames)
+    _, transform_ms = wire_frames(host, frames[:batch])
+    del host
+    host_vs_device = band(host_feats, f32)
+    if not host_vs_device["max_abs"] <= VALUE_ATOL:
+        raise AssertionError(f"{feature_type} resize=host vs device: "
+                             f"{host_vs_device}")
+    yuv = cls(config(batch_size=batch, ingest="yuv420"))
+    yuv_feats, yuv_s = run(yuv, n_frames)
+    del yuv
+    yuv_vs_uint8 = band(yuv_feats, f32)
+    if not yuv_vs_uint8["cos"] >= HEAD_COS:
+        raise AssertionError(f"{feature_type} yuv420 vs uint8: "
+                             f"{yuv_vs_uint8}")
+    other = cls(config(batch_size=batch, model_name=other_model))
+    _, other_s = run(other, batch)
+    del other
+    empty_cache()
+
+    turns = {"float32": [], "bfloat16": []}
+    for precision in ("float32", "bfloat16", "bfloat16", "float32"):
+        _, seconds = timed(runs[precision]["extractor"], frames)
+        turns[precision].append(n_frames / seconds)
+    flops = frame_flops(runs["float32"]["extractor"])
+    batches = -(-n_frames // batch)
+    stats = dict(
+        model=default_model, frames=n_frames, batch_size=batch,
+        gflop_per_frame=flops / 1e9, bf16_vs_f32=vs_f32,
+        band=dict(cos=HEAD_COS, max_abs=HEAD_MAX_ABS),
+        turns_frames_per_s=turns)
+    for precision, r in runs.items():
+        profile = profile_run(r["extractor"], frames)
+        profile["frames"] = n_frames
+        if "kernel_launches" in profile:
+            profile["launches_per_batch"] = \
+                profile["kernel_launches"] / batches
+            profile["device_tflop_per_s"] = \
+                flops * n_frames / profile["device_busy_ms"] / 1e9
+        stats[precision] = dict(seconds=r["seconds"],
+                                frames_per_s=n_frames / r["seconds"],
+                                profile=profile)
+    del runs
+    empty_cache()
+    if "kernel_launches" in b1_profile:
+        b1_profile["launches_per_batch"] = \
+            b1_profile["kernel_launches"] / n_batch1
+    stats["batch1"] = dict(frames=n_batch1, seconds=b1_s,
+                           frames_per_s=n_batch1 / b1_s,
+                           vs_batch64_max_abs=b1_vs_b64,
+                           profile=b1_profile)
+    stats["resize_host"] = dict(vs_device=host_vs_device,
+                                max_abs_limit=VALUE_ATOL,
+                                frames_per_s=n_frames / host_s,
+                                host_transform_ms_per_frame=transform_ms)
+    stats["yuv420"] = dict(vs_uint8=yuv_vs_uint8, cos_limit=HEAD_COS,
+                           frames_per_s=n_frames / yuv_s)
+    stats[other_model] = dict(frames=batch, dim=other_dim,
+                              cold_seconds=other_s)
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1204,6 +1406,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     r21d_stats = run_r21d(dev)
     s3d_stats = run_s3d(dev)
+    resnet_stats = frame_phase("resnet", 2048, "resnet18", 512)
+    clip_stats = frame_phase("clip", 512, "RN50", 1024)
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -1225,12 +1429,16 @@ def main() -> int:
     i3d_pwc_stats["card"] = card
     r21d_stats["card"] = card
     s3d_stats["card"] = card
+    resnet_stats["card"] = card
+    clip_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
     print(json.dumps({"i3d_pwc": i3d_pwc_stats}))
     print(json.dumps({"r21d": r21d_stats}))
     print(json.dumps({"s3d": s3d_stats}))
+    print(json.dumps({"resnet": resnet_stats}))
+    print(json.dumps({"clip": clip_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,3 +199,61 @@ def test_yuv420_phase_packs_with_the_ports_numpy_encoder():
                                            112).numpy()
     # luma exact to rounding; chroma of a 2x2 block's top-left pixel
     assert np.median(np.abs(back - u8)) < 8
+
+
+@pytest.mark.parametrize("feature_type", ["resnet", "clip"])
+def test_frame_configs_are_the_yaml_defaults(feature_type):
+    """The frame-wise phases' configs are the YAML defaults (resnet50 or
+    ViT-B/32, batch_size=1, float32), on the card, with resize=device."""
+    from video_features_tpu_torch import config as tconfig
+
+    yaml_cfg = tconfig.load_config(feature_type)
+    cfg = cs.frame_config(feature_type)
+    changed = {"device", "resize", "allow_random_weights", "output_path",
+               "tmp_path"}
+    assert set(cfg) <= set(yaml_cfg)
+    assert {k: v for k, v in cfg.items() if k not in changed} == \
+        {k: yaml_cfg[k] for k in cfg if k not in changed}
+    assert (cfg.device, cfg.resize, cfg.batch_size) == ("cuda", "device", 1)
+    tconfig.check_ported(cfg)
+
+
+@pytest.mark.parametrize("feature_type,model_name,gflop", [
+    ("resnet", "resnet50", 8.17), ("resnet", "resnet18", 3.63),
+    ("clip", "ViT-B/32", 8.82), ("clip", "RN50", 11.59)])
+def test_frame_flops_per_frame(feature_type, model_name, gflop):
+    """FLOPs per frame of the published backbones, counted on meta
+    tensors (ResNet-50 at 224 about 8.2 GFLOP, ViT-B/32 about 8.8)."""
+    import types
+    from video_features_tpu_torch.models.clip import CONFIGS
+
+    cfg = CONFIGS.get(model_name)
+    ex = types.SimpleNamespace(
+        feature_type=feature_type, model_name=model_name, cfg=cfg,
+        crop_size=cfg.image_resolution if cfg else 224)
+    assert cs.frame_flops(ex) / 1e9 == pytest.approx(gflop, rel=2e-3)
+
+
+def test_frame_phases_run_on_the_cpu(tmp_path):
+    """Both frame-wise phases end to end on the CPU at a small size
+    (resnet18; a tiny ViT through model_name=custom), every check
+    included: the profiles say the device time was not measured."""
+    from video_features_tpu_torch.models.clip import CLIP, CLIPConfig
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+
+    small = dict(n_frames=5, batch=2, n_batch1=2, device="cpu")
+    stats = cs.frame_phase("resnet", 512, "resnet18", 512,
+                           model_name="resnet18", **small)
+    ckpt = tmp_path / "tiny_clip.pt"
+    tiny = CLIPConfig(32, 56, 2, 64, 14, 12, 128, 128, 2, 2)
+    torch.save(seeded_init_(CLIP(tiny), 3).state_dict(), ckpt)
+    clip_stats = cs.frame_phase("clip", 32, "custom", 32,
+                                model_name="custom", weights_path=str(ckpt),
+                                **small)
+    for st, model in ((stats, "resnet18"), (clip_stats, "custom")):
+        assert st["model"] == model and st["frames"] == 5
+        assert set(st) >= {"float32", "bfloat16", "batch1", "resize_host",
+                           "yuv420", "turns_frames_per_s", "gflop_per_frame"}
+        assert len(st["turns_frames_per_s"]["bfloat16"]) == 2
+        assert "not measured" in st["float32"]["profile"]["device_time"]
+        assert st["resize_host"]["vs_device"]["max_abs"] <= cs.VALUE_ATOL

@@ -3,6 +3,7 @@
 - Every key of the JAX YAMLs whose plane the port does not run raises
   ``NotImplementedError`` naming its ROADMAP.md Queue 1 item when set away
   from its default, in every ported family; at the default it passes.
+  ``feature_type=vggish`` raises.
 - ``RetryPolicy`` and ``classify`` agree with the JAX ones (defaults,
   backoff delays under one seeded rng, the category of each exception).
 - The CLI on a video that fails (a file that is not a video), in process,
@@ -30,14 +31,17 @@ from video_features_tpu_torch import config as tconfig
 from video_features_tpu_torch.utils import faults as tfaults
 
 REPO = Path(__file__).resolve().parents[1]
-FAMILIES = ("i3d", "raft", "pwc", "r21d", "s3d")
+FAMILIES = ("i3d", "raft", "pwc", "r21d", "s3d", "resnet", "clip")
+#: gated keys that only CLIP's YAML carries
+CLIP_ONLY_KEYS = {"model_parallel", "vision_attn"}
 
 
 GATED_CASES = [
     ("video_deadline_s", 5, 5), ("inject", "seed=1;sink.fsync=enospc@n1", 5),
     ("distributed", True, 6), ("mesh_devices", 2, 6),
     ("video_workers", 4, 6), ("video_workers", "auto", 6),
-    ("cross_video_batching", True, 6), ("cache", True, 7),
+    ("cross_video_batching", True, 6), ("model_parallel", 2, 6),
+    ("cache", True, 7),
     ("cache_dir", "/c", 7), ("cache_scope", "tenant", 7),
     ("compile_cache", True, 8), ("compile_cache_dir", "/c", 8),
     ("compilation_cache_dir", "/c", 8), ("fleet", "queue", 8),
@@ -46,7 +50,7 @@ GATED_CASES = [
     ("telemetry", True, 9), ("metrics_interval_s", 5, 9),
     ("trace", True, 9), ("health", True, 9), ("parity", True, 9),
     ("roofline", True, 9), ("history", True, 9), ("alerts", True, 9),
-    ("config", "other.yml", None)]
+    ("vision_attn", "blockwise", 10), ("config", "other.yml", None)]
 
 
 @pytest.mark.parametrize("key,value,item", GATED_CASES)
@@ -63,22 +67,31 @@ def test_gated_keys_raise_naming_their_item(key, value, item):
 
 def test_every_gated_key_is_tested_and_in_every_yaml():
     """``cross_video_batching`` is a launch key of the JAX package, in no
-    YAML; every other gated key is in every port YAML."""
+    YAML; ``model_parallel`` and ``vision_attn`` are in CLIP's alone (as in
+    the JAX YAMLs); every other gated key is in every port YAML."""
     assert {k for k, _, _ in GATED_CASES} == set(tconfig.GATED_KEYS)
     for family in FAMILIES:
         missing = set(tconfig.GATED_KEYS) - set(tconfig.load_config(family))
-        assert missing == {"cross_video_batching"}, family
+        assert missing == {"cross_video_batching"} | (
+            set() if family == "clip" else CLIP_ONLY_KEYS), family
 
 
 def test_show_pred_is_ported_for_the_clip_stack_families_only():
+    """And for the frame-wise families, since they were ported."""
     for family in FAMILIES:
         cfg = tconfig.merge(tconfig.load_config(family),
                             tconfig.Config({"show_pred": True}))
-        if family in ("r21d", "s3d"):
+        if family in ("r21d", "s3d", "resnet", "clip"):
             tconfig.check_ported(cfg)
         else:
             with pytest.raises(NotImplementedError, match="show_pred"):
                 tconfig.check_ported(cfg)
+
+
+def test_vggish_is_not_ported():
+    from video_features_tpu_torch.cli import main
+    with pytest.raises(NotImplementedError, match="'vggish' is not ported"):
+        main(["feature_type=vggish", "device=cpu", "video_paths=v.mp4"])
 
 
 def test_retry_policy_matches_jax():

@@ -38,7 +38,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_ONLY_KEYS = {"video_decode"}
 
 
-@pytest.mark.parametrize("family", ["raft", "i3d", "pwc", "r21d", "s3d"])
+@pytest.mark.parametrize("family", ["raft", "i3d", "pwc", "r21d", "s3d",
+                                    "resnet", "clip"])
 def test_yaml_defaults_match_jax(family):
     """Every key of the JAX YAML is in the port's at the same default, and
     the port adds only ``video_decode``; the defaults pass
@@ -220,7 +221,7 @@ def test_family_defaults_and_device(tmp_path, sample_video):
     assert all(p.dtype == torch.float32 for p in pwc.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         tconfig.check_ported(tconfig.Config(
-            {"feature_type": "resnet", "precision": "bfloat16"}))
+            {"feature_type": "vggish", "precision": "bfloat16"}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=cpu"):
             ExtractRAFT(tconfig.load_config("raft", dict(cfg, device="auto")))

@@ -326,21 +326,22 @@ def test_cli_writes_outputs(sample_video, tmp_path):
 
 def test_cli_rejects_unported_families():
     from video_features_tpu_torch.registry import get_extractor_cls
-    for family in ("resnet", "clip", "vggish"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_extractor_cls(family)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_extractor_cls("vggish")
     assert get_extractor_cls("i3d").__name__ == "ExtractI3D"
     assert get_extractor_cls("raft").__name__ == "ExtractRAFT"
     assert get_extractor_cls("pwc").__name__ == "ExtractPWC"
     assert get_extractor_cls("r21d").__name__ == "ExtractR21D"
     assert get_extractor_cls("s3d").__name__ == "ExtractS3D"
+    assert get_extractor_cls("resnet").__name__ == "ExtractResNet"
+    assert get_extractor_cls("clip").__name__ == "ExtractCLIP"
 
 
 def test_port_imports_no_jax_and_no_lazy_host_deps():
     """Every module of the port, and tests/test_torch_cuda.py, imports under
     a finder that refuses jax, flax and video_features_tpu; importing the
-    i3d, raft, pwc, r21d and s3d extractors and the card-only tests pulls in
-    neither cv2 nor PIL nor yaml."""
+    i3d, raft, pwc, r21d, s3d, resnet and clip extractors and the card-only
+    tests pulls in neither cv2 nor PIL nor yaml (nor regex)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -357,8 +358,11 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
         import video_features_tpu_torch.extractors.pwc
         import video_features_tpu_torch.extractors.r21d
         import video_features_tpu_torch.extractors.s3d
+        import video_features_tpu_torch.extractors.resnet
+        import video_features_tpu_torch.extractors.clip
         import tests.test_torch_cuda
-        lazy = [m for m in ("cv2", "PIL", "yaml") if m in sys.modules]
+        lazy = [m for m in ("cv2", "PIL", "yaml", "regex")
+                if m in sys.modules]
         assert not lazy, lazy
         import video_features_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(

@@ -33,6 +33,8 @@ GATED_KEYS = {
     "mesh_devices": ((None,), 6),
     "video_workers": ((None, 1), 6),
     "cross_video_batching": ((None, False), 6),
+    # CLIP's tensor parallelism over a (data, model) mesh (#6)
+    "model_parallel": ((None, 1), 6),
     # multi-family CLI and the feature cache (#7)
     "cache": ((None, False), 7),
     "cache_dir": ((None,), 7),
@@ -55,10 +57,12 @@ GATED_KEYS = {
     "history": ((None, False), 9),
     "alerts": ((None, False), 9),
     "metrics_interval_s": ((None, 30), 9),
+    # CLIP's blockwise vision attention, parallel/sequence.py (#10)
+    "vision_attn": ((None, "dense"), 10),
     "config": ((None,), None),
 }
 #: families whose ``show_pred`` is ported
-SHOW_PRED_FAMILIES = ("r21d", "s3d")
+SHOW_PRED_FAMILIES = ("r21d", "s3d", "resnet", "clip")
 
 
 class Config(dict):
@@ -210,21 +214,28 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     ``resize``, ``corr_lookup_impl``/``fuse_convc1``, the flow families'
     keys ``iters``, ``batch_size``, ``side_size`` and
     ``resize_to_smaller_edge`` (``ExtractRAFT`` checks ``finetuned_on``),
-    the clip-stack families' ``model_name`` and ``ingest``, the retry keys,
+    the clip-stack and frame-wise families' ``model_name`` and ``ingest``,
+    the retry keys,
     the unported keys, the device (``args.device`` becomes ``cpu``,
     ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
     namespacing of ``output_path``/``tmp_path``."""
     check_ported(args)
     args.device = str(resolve_device(args.get("device")))
-    if args.feature_type in ("r21d", "s3d"):
+    if args.feature_type in ("r21d", "s3d", "resnet", "clip"):
         from .registry import get_extractor_cls
         cls = get_extractor_cls(args.feature_type)
+        names = None
         if args.feature_type == "r21d":
-            from .models.r21d import VARIANTS
-            if args.get("model_name") not in VARIANTS:
-                raise NotImplementedError(
-                    f"Model {args.get('model_name')} not found; expected "
-                    f"one of {sorted(VARIANTS)}")
+            from .models.r21d import VARIANTS as names
+        elif args.feature_type == "resnet":
+            from .models.resnet import VARIANTS as names
+        elif args.feature_type == "clip":
+            from .models.clip import CONFIGS
+            names = list(CONFIGS) + ["custom"]
+        if names is not None and args.get("model_name") not in names:
+            raise NotImplementedError(
+                f"Model {args.get('model_name')} not found; expected one of "
+                f"{sorted(names)}")
         ingest = args.get("ingest")
         if ingest is not None and ingest not in cls.supported_ingest:
             raise NotImplementedError(

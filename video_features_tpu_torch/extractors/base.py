@@ -20,20 +20,34 @@ from ..weights.bridge import seeded_init_
 _RESIZE_CACHE_SIZE = 8
 
 
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file's state dict on the CPU: ``torch.load`` (weights
+    only), or for a TorchScript archive, which it refuses (OpenAI ships
+    CLIP as ``.pt`` JIT archives), ``torch.jit.load(...).state_dict()``;
+    common containers (``state_dict``, ``model_state_dict``,
+    ``model``) unwrapped, a ``module.`` prefix dropped, float16 tensors
+    upcast to float32 (reference clip.py:128-139)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except RuntimeError:  # a TorchScript archive
+        obj = torch.jit.load(path, map_location="cpu").state_dict()
+    if isinstance(obj, dict):
+        for key in ("state_dict", "model_state_dict", "model"):
+            if isinstance(obj.get(key), dict):
+                obj = obj[key]
+                break
+    return {(k[len("module."):] if k.startswith("module.") else k):
+            (v.float() if torch.is_tensor(v) and v.dtype == torch.float16
+             else v) for k, v in obj.items()}
+
+
 def load_weights(module: nn.Module, path: Optional[str], allow_random: bool,
                  seed: int, what: str) -> nn.Module:
     """Load a checkpoint in the reference's torch key layout into
     ``module`` (``strict=True``), or give it the seeded random init when
     ``path`` is unset and ``allow_random`` is true."""
     if path:
-        obj = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(obj, dict):
-            for key in ("state_dict", "model_state_dict", "model"):
-                if isinstance(obj.get(key), dict):
-                    obj = obj[key]
-        state = {k[len("module."):] if k.startswith("module.") else k: v
-                 for k, v in obj.items()}
-        module.load_state_dict(state, strict=True)
+        module.load_state_dict(read_state_dict(path), strict=True)
         return module
     if not allow_random:
         raise FileNotFoundError(
@@ -59,7 +73,8 @@ class BaseExtractor:
 
     def _resolve_resize_mode(self, args: Config) -> str:
         """``auto`` resolves to ``device`` for file-sink runs and to
-        ``host`` for ``print`` runs; ``host``/``device`` are taken as given."""
+        ``host`` for ``print`` and ``show_pred`` runs; ``host``/``device``
+        are taken as given."""
         mode = args.get("resize") or "auto"
         if mode not in ("auto", "host", "device"):
             raise NotImplementedError(f"resize={mode!r}: expected 'auto', "
@@ -69,14 +84,15 @@ class BaseExtractor:
         if mode == "auto":
             mode = ("device" if self.on_extraction in ("save_numpy",
                                                        "save_pickle")
-                    else "host")
+                    and not args.get("show_pred") else "host")
         return mode
 
     def _edge_resizer(self, in_h: int, in_w: int, size: int,
-                      to_smaller_edge: bool = True) -> Callable:
-        """The device resize of ``(..., in_h, in_w, 3)`` uint8 frames to
-        ``size`` on the smaller (or larger) edge; built once per source
-        resolution, at most 8 kept."""
+                      to_smaller_edge: bool = True,
+                      interpolation: str = "bilinear") -> Callable:
+        """The device resize (PIL's ``interpolation``) of ``(..., in_h,
+        in_w, 3)`` uint8 frames to ``size`` on the smaller (or larger) edge;
+        built once per source resolution, at most 8 kept."""
         with self._resize_lock:
             fn = self._resizers.get((in_h, in_w))
             if fn is None:
@@ -85,7 +101,7 @@ class BaseExtractor:
                 ow, oh = pp.resize_edge_size(in_w, in_h, size,
                                              to_smaller_edge)
                 fn = self._resizers[(in_h, in_w)] = pp.make_device_resizer(
-                    in_h, in_w, oh, ow, self.device)
+                    in_h, in_w, oh, ow, self.device, interpolation)
             return fn
 
     def _extract(self, video_path: str) -> Optional[Dict[str, np.ndarray]]:

@@ -21,7 +21,7 @@ from ..models.common import cast_floating_
 from ..ops import colorspace
 from ..ops import host_transforms as ht
 from ..runner import Runner
-from ..utils.labels import show_predictions_on_kinetics
+from ..utils.labels import show_predictions_on_dataset
 from .base import load_weights
 from .clip_stack import ClipStackExtractor
 
@@ -68,4 +68,4 @@ class ExtractR21D(ClipStackExtractor):
             logits = self.head(torch.from_numpy(feats)).numpy()
         for row, (s, e) in zip(logits, windows):
             print(f"At frames ({s}, {e})")
-            show_predictions_on_kinetics(row[None])
+            show_predictions_on_dataset(row[None], "kinetics")

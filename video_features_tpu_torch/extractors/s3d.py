@@ -21,7 +21,7 @@ from ..models.common import cast_floating_
 from ..ops import colorspace
 from ..ops import host_transforms as ht
 from ..runner import Runner
-from ..utils.labels import show_predictions_on_kinetics
+from ..utils.labels import show_predictions_on_dataset
 from .base import load_weights
 from .clip_stack import ClipStackExtractor
 
@@ -59,4 +59,4 @@ class ExtractS3D(ClipStackExtractor):
             return
         for row, (s, e) in zip(self._logits_runner(group), windows):
             print(f"At frames ({s}, {e})")
-            show_predictions_on_kinetics(row[None])
+            show_predictions_on_dataset(row[None], "kinetics")

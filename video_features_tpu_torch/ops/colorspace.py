@@ -1,12 +1,14 @@
-"""YUV 4:2:0 wire format of the clip-stack families' ``ingest=yuv420``
-(port of ``video_features_tpu/ops/colorspace.py``).
+"""YUV 4:2:0 wire format of ``ingest=yuv420`` (port of
+``video_features_tpu/ops/colorspace.py``).
 
 A packed frame is ``[ Y (H*W) | U (H/2*W/2) | V (H/2*W/2) ]`` uint8,
 C-order: 1.5 bytes a pixel on the host-to-device copy instead of 3 (uint8
-RGB) or 12 (float32 RGB). The host encodes in numpy with the fixed-point
-arithmetic of cv2's ``COLOR_RGB2YUV_I420`` (studio-swing BT.601, chroma of
-the top-left pixel of each 2x2 block), byte for byte what the JAX package's
-cv2 call gives, so no cv2 is needed; the card decodes with plain torch ops,
+RGB) or 12 (float32 RGB). Shaped ``(H*3/2, W)`` it is cv2's I420 layout,
+the raw wire of the frame-wise families under ``resize=device``. The host
+encodes in numpy with the fixed-point arithmetic of cv2's
+``COLOR_RGB2YUV_I420`` (studio-swing BT.601, chroma of the top-left pixel
+of each 2x2 block), byte for byte what the JAX package's cv2 call gives,
+so no cv2 is needed; the card decodes with plain torch ops,
 nearest-neighbour chroma upsampling, which matches cv2's
 ``COLOR_YUV2RGB_I420`` to under one intensity level.
 """
@@ -73,3 +75,14 @@ def yuv420_packed_to_rgb(packed: torch.Tensor, h: int, w: int
                        yc + _U_TO_G * u + _V_TO_G * v,
                        yc + _U_TO_B * u], dim=-1)
     return torch.clamp(rgb, 0.0, 255.0)
+
+
+def yuv420_frame_to_rgb_u8(packed_2d: torch.Tensor, h: int, w: int
+                           ) -> torch.Tensor:
+    """cv2-layout I420 uint8 (..., H*3/2, W) -> uint8 RGB (..., H, W, 3) on
+    the tensor's device: :func:`yuv420_packed_to_rgb` rounded back onto
+    the uint8 lattice, so the device resize that follows sees an
+    integer-valued frame as a decoder would hand it."""
+    lead = packed_2d.shape[:-2]
+    flat = packed_2d.reshape(*lead, h * w * 3 // 2)
+    return torch.round(yuv420_packed_to_rgb(flat, h, w)).to(torch.uint8)

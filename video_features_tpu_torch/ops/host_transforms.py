@@ -1,6 +1,7 @@
 """Picklable host-transform callables (port of
 ``video_features_tpu/ops/host_transforms.py``): the edge resize of the i3d
-and flow paths, and the clip-stack families' frame transforms.
+and flow paths, the clip-stack families' frame transforms, and the
+frame-wise families' resize and crop.
 
 The port decodes RGB (``utils/io.py _FrameStream``), so the clip-stack
 transforms take RGB frames. The JAX ones take the decoder's BGR and reverse
@@ -35,7 +36,12 @@ def encode_wire(x01: np.ndarray, ingest: str) -> np.ndarray:
     (``yuv420``)."""
     if ingest == "float32":
         return x01
-    u8 = pp.quantize_u8(x01)
+    return encode_wire_u8(pp.quantize_u8(x01), ingest)
+
+
+def encode_wire_u8(u8: np.ndarray, ingest: str) -> np.ndarray:
+    """uint8 HWC frame -> the wire format: itself (``uint8``) or packed
+    I420 (``yuv420``)."""
     if ingest == "uint8":
         return u8
     return colorspace.rgb_to_yuv420(u8)
@@ -70,3 +76,23 @@ class S3DTransform:
         x = pp.bilinear_resize_by_scale(x, scale)
         return encode_wire(np.ascontiguousarray(pp.center_crop(x, 224)),
                            self.ingest)
+
+
+class ResizeCropTransform:
+    """RGB frame -> PIL resize of the smaller edge to ``size`` -> centre
+    crop ``crop`` -> uint8 wire: resnet 256 -> 224 bilinear (reference
+    extract_resnet.py:27-33), clip R -> R bicubic (extract_clip.py:69-78);
+    the normalisation runs on the card."""
+
+    def __init__(self, size: int, crop: int, interpolation: str,
+                 ingest: str):
+        self.size = size
+        self.crop = crop
+        self.interpolation = interpolation
+        self.ingest = ingest
+
+    def __call__(self, rgb: np.ndarray) -> np.ndarray:
+        out = pp.pil_resize(rgb, self.size,
+                            interpolation=self.interpolation)
+        return encode_wire_u8(np.ascontiguousarray(
+            pp.center_crop(out, self.crop)), self.ingest)

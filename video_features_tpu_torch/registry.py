@@ -1,6 +1,5 @@
-"""feature_type -> extractor class. ``i3d``, ``raft``, ``pwc``, ``r21d``
-and ``s3d`` are ported so far; the other families of the JAX package raise
-``NotImplementedError``."""
+"""feature_type -> extractor class. Every family of the JAX package but
+``vggish`` is ported; ``vggish`` raises ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
@@ -8,8 +7,10 @@ from typing import Type
 
 _DISPATCH = {"i3d": ("i3d", "ExtractI3D"), "raft": ("raft", "ExtractRAFT"),
              "pwc": ("pwc", "ExtractPWC"), "r21d": ("r21d", "ExtractR21D"),
-             "s3d": ("s3d", "ExtractS3D")}
-_NOT_PORTED = ("resnet", "clip", "vggish")
+             "s3d": ("s3d", "ExtractS3D"),
+             "resnet": ("resnet", "ExtractResNet"),
+             "clip": ("clip", "ExtractCLIP")}
+_NOT_PORTED = ("vggish",)
 
 
 def get_extractor_cls(feature_type: str) -> Type:

@@ -87,13 +87,24 @@ def plan_frame_selection(src_fps: float, src_num_frames: int,
     return float(src_fps), None, src_num_frames
 
 
-class _FrameStream:
-    """Sequential cv2 decoder (RGB out) with the reference's retry of a
-    missing frame #0 (reference utils/io.py:99-106)."""
+#: what a decoded stream delivers: ``rgb`` (H, W, 3), or ``i420``, cv2's
+#: ``COLOR_BGR2YUV_I420`` of the decoded frame, (H*3/2, W) packed planes
+#: (the frame-wise families' raw wire under ``ingest=yuv420``)
+CHANNEL_ORDERS = ("rgb", "i420")
 
-    def __init__(self, path: str):
+
+class _FrameStream:
+    """Sequential cv2 decoder (``channel_order`` out) with the reference's
+    retry of a missing frame #0 (reference utils/io.py:99-106)."""
+
+    def __init__(self, path: str, channel_order: str = "rgb"):
         import cv2
+        if channel_order not in CHANNEL_ORDERS:
+            raise ValueError(f"channel_order={channel_order!r}: expected "
+                             f"one of {CHANNEL_ORDERS}")
         self._cv2 = cv2
+        self._code = (cv2.COLOR_BGR2RGB if channel_order == "rgb"
+                      else cv2.COLOR_BGR2YUV_I420)
         self.cap = cv2.VideoCapture(path)
         self._first = True
 
@@ -108,8 +119,7 @@ class _FrameStream:
         if grab_only:
             return True
         ok, frame = self.cap.retrieve()
-        return self._cv2.cvtColor(frame, self._cv2.COLOR_BGR2RGB) if ok \
-            else None
+        return self._cv2.cvtColor(frame, self._code) if ok else None
 
     def read(self) -> Optional[np.ndarray]:
         return self._next(False)
@@ -124,16 +134,17 @@ class _FrameStream:
 
 
 class VideoSource:
-    """Frames of one video, resampled to ``fps`` or ``total`` frames and
-    passed through ``transform``; iterating it yields batches
-    ``(frames, timestamps_ms, indices)`` of ``batch_size`` frames with
-    ``overlap`` frames carried between consecutive batches."""
+    """Frames of one video, resampled to ``fps`` or ``total`` frames,
+    decoded as ``channel_order`` (``rgb`` or ``i420``) and passed through
+    ``transform``; iterating it yields batches ``(frames, timestamps_ms,
+    indices)`` of ``batch_size`` frames with ``overlap`` frames carried
+    between consecutive batches."""
 
     def __init__(self, path: Union[str, Path], fps: Optional[float] = None,
                  total: Optional[int] = None, batch_size: int = 1,
                  transform: Optional[Callable[[np.ndarray],
                                               np.ndarray]] = None,
-                 overlap: int = 0):
+                 overlap: int = 0, channel_order: str = "rgb"):
         if fps is not None and total is not None:
             raise ValueError("'fps' and 'total' are mutually exclusive")
         if not (isinstance(batch_size, int) and batch_size > 0
@@ -141,6 +152,7 @@ class VideoSource:
             raise ValueError(f"batch_size={batch_size!r}, overlap={overlap!r}:"
                              " need 0 <= overlap < batch_size")
         self.path = str(path)
+        self.channel_order = channel_order
         self.batch_size = batch_size
         self.transform = transform
         self.overlap = overlap
@@ -155,7 +167,7 @@ class VideoSource:
             self.src_fps, self.src_num_frames, fps=fps, total=total)
 
     def frames(self) -> Iterator[Tuple[np.ndarray, float, int]]:
-        """Yield ``(frame_rgb_u8, timestamp_ms, out_index)`` in order,
+        """Yield ``(frame, timestamp_ms, out_index)`` in order,
         ``timestamp_ms = out_index / fps * 1000``, the frame through
         ``transform`` when one is set."""
         if self.transform is None:
@@ -166,7 +178,7 @@ class VideoSource:
         return _batched(self.frames(), self.batch_size, self.overlap)
 
     def _decoded(self) -> Iterator[Tuple[np.ndarray, float, int]]:
-        stream = _FrameStream(self.path)
+        stream = _FrameStream(self.path, self.channel_order)
         try:
             if self.index_map is None:
                 out_idx = 0

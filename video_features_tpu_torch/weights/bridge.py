@@ -1,7 +1,9 @@
 """Parameter bridges into the port's ``state_dict`` layout, and seeded init.
 
 ``raft_state_from_jax`` / ``i3d_state_from_jax`` / ``pwc_state_from_jax`` /
-``r21d_state_from_jax`` / ``s3d_state_from_jax`` map a JAX parameter tree (nested dicts of numpy arrays, as
+``r21d_state_from_jax`` / ``s3d_state_from_jax`` / ``resnet_state_from_jax``
+/ ``clip_state_from_jax`` map a JAX parameter tree (nested dicts of numpy
+arrays, as
 ``video_features_tpu.models.*.init_params`` or ``params_from_torch`` build
 them) onto the port's modules, whose names are the reference checkpoints'
 keys. They invert the JAX ``params_from_torch``:
@@ -17,6 +19,11 @@ keys. They invert the JAX ``params_from_torch``:
     returns under ``update_block.mask``, and a batch-norm RAFT block's
     ``downsample.1`` is written under ``norm3`` too (the reference registers
     that module twice).
+
+CLIP's transformer blocks hold separate ``q_proj``/``k_proj``/``v_proj`` in
+the JAX tree; the port (and the reference) packs them into
+``attn.in_proj_weight`` (3E, E) and ``in_proj_bias``. ``AttentionPool2d``
+keeps them separate in both. A LayerNorm's ``ln/scale`` is its ``weight``.
 
 PWC's transposed convolutions (``moduleUpflow`` / ``moduleUpfeat``) are raw
 params in the JAX tree, stored as the spatially flipped HWIO kernel of the
@@ -201,6 +208,83 @@ def s3d_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX S3D tree (classifier ``fc`` included) -> the port's (and the
     reference's) S3D state dict."""
     return _to_state(params, _s3d_key)
+
+
+def _resnet_key(mod_path: str) -> str:
+    block, _, sub = mod_path.partition("/")
+    sub = {"downsample_conv": "downsample.0",
+           "downsample_bn": "downsample.1"}.get(sub, sub)
+    return ".".join(p for p in (block.replace("_", "."), sub) if p)
+
+
+def resnet_state_from_jax(params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ResNet ``{'backbone', 'head'}`` trees -> the port's (and
+    torchvision's) ``ResNet`` state dict, ``fc`` included."""
+    return _to_state({**params["backbone"], **params["head"]}, _resnet_key)
+
+
+_CLIP_SEQ = re.compile(r"^(resblocks|layer\d|downsample)_(-?\d+)$")
+#: raw (module-less) CLIP parameters, copied as they are
+_CLIP_RAW = ("class_embedding", "positional_embedding", "proj",
+             "text_projection", "logit_scale")
+
+
+def _clip_key(mods) -> str:
+    out = []
+    for m in mods:
+        seq = _CLIP_SEQ.match(m)
+        if seq:
+            out.append(f"{seq.group(1)}.{seq.group(2)}")
+        elif m.startswith("mlp_"):
+            out.append("mlp." + m[len("mlp_"):])
+        else:
+            out.append(m)
+    return ".".join(out)
+
+
+def clip_state_from_jax(params: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX CLIP tree (ViT or ModifiedResNet) -> the port's (and the
+    reference's) CLIP state dict."""
+    bn = _bn_modules(params)
+    state: Dict[str, torch.Tensor] = {}
+    packed: Dict[str, Dict[str, np.ndarray]] = {}
+    for path, value in _flatten(params).items():
+        *mods, leaf = path.split("/")
+        arr = np.asarray(value, dtype=np.float32)
+        if leaf == "attnpool_positional_embedding":
+            key = _clip_key(mods + ["attnpool", "positional_embedding"])
+        elif leaf == "token_embedding":
+            key = "token_embedding.weight"
+        elif leaf in _CLIP_RAW:
+            key = _clip_key(mods + [leaf])
+        elif "/".join(mods) in bn:
+            key = _clip_key(mods) + "." + _BN_LEAF[leaf]
+        elif mods[-1] == "ln":  # LNf32's inner flax LayerNorm
+            key = _clip_key(mods[:-1]) + "." + {"scale": "weight",
+                                                "bias": "bias"}[leaf]
+        elif mods[-1] in ("q_proj", "k_proj", "v_proj") and \
+                mods[-2] == "attn":  # a transformer block: packed in_proj
+            packed.setdefault(_clip_key(mods[:-1]), {})[
+                f"{mods[-1]}/{leaf}"] = arr
+            continue
+        elif leaf == "kernel":
+            state[_clip_key(mods) + ".weight"] = _kernel_to_torch(arr)
+            continue
+        else:
+            key = _clip_key(mods) + "." + leaf
+        state[key] = torch.from_numpy(arr.copy())
+    for key, parts in packed.items():
+        qkv = ("q_proj", "k_proj", "v_proj")
+        state[f"{key}.in_proj_weight"] = torch.from_numpy(np.concatenate(
+            [parts[f"{p}/kernel"].T for p in qkv]))
+        state[f"{key}.in_proj_bias"] = torch.from_numpy(np.concatenate(
+            [parts[f"{p}/bias"] for p in qkv]))
+    for mod_path in bn:
+        state[_clip_key(mod_path.split("/")) + ".num_batches_tracked"] = \
+            torch.tensor(0, dtype=torch.long)
+    return state
 
 
 def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
