@@ -123,15 +123,29 @@ that goes wrong:
 13. drives CLIP the same way, ``ExtractCLIP`` at the clip YAML defaults
    (``ViT-B/32``, 512-d, bicubic to 224), with ``RN50`` (1024-d, the
    ModifiedResNet and its attention pool) once beside;
-14. prints one JSON line each of the i3d slice's, the raft family's, the
-   pwc family's, the i3d PWC phase's, the r21d, s3d, resnet and clip
-   phases' numbers, one of the kernels' numbers, and last
+14. drives VGGish, ``ExtractVGGish(...).extract(path)`` on a seeded 600 s
+   16 kHz mono WAV (625 examples, 600.015 s), at the vggish YAML defaults
+   (``frontend=host``, float32, ``batch_size=32``), with
+   ``frontend=device`` (the log-mel on the card: cuFFT and a float32
+   matmul), and both in bfloat16; then a 60 s 44.1 kHz stereo WAV once
+   (mono mix, ``resample_poly``). Every run: (N, 128) finite embeddings,
+   no lookup kernel launched (counts set to 0 just before and read just
+   after). The device frontend within 1e-3 of the host one in float32,
+   the card's ``logmel_examples`` on the first batch within 1e-4 of the
+   numpy frontend, bfloat16 within the head band of float32. Examples/s of
+   each run and in turns, the host frontend's ms per example, FLOPs per
+   example and the device TFLOP/s they imply, one profile of each float32
+   frontend (busy share, top device items, launches per batch);
+15. prints one JSON line each of the i3d slice's, the raft family's, the
+   pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip and
+   vggish phases' numbers, one of the kernels' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX and needs no cv2 or yaml: the frames are
-synthetic, the configs are built in code, and the clip-stack transforms and
-the I420 encoder are numpy. PIL is needed by the frame-wise phases'
-``resize=host`` runs only.
+It imports nothing of JAX and needs no cv2, yaml or ffmpeg: the frames and
+the WAVs are synthetic (the WAVs written with the stdlib ``wave`` under
+``output/chip_smoke``), the configs are built in code, and the clip-stack
+transforms and the I420 encoder are numpy. PIL is needed by the frame-wise
+phases' ``resize=host`` runs only; scipy by the vggish phase's resampling.
 """
 from __future__ import annotations
 
@@ -171,6 +185,13 @@ CLIP_BATCH = 8
 FRAME_FRAMES, FRAME_BATCH, FRAME_BATCH1_FRAMES = 256, 64, 32
 #: the value tier (compare_runs bands): resize=device against resize=host
 VALUE_ATOL = 1e-2
+#: the vggish phase: examples of 16 kHz mono audio (625: 600.015 s, the
+#: last example reading 240 samples past its 0.96 s) and seconds of 44.1
+#: kHz stereo; the JAX package's bars (tests/test_vggish.py) for the
+#: device frontend against the host one end to end and for the log-mel
+#: alone
+VGGISH_EXAMPLES, VGGISH_STEREO_SECONDS = 625, 60.0
+VGGISH_FRONTEND_ATOL, VGGISH_LOGMEL_ATOL = 1e-3, 1e-4
 #: PWC's decoder levels at 256x384 (256x341 frames resized to /64):
 #: (level, H, W, C) of the cost volume's inputs
 PWC_LEVELS = ((2, 64, 96, 32), (3, 32, 48, 64), (4, 16, 24, 96),
@@ -566,6 +587,13 @@ def annotated(module, names):
 
 def profile_run(extractor, frames, ranges=None) -> dict:
     """Device time by kernel over one warm ``extract_frames`` run
+    (:func:`profile_call`)."""
+    return profile_call(lambda: extractor.extract_frames(iter(frames), 25.0),
+                        ranges)
+
+
+def profile_call(run, ranges=None) -> dict:
+    """Device time by kernel over one warm call of ``run``
     (torch.profiler), the share of the wall time the card was busy (the
     union of the kernels' intervals, so nothing counts twice), the host's
     top operators by self CPU time, and the device time of each function
@@ -579,7 +607,7 @@ def profile_run(extractor, frames, ranges=None) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            extractor.extract_frames(iter(frames), 25.0)
+            run()
             synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     finally:
@@ -1372,6 +1400,178 @@ def frame_phase(feature_type: str, dim: int, other_model: str,
     return stats
 
 
+def vggish_config(**over):
+    """The vggish YAML defaults (configs/vggish.yml: ``frontend=host``,
+    float32, ``batch_size=32``), on the card, with seeded weights."""
+    from video_features_tpu_torch.config import Config
+    cfg = dict(feature_type="vggish", batch_size=32, postprocess=False,
+               pca_weights_path=None, device="cuda", video_decode="inline",
+               on_extraction="print", output_path="output/chip_smoke",
+               tmp_path="tmp/chip_smoke", keep_tmp_files=False,
+               show_pred=False, weights_path=None, allow_random_weights=True,
+               precision="float32", frontend="host")
+    cfg.update(over)
+    return Config(cfg)
+
+
+def write_wav(path: str, seconds: float, rate: int, channels: int,
+              seed: int) -> str:
+    """A seeded 16-bit PCM WAV (stdlib ``wave``): noise under a few
+    drifting tones, ``channels`` channels at ``rate`` Hz."""
+    import wave
+    rng = np.random.default_rng(seed)
+    n = round(seconds * rate)
+    t = np.arange(n) / rate
+    tones = sum(0.1 * np.sin(2 * np.pi * f * t * (1 + 0.01 * np.sin(t / 7)))
+                for f in (220.0, 440.0, 1375.0))
+    data = np.stack([tones + rng.normal(0, 0.05, n) for _ in range(channels)],
+                    axis=-1)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((data.clip(-1, 1) * 32767).astype("<i2").tobytes())
+    return path
+
+
+def vggish_flops() -> float:
+    """Forward FLOPs per 0.96 s example of VGGish
+    (``torch.utils.flop_counter`` on meta tensors)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from video_features_tpu_torch.models.vggish import VGGish
+
+    with torch.device("meta"):
+        model = VGGish()
+        x = torch.zeros((1, 96, 64, 1))
+    with FlopCounterMode(display=False) as counter:
+        model(x)
+    return float(counter.get_total_flops())
+
+
+def vggish_phase(n_examples: int = VGGISH_EXAMPLES,
+                 stereo_seconds: float = VGGISH_STEREO_SECONDS,
+                 **over) -> dict:
+    """VGGish through ``ExtractVGGish.extract(path)`` on a seeded 16 kHz
+    mono WAV of ``n_examples`` examples (600.015 s for 625): the YAML
+    defaults
+    (``frontend=host``, float32, ``batch_size=32``), ``frontend=device``,
+    and both frontends in bfloat16, in turns; then a 44.1 kHz stereo WAV
+    of ``stereo_seconds`` once (the mono mix and ``resample_poly``). Each
+    run: (N, 128) finite embeddings, no lookup kernel launched (counts set
+    to 0 just before and read just after). Device frontend against host in
+    float32 within 1e-3, the card's ``logmel_examples`` on the first batch
+    against the numpy frontend within 1e-4, bfloat16 against float32 in
+    the head band. Examples/s of each run, the host frontend's ms per
+    example, FLOPs per example, the device TFLOP/s they imply, and one
+    profile of each float32 frontend. ``over`` goes into every config
+    (the CPU tests run the phase with ``device=cpu`` on short audio)."""
+    import os
+    from video_features_tpu_torch.extractors.vggish import ExtractVGGish
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.ops import audio
+
+    wav_dir = os.path.join("output", "chip_smoke", "vggish")
+    os.makedirs(wav_dir, exist_ok=True)
+    seconds = ((n_examples - 1) * audio.EXAMPLE_HOP_SAMPLES
+               + audio.EXAMPLE_CHUNK_SAMPLES) / audio.SAMPLE_RATE
+    mono = write_wav(os.path.join(wav_dir, "mono16k.wav"), seconds, 16000,
+                     1, 61)
+    stereo = write_wav(os.path.join(wav_dir, "stereo44k.wav"),
+                       stereo_seconds, 44100, 2, 62)
+
+    def run(ex, path, rows):
+        """(embeddings, seconds) of one checked ``extract(path)``."""
+        reset_counts(cl)
+        synchronize()
+        t0 = time.perf_counter()
+        out = ex.extract(path)
+        synchronize()
+        sec = time.perf_counter() - t0
+        what = f"vggish {ex.frontend} {ex.precision} {path}"
+        if any(read_counts(cl).values()):
+            raise AssertionError(f"{what}: lookup kernels launched "
+                                 f"{read_counts(cl)}")
+        feats = out["vggish"]
+        if set(out) != {"vggish"} or feats.shape != (rows, 128) \
+                or feats.dtype != np.float32 or not np.isfinite(feats).all():
+            raise AssertionError(f"{what}: embeddings {feats.shape} "
+                                 f"{feats.dtype} or non-finite")
+        return feats, sec
+
+    names = [(f, p) for p in ("float32", "bfloat16")
+             for f in ("host", "device")]
+    exs = {(f, p): ExtractVGGish(vggish_config(**{**over, "frontend": f,
+                                                  "precision": p}))
+           for f, p in names}
+    runs = {}
+    for key in names:  # the first run of each sets up cuDNN and cuFFT
+        run(exs[key], mono, n_examples)
+        runs[key] = run(exs[key], mono, n_examples)
+    host32, dev32 = runs[("host", "float32")][0], \
+        runs[("device", "float32")][0]
+    device_vs_host = float(np.abs(dev32 - host32).max())
+    if not device_vs_host <= VGGISH_FRONTEND_ATOL:
+        raise AssertionError(f"vggish device vs host frontend: "
+                             f"{device_vs_host}")
+    bands = {f"{f}_bf16_vs_f32": band(runs[(f, "bfloat16")][0],
+                                      runs[(f, "float32")][0])
+             for f in ("host", "device")}
+    if not all(in_head_band(b) for b in bands.values()):
+        raise AssertionError(f"vggish bfloat16 vs float32: {bands}")
+
+    data, rate = audio.read_wav(mono)
+    t0 = time.perf_counter()
+    examples = audio.waveform_to_examples(data, rate)
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(examples)
+    chunks = torch.from_numpy(audio.chunk_waveform(data, rate)[:32])
+    dev = exs[("device", "float32")].device
+    with torch.inference_mode():
+        logmel = audio.logmel_examples(chunks.to(dev)).cpu().numpy()
+    logmel_err = float(np.abs(logmel - examples[:32]).max())
+    if not logmel_err <= VGGISH_LOGMEL_ATOL:
+        raise AssertionError(f"vggish logmel_examples vs numpy: "
+                             f"{logmel_err}")
+    stereo_rows = 1 + (int(stereo_seconds * 16000)
+                       - audio.EXAMPLE_CHUNK_SAMPLES) \
+        // audio.EXAMPLE_HOP_SAMPLES
+    _, stereo_s = run(exs[("host", "float32")], stereo, stereo_rows)
+
+    turns = {f"{f}_{p}": [] for f, p in names}
+    for key in names + names[::-1]:
+        _, sec = run(exs[key], mono, n_examples)
+        turns[f"{key[0]}_{key[1]}"].append(n_examples / sec)
+    flops = vggish_flops()
+    batches = -(-n_examples // exs[names[0]].batch_size)
+    stats = dict(seconds_of_audio=seconds, examples=n_examples,
+                 batch_size=exs[names[0]].batch_size,
+                 gflop_per_example=flops / 1e9,
+                 host_frontend_ms_per_example=host_ms,
+                 device_vs_host_f32_max_abs=device_vs_host,
+                 device_vs_host_limit=VGGISH_FRONTEND_ATOL,
+                 logmel_vs_numpy_max_abs=logmel_err,
+                 logmel_limit=VGGISH_LOGMEL_ATOL, bands=bands,
+                 band=dict(cos=HEAD_COS, max_abs=HEAD_MAX_ABS),
+                 stereo44k=dict(seconds_of_audio=stereo_seconds,
+                                examples=stereo_rows,
+                                examples_per_s=stereo_rows / stereo_s),
+                 turns_examples_per_s=turns)
+    for (f, p), (_, sec) in runs.items():
+        stats[f"{f}_{p}"] = dict(seconds=sec,
+                                 examples_per_s=n_examples / sec)
+    for f in ("host", "device"):
+        ex = exs[(f, "float32")]
+        profile = profile_call(lambda ex=ex: ex.extract(mono))
+        if "kernel_launches" in profile:
+            profile["launches_per_batch"] = \
+                profile["kernel_launches"] / batches
+            profile["device_tflop_per_s"] = \
+                flops * n_examples / profile["device_busy_ms"] / 1e9
+        stats[f"{f}_float32"]["profile"] = profile
+    del exs
+    empty_cache()
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1408,6 +1608,7 @@ def main() -> int:
     s3d_stats = run_s3d(dev)
     resnet_stats = frame_phase("resnet", 2048, "resnet18", 512)
     clip_stats = frame_phase("clip", 512, "RN50", 1024)
+    vggish_stats = vggish_phase()
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -1431,6 +1632,7 @@ def main() -> int:
     s3d_stats["card"] = card
     resnet_stats["card"] = card
     clip_stats["card"] = card
+    vggish_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -1439,6 +1641,7 @@ def main() -> int:
     print(json.dumps({"s3d": s3d_stats}))
     print(json.dumps({"resnet": resnet_stats}))
     print(json.dumps({"clip": clip_stats}))
+    print(json.dumps({"vggish": vggish_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -257,3 +257,23 @@ def test_frame_phases_run_on_the_cpu(tmp_path):
         assert len(st["turns_frames_per_s"]["bfloat16"]) == 2
         assert "not measured" in st["float32"]["profile"]["device_time"]
         assert st["resize_host"]["vs_device"]["max_abs"] <= cs.VALUE_ATOL
+
+
+def test_vggish_phase_runs_on_the_cpu(tmp_path, monkeypatch):
+    """The vggish phase on 2 examples of audio (batch 2) and 1 s of
+    44.1 kHz stereo with ``device=cpu``: every run passes its checks
+    (shapes, finite, no lookup kernel, device frontend against host within
+    1e-3, log-mel within 1e-4, bfloat16 in the head band); the profiles say
+    "not measured" without a card; VGGish is 1.73 GFLOP an example."""
+    monkeypatch.chdir(tmp_path)
+    stats = cs.vggish_phase(n_examples=2, stereo_seconds=1.0, device="cpu",
+                            batch_size=2)
+    assert stats["examples"] == 2 and stats["stereo44k"]["examples"] == 1
+    assert stats["device_vs_host_f32_max_abs"] <= cs.VGGISH_FRONTEND_ATOL
+    assert stats["logmel_vs_numpy_max_abs"] <= cs.VGGISH_LOGMEL_ATOL
+    assert abs(stats["gflop_per_example"] - 1.7278) < 1e-3
+    assert all(len(v) == 2 for v in stats["turns_examples_per_s"].values())
+    assert "not measured" in \
+        stats["host_float32"]["profile"]["device_time"]
+    assert (tmp_path / "output" / "chip_smoke" / "vggish" /
+            "mono16k.wav").exists()

@@ -20,6 +20,11 @@ The frame-wise families' device resize (PIL's bilinear and bicubic
 coefficients as two matmuls) and I420 decode on the card against the same
 functions on the CPU, which tests/test_torch_frame_wise.py holds to JAX's:
 at most 1 LSB apart on under 0.1% of the values, any batch.
+
+VGGish's device frontend (``ops/audio.py logmel_examples``: cuFFT and a
+float32 matmul on the card) against the numpy frontend, which
+tests/test_torch_vggish.py holds to JAX's, on noise and on silence: 1e-4,
+the JAX package's own bar.
 """
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ import torch
 from video_features_tpu_torch.device import set_precision
 from video_features_tpu_torch.kernels import corr_lookup as tcl
 from video_features_tpu_torch.models import raft as traft
+from video_features_tpu_torch.ops import audio as taudio
 from video_features_tpu_torch.ops import colorspace as tcs
 from video_features_tpu_torch.ops import preprocess as tpp
 
@@ -171,3 +177,16 @@ def test_i420_decode_on_card_matches_cpu(cuda_card):
     on_cpu = tcs.yuv420_frame_to_rgb_u8(planes, 240, 320)
     on_card = tcs.yuv420_frame_to_rgb_u8(planes.to(cuda_card), 240, 320)
     _within_one_lsb(on_card.cpu().numpy(), on_cpu.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signal", ["noise", "silence"])
+def test_logmel_examples_on_card_matches_numpy(cuda_card, signal):
+    rng = np.random.default_rng(4)
+    wav = (rng.normal(scale=0.1, size=80000) if signal == "noise"
+           else np.zeros(80000))
+    chunks = torch.from_numpy(taudio.chunk_waveform(wav, 16000))
+    got = taudio.logmel_examples(chunks.to(cuda_card)).cpu().numpy()
+    want = taudio.waveform_to_examples(wav, 16000)
+    assert got.shape == want.shape == (5, 96, 64, 1)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

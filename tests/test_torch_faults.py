@@ -3,7 +3,7 @@
 - Every key of the JAX YAMLs whose plane the port does not run raises
   ``NotImplementedError`` naming its ROADMAP.md Queue 1 item when set away
   from its default, in every ported family; at the default it passes.
-  ``feature_type=vggish`` raises.
+  Every family dispatches (``vggish`` too).
 - ``RetryPolicy`` and ``classify`` agree with the JAX ones (defaults,
   backoff delays under one seeded rng, the category of each exception).
 - The CLI on a video that fails (a file that is not a video), in process,
@@ -37,7 +37,6 @@ CLIP_ONLY_KEYS = {"model_parallel", "vision_attn"}
 
 
 GATED_CASES = [
-    ("video_deadline_s", 5, 5), ("inject", "seed=1;sink.fsync=enospc@n1", 5),
     ("distributed", True, 6), ("mesh_devices", 2, 6),
     ("video_workers", 4, 6), ("video_workers", "auto", 6),
     ("cross_video_batching", True, 6), ("model_parallel", 2, 6),
@@ -89,9 +88,14 @@ def test_show_pred_is_ported_for_the_clip_stack_families_only():
 
 
 def test_vggish_is_not_ported():
+    """Since vggish was ported the registry rejects no family of the JAX
+    package: every one dispatches, and only an unknown name raises."""
     from video_features_tpu_torch.cli import main
-    with pytest.raises(NotImplementedError, match="'vggish' is not ported"):
-        main(["feature_type=vggish", "device=cpu", "video_paths=v.mp4"])
+    from video_features_tpu_torch.registry import get_extractor_cls
+    for family in FAMILIES + ("vggish",):
+        assert get_extractor_cls(family).__name__.startswith("Extract")
+    with pytest.raises(NotImplementedError, match="Unknown feature_type"):
+        main(["feature_type=nosuch", "device=cpu", "video_paths=v.mp4"])
 
 
 def test_retry_policy_matches_jax():

@@ -39,7 +39,7 @@ PORT_ONLY_KEYS = {"video_decode"}
 
 
 @pytest.mark.parametrize("family", ["raft", "i3d", "pwc", "r21d", "s3d",
-                                    "resnet", "clip"])
+                                    "resnet", "clip", "vggish"])
 def test_yaml_defaults_match_jax(family):
     """Every key of the JAX YAML is in the port's at the same default, and
     the port adds only ``video_decode``; the defaults pass
@@ -219,9 +219,13 @@ def test_family_defaults_and_device(tmp_path, sample_video):
     pwc = i3d.flow_stream.pwc
     assert pwc.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in pwc.parameters())
+    # every family's bfloat16 is ported since vggish's was; another name
+    # still raises
+    tconfig.check_ported(tconfig.Config(
+        {"feature_type": "vggish", "precision": "bfloat16"}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         tconfig.check_ported(tconfig.Config(
-            {"feature_type": "vggish", "precision": "bfloat16"}))
+            {"feature_type": "nosuch", "precision": "bfloat16"}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device=cpu"):
             ExtractRAFT(tconfig.load_config("raft", dict(cfg, device="auto")))

@@ -259,8 +259,7 @@ def test_sinks_write_and_skip(tmp_path, sink):
 
 @pytest.mark.parametrize("key,value", [
     ("cache", True), ("telemetry", True), ("trace", True), ("health", True),
-    ("parity", True), ("roofline", True), ("video_decode", "process"),
-    ("video_decode", "parallel"), ("fps_mode", "reencode"),
+    ("parity", True), ("roofline", True), ("fps_mode", "reencode"),
     ("show_pred", True)])
 def test_unported_keys_raise(tmp_path, key, value):
     cfg = tconfig.load_config("i3d", dict(_overrides(tmp_path), **{key: value}))
@@ -325,9 +324,12 @@ def test_cli_writes_outputs(sample_video, tmp_path):
 
 
 def test_cli_rejects_unported_families():
+    """No family is unported since vggish was: each dispatches, and an
+    unknown name raises."""
     from video_features_tpu_torch.registry import get_extractor_cls
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_extractor_cls("vggish")
+    with pytest.raises(NotImplementedError, match="Unknown feature_type"):
+        get_extractor_cls("nosuch")
+    assert get_extractor_cls("vggish").__name__ == "ExtractVGGish"
     assert get_extractor_cls("i3d").__name__ == "ExtractI3D"
     assert get_extractor_cls("raft").__name__ == "ExtractRAFT"
     assert get_extractor_cls("pwc").__name__ == "ExtractPWC"

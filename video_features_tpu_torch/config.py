@@ -24,10 +24,6 @@ _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 #: ports the key's plane; None for ``config``, which the JAX package reads
 #: at no value either)
 GATED_KEYS = {
-    # fault tolerance and decode (#5): the deadline watchdog needs the decode
-    # sources' cancel hooks
-    "video_deadline_s": ((None,), 5),
-    "inject": ((None,), 5),
     # batching and multi-GPU data parallelism (#6)
     "distributed": ((None, False), 6),
     "mesh_devices": ((None,), 6),
@@ -61,8 +57,11 @@ GATED_KEYS = {
     "vision_attn": ((None, "dense"), 10),
     "config": ((None,), None),
 }
-#: families whose ``show_pred`` is ported
+#: families whose ``show_pred`` is ported (``vggish`` has none in either
+#: package: its extractor raises)
 SHOW_PRED_FAMILIES = ("r21d", "s3d", "resnet", "clip")
+#: the decode sources of ``video_decode`` (``utils/io.py``)
+VIDEO_DECODE_MODES = ("inline", "process", "parallel")
 
 
 class Config(dict):
@@ -178,9 +177,10 @@ def _roadmap(item: Optional[int]) -> str:
 def check_ported(args: Config) -> None:
     """Raise ``NotImplementedError`` for a value the port does not run yet:
     a :data:`GATED_KEYS` key away from its default, ``show_pred`` outside
-    :data:`SHOW_PRED_FAMILIES`, ``video_decode=process|parallel``,
-    ``fps_mode=reencode``, and ``precision=bfloat16`` outside
-    ``device.BF16_FAMILIES``."""
+    :data:`SHOW_PRED_FAMILIES`, ``fps_mode=reencode``, and
+    ``precision=bfloat16`` outside ``device.BF16_FAMILIES``; and, as the JAX
+    package does, for a ``video_decode`` outside
+    :data:`VIDEO_DECODE_MODES`."""
     for key, (accepted, item) in GATED_KEYS.items():
         value = args.get(key)
         if value not in accepted:
@@ -188,21 +188,47 @@ def check_ported(args: Config) -> None:
                 f"{key}={value!r} is not ported yet ({_roadmap(item)}); "
                 f"the port accepts {' or '.join(map(repr, accepted))}")
     feature_type = args.get("feature_type")
-    if args.get("show_pred") and feature_type not in SHOW_PRED_FAMILIES:
+    if args.get("show_pred") and feature_type not in SHOW_PRED_FAMILIES \
+            and feature_type != "vggish":
         raise NotImplementedError(
             f"show_pred=true is not ported yet for feature_type="
             f"{feature_type!r} ({_roadmap(None)}); it is for "
             f"{', '.join(SHOW_PRED_FAMILIES)}")
     precision_dtype(args.get("precision"), feature_type)
     decode = args.get("video_decode") or "inline"
-    if decode in ("process", "parallel"):
+    if decode not in VIDEO_DECODE_MODES:
         raise NotImplementedError(
-            f"video_decode={decode!r} is not ported yet ({_roadmap(5)})")
-    if decode != "inline":
-        raise ValueError(f"video_decode={decode!r}: expected 'inline'")
+            f"video_decode={decode!r}: expected 'inline', 'process' or "
+            "'parallel'")
     if (args.get("fps_mode") or "select") == "reencode":
         raise NotImplementedError(
-            f"fps_mode='reencode' is not ported yet ({_roadmap(5)})")
+            "fps_mode='reencode' is not ported yet (it needs an ffmpeg "
+            f"binary; {_roadmap(11)})")
+
+
+def _check_vggish(args: Config) -> None:
+    """``frontend``, ``postprocess`` and ``pca_weights_path``."""
+    frontend = args.get("frontend")
+    if frontend is not None and frontend not in ("host", "device"):
+        raise NotImplementedError(f"frontend={frontend!r}: expected 'host' "
+                                  "or 'device'")
+    post = args.get("postprocess")
+    if post is not None and not isinstance(post, bool):
+        raise ValueError(f"postprocess={post!r}: expected true or false")
+    if post:
+        pca_weights_path(args)
+
+
+def pca_weights_path(args: Config) -> str:
+    """``pca_weights_path``, which ``postprocess=true`` needs;
+    ``FileNotFoundError`` naming the key when it is unset or missing (the
+    port has no weights directory to search, ROADMAP.md Queue 1 #12)."""
+    pca = args.get("pca_weights_path")
+    if not pca or not Path(str(pca)).exists():
+        raise FileNotFoundError(
+            "postprocess=true needs the PCA params: pass pca_weights_path= "
+            f"a vggish_pca_params .pth or .npz (got {pca!r})")
+    return str(pca)
 
 
 def sanity_check(args: Config, *, require_videos: bool = True) -> None:
@@ -215,7 +241,8 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     keys ``iters``, ``batch_size``, ``side_size`` and
     ``resize_to_smaller_edge`` (``ExtractRAFT`` checks ``finetuned_on``),
     the clip-stack and frame-wise families' ``model_name`` and ``ingest``,
-    the retry keys,
+    vggish's ``frontend``, ``postprocess`` and ``pca_weights_path``, the
+    retry, deadline and ``inject`` keys,
     the unported keys, the device (``args.device`` becomes ``cpu``,
     ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
     namespacing of ``output_path``/``tmp_path``."""
@@ -247,6 +274,19 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     rb = args.get("retry_backoff_s")
     if rb is not None and float(rb) < 0:
         raise ValueError(f"retry_backoff_s={rb!r}: need a float >= 0")
+    vd = args.get("video_deadline_s")
+    if vd is not None and float(vd) <= 0:
+        raise ValueError(f"video_deadline_s={vd!r}: need a float > 0 "
+                         "(or null to disable the per-video deadline)")
+    inj = args.get("inject")
+    if inj is not None:
+        if not isinstance(inj, str):
+            raise ValueError(f"inject={inj!r}: expected a plan string like "
+                             "'seed=1;sink.fsync=enospc@n1' or null")
+        from .utils.inject import parse_plan
+        parse_plan(inj)  # raises naming the bad clause or unported site
+    if args.feature_type == "vggish":
+        _check_vggish(args)
 
     if require_videos:
         if not (args.get("file_with_video_paths") or args.get("video_paths")):

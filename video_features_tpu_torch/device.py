@@ -11,7 +11,8 @@ from typing import Optional
 import torch
 
 #: families whose ``precision=bfloat16`` mode is ported
-BF16_FAMILIES = ("raft", "pwc", "i3d", "r21d", "s3d", "resnet", "clip")
+BF16_FAMILIES = ("raft", "pwc", "i3d", "r21d", "s3d", "resnet", "clip",
+                 "vggish")
 
 
 def resolve_device(device: Optional[str]) -> torch.device:

@@ -1,7 +1,8 @@
 """Extraction lifecycle shared by the port's families (port of
 ``video_features_tpu/extractors/base.py``): ``_extract`` = skip-if-exists ->
 ``extract`` -> sink dispatch; device and precision resolution; weights; the
-``resize=auto|host|device`` choice and the per-resolution resizer cache."""
+``resize=auto|host|device`` choice and the per-resolution resizer cache; the
+decode source of ``video_decode`` (:meth:`BaseExtractor.video_source`)."""
 from __future__ import annotations
 
 import threading
@@ -14,7 +15,8 @@ from torch import nn
 from ..config import Config, check_ported
 from ..device import resolve_device, set_precision
 from ..ops import preprocess as pp
-from ..utils import sinks
+from ..utils import faults, sinks
+from ..utils import io as vio
 from ..weights.bridge import seeded_init_
 
 _RESIZE_CACHE_SIZE = 8
@@ -69,7 +71,42 @@ class BaseExtractor:
         self.precision = args.get("precision") or "float32"
         self.dtype = set_precision(self.precision, self.feature_type)
         self.allow_random = bool(args.get("allow_random_weights", False))
+        # video_decode (the JAX package's semantics): where a video's
+        # decode and host transform run; decode_workers is the width of
+        # 'parallel', decode_depth each child's frame-queue cap
+        self.video_decode = args.get("video_decode") or "inline"
+        raw_dw = args.get("decode_workers")
+        self.decode_workers = 2 if raw_dw is None else int(raw_dw)
+        if self.decode_workers < 1:
+            raise ValueError(
+                f"decode_workers={self.decode_workers}: need >= 1")
+        raw_dd = args.get("decode_depth")
+        self.decode_depth = None if raw_dd is None else int(raw_dd)
         self.args = args
+
+    def video_source(self, video_path: str, **kwargs):
+        """The decode source of ``video_decode`` (``inline``:
+        :class:`utils.io.VideoSource`, ``process``: ``ProcessVideoSource``,
+        ``parallel``: ``ParallelVideoSource`` with ``decode_workers`` and
+        ``decode_depth``), built with ``kwargs``. Inside a
+        :class:`utils.faults.FaultContext` the context's
+        ``decode_override`` (the ladder's rung for a retry) replaces
+        ``video_decode``, and the source is registered with the context so
+        its deadline watchdog can cancel it."""
+        ctx = faults.current_context()
+        mode = self.video_decode
+        if ctx is not None and ctx.decode_override:
+            mode = ctx.decode_override
+        cls = {"process": vio.ProcessVideoSource,
+               "parallel": vio.ParallelVideoSource}.get(mode, vio.VideoSource)
+        if cls is vio.ParallelVideoSource:
+            kwargs.setdefault("decode_workers", self.decode_workers)
+            if self.decode_depth is not None:
+                kwargs.setdefault("depth", self.decode_depth)
+        src = cls(video_path, **kwargs)
+        if ctx is not None:
+            ctx.register(src)
+        return src
 
     def _resolve_resize_mode(self, args: Config) -> str:
         """``auto`` resolves to ``device`` for file-sink runs and to

@@ -21,7 +21,7 @@ import numpy as np
 
 from ..config import Config
 from ..runner import Runner
-from ..utils.io import Prefetcher, VideoSource
+from ..utils.io import Prefetcher
 from ..utils.lists import form_slices
 from .base import BaseExtractor
 
@@ -57,8 +57,8 @@ class ClipStackExtractor(BaseExtractor):
         self.runner: Runner = None
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
-        src = VideoSource(video_path, fps=self.extraction_fps,
-                          transform=self.host_transform)
+        src = self.video_source(video_path, fps=self.extraction_fps,
+                                transform=self.host_transform)
         return self._features(Prefetcher(src.frames()))
 
     def extract_frames(self, frames: Iterable[Tuple[np.ndarray, float, int]],

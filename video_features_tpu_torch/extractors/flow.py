@@ -30,7 +30,7 @@ import torch
 from ..config import Config
 from ..ops import host_transforms as ht
 from ..runner import Runner
-from ..utils.io import Prefetcher, VideoSource, _batched
+from ..utils.io import Prefetcher, _batched
 from .base import BaseExtractor
 
 
@@ -70,10 +70,10 @@ class OpticalFlowExtractor(BaseExtractor):
         return self.flow(pairs)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
-        src = VideoSource(video_path, fps=self.extraction_fps,
-                          total=self.extraction_total,
-                          batch_size=self.batch_size + 1,  # N+1 -> N flows
-                          transform=self.host_transform, overlap=1)
+        src = self.video_source(video_path, fps=self.extraction_fps,
+                                total=self.extraction_total,
+                                batch_size=self.batch_size + 1,  # N+1 flows
+                                transform=self.host_transform, overlap=1)
         # decode-ahead: the next batch decodes while this one computes
         return self._extract_batches(Prefetcher(src), src.fps)
 

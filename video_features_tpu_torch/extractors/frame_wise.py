@@ -34,7 +34,7 @@ from ..config import Config
 from ..ops import colorspace
 from ..ops import preprocess as pp
 from ..runner import Runner
-from ..utils.io import Prefetcher, VideoSource, _batched, get_video_props
+from ..utils.io import Prefetcher, _batched, get_video_props
 from .base import BaseExtractor
 
 
@@ -122,7 +122,7 @@ class FrameWiseExtractor(BaseExtractor):
             props = get_video_props(video_path)
             order = self._raw_wire(props["height"], props["width"],
                                    video_path)
-        src = VideoSource(
+        src = self.video_source(
             video_path, fps=self.extraction_fps, total=self.extraction_total,
             batch_size=self.batch_size, channel_order=order,
             transform=(None if self.resize_mode == "device"

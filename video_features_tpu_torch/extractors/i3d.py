@@ -35,7 +35,7 @@ from ..models import i3d as i3d_model
 from ..models.common import cast_floating_
 from ..ops import host_transforms as ht
 from ..runner import Runner
-from ..utils.io import Prefetcher, VideoSource
+from ..utils.io import Prefetcher
 from .base import BaseExtractor, load_weights
 from .i3d_flow import FlowStream, i3d_forward
 
@@ -96,7 +96,7 @@ class ExtractI3D(BaseExtractor):
                             for s in self.streams])
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
-        src = VideoSource(video_path, fps=self.extraction_fps)
+        src = self.video_source(video_path, fps=self.extraction_fps)
         # decode-ahead about one stack while the previous group computes
         frames = Prefetcher(src.frames(), depth=max(2, self.stack_size))
         return self.extract_frames(frames, src.fps)

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BNInf
+from .common import BNInf, Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,15 +124,6 @@ class QuickGELU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         z = x * torch.tensor(1.702, dtype=x.dtype)
         return x * torch.reciprocal(1 + torch.exp(-z))
-
-
-class Dense(nn.Linear):
-    """``nn.Linear`` with flax ``Dense``'s rounding: the product rounded to
-    the activation dtype, then the bias added and rounded again (bfloat16
-    results follow JAX's; float32 ones are the plain formula's)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight) + self.bias
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

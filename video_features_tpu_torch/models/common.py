@@ -3,6 +3,7 @@ and the port's ``cast_floating_`` (of ``parallel/mesh.py cast_floating``)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -45,3 +46,22 @@ class BNInf(nn.Module):
         shift = self.bias.to(x.dtype) - self.running_mean.to(x.dtype) * scale
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * scale.view(shape) + shift.view(shape)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``Dense``'s rounding: the product rounded to
+    the activation dtype, then the bias added and rounded again (bfloat16
+    results follow JAX's; float32 ones are the plain formula's)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight) + self.bias
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax ``Conv``'s rounding, as :class:`Dense`: the
+    convolution without its bias, rounded to the activation dtype, then the
+    bias added."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight, None) + \
+            self.bias.view(1, -1, 1, 1)

@@ -8,11 +8,17 @@
     rename);
   - :func:`is_already_exist`: every key file exists AND loads, so a file
     torn by a killed worker counts as absent and is extracted again;
-  - :func:`safe_extract`: one video under the retry policy and failure
-    journal of ``utils/faults.py``.
+  - :func:`safe_extract`: one video under the retry policy, deadline
+    watchdog, decode ladder and failure journal of ``utils/faults.py``.
+
+The atomic write hosts the ``sink.tmp_write`` (``torn``: a truncated write,
+then EIO), ``sink.fsync`` and ``sink.rename`` (``drop``: the rename is lost)
+injection sites, and each attempt of :func:`safe_extract` the
+``worker.kill`` site (``utils/inject.py``).
 """
 from __future__ import annotations
 
+import errno
 import io
 import os
 import pickle
@@ -23,7 +29,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
-from . import faults
+from . import faults, inject
 
 EXTS = {"save_numpy": ".npy", "save_pickle": ".pkl"}
 
@@ -37,16 +43,26 @@ def make_path(output_root: str, video_path: str, output_key: str,
 
 def _write_bytes_atomic(fpath: str, data: bytes) -> None:
     """Temp file in the target dir, flush + fsync, ``os.replace``; the
-    temp file is removed if anything before the rename fails."""
+    temp file is removed if anything before the rename fails (an injected
+    fault included)."""
     d = os.path.dirname(fpath) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(fpath) + ".",
                                suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
+            fault = inject.fire("sink.tmp_write", path=str(fpath))
+            if fault is not None and fault.kind == "torn":
+                f.write(data[:max(1, len(data) // 2)])
+                f.flush()
+                raise OSError(errno.EIO, f"injected torn write for {fpath}")
             f.write(data)
             f.flush()
+            inject.fire("sink.fsync", path=str(fpath))
             os.fsync(f.fileno())
+        fault = inject.fire("sink.rename", path=str(fpath))
+        if fault is not None and fault.kind == "drop":
+            raise OSError(errno.EIO, f"injected rename drop for {fpath}")
         os.replace(tmp, fpath)
     except BaseException:
         try:
@@ -129,14 +145,19 @@ def action_on_extraction(feats_dict: Dict[str, np.ndarray], video_path: str,
 def safe_extract(extract_fn: Callable, video_path: str,
                  policy: Optional[faults.RetryPolicy] = None,
                  journal: Optional[faults.FailureJournal] = None,
+                 decode_mode: Optional[str] = None,
                  on_terminal_failure: Optional[Callable[[dict], None]] = None
                  ) -> str:
-    """Run one video with per-video error isolation (the inline-decode part
-    of the JAX ``utils/sinks.py safe_extract``; KeyboardInterrupt is
-    re-raised):
+    """Run one video with per-video error isolation (the JAX
+    ``utils/sinks.py safe_extract``; KeyboardInterrupt is re-raised):
 
       - a video whose latest ``journal`` record is POISON is skipped
         (``'quarantined'``) unless ``policy.retry_failed``;
+      - each attempt runs inside a :class:`faults.FaultContext`: the
+        ``policy.deadline_s`` watchdog cancels its in-flight decode
+        sources, and after a failure under ``decode_mode`` ``parallel`` or
+        ``process`` the next attempt decodes one rung down the ladder
+        (``parallel -> process -> inline``);
       - each failure is classified; TRANSIENT and POISON get up to
         ``policy.attempts`` tries with the policy's backoff, FATAL fails at
         once;
@@ -144,8 +165,9 @@ def safe_extract(extract_fn: Callable, video_path: str,
         ``on_terminal_failure``;
       - a ``retry_failed`` success lifts the video's quarantine.
 
-    ``policy=None`` is a single attempt. Returns ``'done'``, ``'skipped'``
-    (the outputs already exist), ``'quarantined'`` or ``'error'``."""
+    ``policy=None`` is a single attempt with no deadline. Returns
+    ``'done'``, ``'skipped'`` (the outputs already exist), ``'quarantined'``
+    or ``'error'``."""
     if policy is None:
         policy = faults.RetryPolicy()
     if journal is not None and not policy.retry_failed:
@@ -161,13 +183,20 @@ def safe_extract(extract_fn: Callable, video_path: str,
     category = None
     err_repr = ""
     attempts_made = 0
+    mode = decode_mode if policy.ladder else None
     for attempt in range(1, policy.attempts + 1):
         attempts_made = attempt
+        override = mode if mode is not None and mode != decode_mode else None
+        ctx = faults.FaultContext(video_path, deadline_s=policy.deadline_s,
+                                  decode_override=override)
+        inject.fire("worker.kill", video=str(video_path), attempt=attempt)
         try:
-            result = extract_fn(video_path)
+            with ctx:
+                result = extract_fn(video_path)
             if attempt > 1:
                 print(f'Recovered "{video_path}" on attempt '
-                      f"{attempt}/{policy.attempts}")
+                      f"{attempt}/{policy.attempts}"
+                      + (f" (video_decode={mode})" if override else ""))
             if journal is not None and policy.retry_failed \
                     and journal.poison_record(video_path) is not None:
                 journal.resolve(video_path)
@@ -182,6 +211,11 @@ def safe_extract(extract_fn: Callable, video_path: str,
             if category == faults.FATAL:
                 break
             if attempt < policy.attempts:
+                next_mode = faults.demote(mode)
+                if next_mode is not None:
+                    print(f"DECODE LADDER: retrying \"{video_path}\" with "
+                          f"video_decode={next_mode} (was {mode})")
+                    mode = next_mode
                 delay = policy.backoff_delay(attempt)
                 if delay > 0:
                     print(f"Retrying \"{video_path}\" in {delay:.2f}s ...")

@@ -2,8 +2,8 @@
 
 ``raft_state_from_jax`` / ``i3d_state_from_jax`` / ``pwc_state_from_jax`` /
 ``r21d_state_from_jax`` / ``s3d_state_from_jax`` / ``resnet_state_from_jax``
-/ ``clip_state_from_jax`` map a JAX parameter tree (nested dicts of numpy
-arrays, as
+/ ``clip_state_from_jax`` / ``vggish_state_from_jax`` map a JAX parameter
+tree (nested dicts of numpy arrays, as
 ``video_features_tpu.models.*.init_params`` or ``params_from_torch`` build
 them) onto the port's modules, whose names are the reference checkpoints'
 keys. They invert the JAX ``params_from_torch``:
@@ -285,6 +285,15 @@ def clip_state_from_jax(params: Mapping[str, Any]
         state[_clip_key(mod_path.split("/")) + ".num_batches_tracked"] = \
             torch.tensor(0, dtype=torch.long)
     return state
+
+
+def vggish_state_from_jax(params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX VGGish tree -> the port's (and torchvggish's) state dict:
+    ``features_N`` / ``embeddings_N`` back to ``features.N`` /
+    ``embeddings.N``. ``embeddings_0``'s rows are in NHWC flatten order on
+    both sides, so they transpose like any dense kernel."""
+    return _to_state(params, lambda mod_path: mod_path.replace("_", "."))
 
 
 def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
