@@ -136,10 +136,26 @@ that goes wrong:
    each run and in turns, the host frontend's ms per example, FLOPs per
    example and the device TFLOP/s they imply, one profile of each float32
    frontend (busy share, top device items, launches per batch);
-15. prints one JSON line each of the i3d slice's, the raft family's, the
-   pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip and
-   vggish phases' numbers, one of the kernels' numbers, and last
-   ``{"ok": true, "device": {...}}``.
+15. drives the parallel plane (every phase above already runs through
+   ``DataParallelApply`` on a one-card mesh and a ``FeatureStream`` of
+   depth 4) on two devices: two cards where the machine has them, else two
+   replicas on ``cuda:0``. (a) The raft family in float32 with
+   ``batch_size=32`` over 65 frames on the two devices: flows within 1e-3
+   px of one device, proj 20 launches per forward on each replica (forward
+   hooks), level and packed none. (b) r21d at its YAML defaults with
+   ``cross_video_batching=true``: 6 seeded videos of 40, 56, ..., 120
+   frames (27 clips) through ``extract_frames`` on 3 threads
+   (:func:`feed_videos`): per-video features within 1e-4 of the unpacked
+   run, groups [8, 8, 8, 3]. (c) CLIP ViT-B/32 with ``model_parallel=2``
+   over a ``(data=1, model=2)`` mesh, 64 frames, float32,
+   ``resize=device``: within 1e-4 of ``model_parallel=1``, each shard's
+   ``in_proj_weight`` (1152, 768). (d) r21d ``extract_frames`` at stream
+   depth 4 against 0: identical features, clips/s and the card's busy
+   share of each. Rates of both sides of each in turns;
+16. prints one JSON line each of the i3d slice's, the raft family's, the
+   pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
+   vggish and parallel phases' numbers, one of the kernels' numbers, and
+   last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and needs no cv2, yaml or ffmpeg: the frames and
 the WAVs are synthetic (the WAVs written with the stdlib ``wave`` under
@@ -194,6 +210,12 @@ VGGISH_EXAMPLES, VGGISH_STEREO_SECONDS = 625, 60.0
 VGGISH_FRONTEND_ATOL, VGGISH_LOGMEL_ATOL = 1e-3, 1e-4
 #: PWC's decoder levels at 256x384 (256x341 frames resized to /64):
 #: (level, H, W, C) of the cost volume's inputs
+#: the parallel phase: the packed videos' frame counts (2..7 clips of 16
+#: frames at r21d's defaults, 27 in all), the threads that feed them, and
+#: the frames of the CLIP tensor-parallel run
+PACKED_VIDEOS = (40, 56, 72, 88, 104, 120)
+PACKED_WORKERS = 3
+TP_FRAMES = 64
 PWC_LEVELS = ((2, 64, 96, 32), (3, 32, 48, 64), (4, 16, 24, 96),
               (5, 8, 12, 128), (6, 4, 6, 196))
 
@@ -1572,6 +1594,291 @@ def vggish_phase(n_examples: int = VGGISH_EXAMPLES,
     return stats
 
 
+def parallel_devices(dev) -> list:
+    """The two devices of the parallel phase: two cards where the machine
+    has them, else two replicas on ``cuda:0`` (the CPU twice in the
+    tests)."""
+    if dev.type != "cuda":
+        return [dev, dev]
+    if torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", 0), torch.device("cuda", 1)]
+    return [torch.device("cuda", 0)] * 2
+
+
+def parallel_raft(devices, n_frames: int = 2 * RAFT_BATCH + 1,
+                  timed_turns: bool = True, **over):
+    """(a) The raft family in float32 with ``batch_size=32`` on a two-device
+    mesh against the one-device run: flows within 1e-3 px; on the card, proj
+    launched 20 times per forward on each replica (counted by forward hooks
+    around each replica's RAFT; a replica's forwards launch in turn on one
+    thread), level and packed never; pairs/s of both in turns (O T T O).
+    ``timed_turns=False`` (the CPU test) leaves the turns out, as in the
+    other parts."""
+    from video_features_tpu_torch.extractors.raft import ExtractRAFT
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.parallel.mesh import get_mesh
+
+    frames = list(synthetic_frames(n_frames, 21))
+    cfg = raft_config("output/chip_smoke", precision="float32", **over)
+    one = ExtractRAFT(cfg)
+    two = ExtractRAFT(cfg, mesh=get_mesh(devices=devices))
+    per_replica = [{"forwards": 0, "proj": 0} for _ in two.runner.replicas]
+    for replica, tally in zip(two.runner.replicas, per_replica):
+        def pre(module, args, _tally=tally):
+            _tally["start"] = cl.corr_lookup_proj_cuda.launches
+
+        def post(module, args, out, _tally=tally):
+            _tally["forwards"] += 1
+            _tally["proj"] += cl.corr_lookup_proj_cuda.launches - \
+                _tally.pop("start")
+        replica.register_forward_pre_hook(pre)
+        replica.register_forward_hook(post)
+    if timed_turns:  # cuDNN set-up at these shapes
+        one.extract_frames(iter(frames), 25.0)
+        two.extract_frames(iter(frames), 25.0)
+    want_flow = one.extract_frames(iter(frames), 25.0)["raft"]
+    for tally in per_replica:
+        tally.update(forwards=0, proj=0)
+    reset_counts(cl)
+    got, _ = timed(two, frames)
+    counts = read_counts(cl)
+    per_replica = [dict(t) for t in per_replica]  # the turns count on
+    err = float(np.abs(got["raft"] - want_flow).max())
+    if got["raft"].shape != want_flow.shape or not err <= 1e-3:
+        raise AssertionError(f"raft on two devices vs one: {err} px")
+    on_card = devices[0].type == "cuda"
+    forwards = sum(t["forwards"] for t in per_replica)
+    if on_card and (counts != {"level": 0, "packed": 0,
+                               "proj": ITERS * forwards}
+                    or any(t["proj"] != ITERS * t["forwards"]
+                           or t["forwards"] == 0 for t in per_replica)):
+        raise AssertionError(f"raft on two devices: launches {counts}, "
+                             f"per replica {per_replica}")
+    pairs = n_frames - 1
+    stats = dict(devices=[str(d) for d in devices], pairs=pairs,
+                 batch_size=two.batch_size, precision="float32",
+                 vs_one_device_max_px=err, max_px_limit=1e-3,
+                 launches=counts, per_replica=per_replica,
+                 proj_per_forward_per_replica=[
+                     t["proj"] / max(t["forwards"], 1) for t in per_replica])
+    if timed_turns:
+        turns = {"one": [], "two": []}
+        for name in ("one", "two", "two", "one"):
+            _, seconds = timed(one if name == "one" else two, frames)
+            turns[name].append(pairs / seconds)
+        stats["turns_pairs_per_s"] = turns
+    return stats
+
+
+class _GroupSizes:
+    """``runner.dispatch`` that records each dispatched group's size."""
+
+    def __init__(self, runner) -> None:
+        self.runner = runner
+        self.sizes = []
+
+    def dispatch(self, group):
+        self.sizes.append(len(group))
+        return self.runner.dispatch(group)
+
+
+def feed_videos(extractor, videos, workers: int, keep_open: bool):
+    """Each video's frames through ``extractor.extract_frames`` on
+    ``workers`` threads; returns (per-video features, seconds).
+
+    A feed lock is held from a video's first frame to its last, so that its
+    clips enter a packer contiguously, and with ``keep_open`` a keeper
+    handle holds the packer open until every video has been fed (as a long
+    video still decoding would). Without them a packed run can dispatch a
+    short group before the end: the packer flushes when every open video
+    is closing, and with 3 workers interleaved adds can leave all three
+    closing on a part-filled group while videos wait, and a worker between
+    two videos leaves the others alone with it. With contiguous adds of
+    these clip counts no three closing videos hold the part-filled group
+    in any interleaving (``tools/packer_interleavings.py``), so the keeper
+    closes only when everything is fed."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+
+    feed_lock = threading.Lock()
+    fed = threading.Semaphore(0)
+
+    def fed_frames(frames):
+        with feed_lock:
+            yield from frames
+        fed.release()
+
+    def one(frames):
+        return extractor.extract_frames(fed_frames(frames), 25.0)[
+            extractor.feature_type]
+
+    packer = extractor._get_packer() if keep_open else None
+    keeper = packer.open_video() if keep_open else None
+    synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [pool.submit(one, frames) for frames in videos]
+        stalled = not all(fed.acquire(timeout=120) for _ in videos)
+        if keep_open:
+            packer.close_video(keeper)
+        feats = [f.result(timeout=300) for f in futures]
+    synchronize()
+    seconds = time.perf_counter() - t0
+    if stalled:
+        raise AssertionError("packed feed stalled: a part-filled group "
+                             "held every worker")
+    return feats, seconds
+
+
+def parallel_packed(lengths=PACKED_VIDEOS, workers: int = PACKED_WORKERS,
+                    timed_turns: bool = True, **over):
+    """(b) r21d at its YAML defaults with ``cross_video_batching=true``:
+    ``len(lengths)`` seeded videos through ``extract_frames`` on
+    ``workers`` threads (:func:`feed_videos`), against the same videos
+    unpacked: per-video features within 1e-4, ceil(clips / group) groups
+    with only the last short; clips/s of both in turns (U P P U)."""
+    from video_features_tpu_torch.extractors.r21d import ExtractR21D
+    from video_features_tpu_torch.utils.lists import form_slices
+
+    videos = [list(synthetic_frames(n, 50 + i))
+              for i, n in enumerate(lengths)]
+    plain = ExtractR21D(clip_config("r21d", **over))
+    packed = ExtractR21D(clip_config("r21d", cross_video_batching=True,
+                                     **over))
+    clips = [len(form_slices(n, plain.stack_size, plain.step_size))
+             for n in lengths]
+    batch = packed.clip_batch_size
+    packer = packed._get_packer()
+    packer.runner = _GroupSizes(packer.runner)
+    if timed_turns:
+        plain.extract_frames(iter(videos[0]), 25.0)  # cuDNN set-up
+    want, plain_s = feed_videos(plain, videos, workers, keep_open=False)
+    packer.runner.sizes.clear()
+    got, packed_s = feed_videos(packed, videos, workers, keep_open=True)
+    sizes = list(packer.runner.sizes)
+    total = sum(clips)
+    if sizes != [batch] * (total // batch) + ([total % batch]
+                                              if total % batch else []):
+        raise AssertionError(f"packed groups {sizes} for {total} clips")
+    err = 0.0
+    for g, w, n in zip(got, want, clips):
+        if g.shape != (n, 512) or w.shape != (n, 512):
+            raise AssertionError(f"packed {g.shape} / plain {w.shape}")
+        err = max(err, float(np.abs(g - w).max()))
+    if not err <= 1e-4:
+        raise AssertionError(f"packed vs unpacked r21d: {err}")
+    stats = dict(videos=len(lengths), frames=list(lengths), clips=clips,
+                 workers=workers, clip_batch_size=batch, group_sizes=sizes,
+                 vs_unpacked_max_abs=err, max_abs_limit=1e-4,
+                 first_clips_per_s=dict(unpacked=total / plain_s,
+                                        packed=total / packed_s))
+    if timed_turns:
+        turns = {"unpacked": [], "packed": []}
+        for name in ("unpacked", "packed", "packed", "unpacked"):
+            ex = packed if name == "packed" else plain
+            _, seconds = feed_videos(ex, videos, workers,
+                                     keep_open=name == "packed")
+            turns[name].append(total / seconds)
+        stats["turns_clips_per_s"] = turns
+    return stats
+
+
+def parallel_clip_tp(devices, n_frames: int = TP_FRAMES,
+                     timed_turns: bool = True, **over):
+    """(c) CLIP at the clip YAML defaults (ViT-B/32, float32,
+    ``resize=device``) with ``model_parallel=2`` over a ``(data=1,
+    model=2)`` mesh of ``devices``, against ``model_parallel=1``: features
+    within 1e-4; each shard's ``in_proj_weight`` (3E/2, E); frames/s of
+    both in turns (R T T R)."""
+    from video_features_tpu_torch.extractors.clip import ExtractCLIP
+    from video_features_tpu_torch.parallel.mesh import get_mesh
+
+    frames = list(synthetic_frames(n_frames, 61))
+    cfg = dict(batch_size=n_frames, **over)
+    ref = ExtractCLIP(frame_config("clip", **cfg))
+    tp = ExtractCLIP(frame_config("clip", model_parallel=2, **cfg),
+                     mesh=get_mesh(devices=devices,
+                                   axis_names=("data", "model"),
+                                   shape=(1, 2)))
+    e = tp.cfg.vision_width
+    attn = tp.runner.replicas[0]["model"].visual.transformer \
+        .resblocks[0].attn
+    shapes = [tuple(s.in_proj_weight.shape) for s in attn.shards]
+    if shapes != [(3 * e // 2, e)] * 2 or \
+            [s.device for s in attn.shards] != list(devices):
+        raise AssertionError(f"TP shards {shapes} on "
+                             f"{[str(s.device) for s in attn.shards]}")
+    if timed_turns:  # cuDNN set-up
+        ref.extract_frames(iter(frames), 25.0)
+        tp.extract_frames(iter(frames), 25.0)
+    want, _ = timed(ref, frames)
+    got, _ = timed(tp, frames)
+    err = float(np.abs(got["clip"] - want["clip"]).max())
+    if got["clip"].shape != want["clip"].shape or not err <= 1e-4:
+        raise AssertionError(f"CLIP model_parallel=2 vs 1: {err}")
+    stats = dict(devices=[str(d) for d in devices],
+                 mesh=tp.runner.mesh.shape, model=tp.model_name,
+                 frames=n_frames, in_proj_weight_shards=shapes,
+                 vs_replicated_max_abs=err, max_abs_limit=1e-4)
+    if timed_turns:
+        turns = {"replicated": [], "tensor_parallel": []}
+        for name in ("replicated", "tensor_parallel", "tensor_parallel",
+                     "replicated"):
+            _, seconds = timed(ref if name == "replicated" else tp, frames)
+            turns[name].append(n_frames / seconds)
+        stats["turns_frames_per_s"] = turns
+    return stats
+
+
+def parallel_stream(n_frames: int = R21D_FRAMES, timed_turns: bool = True,
+                    **over):
+    """(d) r21d ``extract_frames`` at the YAML defaults through its
+    FeatureStream at depth 4 against depth 0 (synchronous), one extractor
+    switched between them: the features identical; clips/s in turns (4 0 0
+    4) and one profiled run of each (the card's busy share: how much the
+    next group's host transform now overlaps the card)."""
+    from video_features_tpu_torch.extractors.r21d import ExtractR21D
+
+    frames = list(synthetic_frames(n_frames, 71))
+    ex = ExtractR21D(clip_config("r21d", **over))
+    if timed_turns:
+        ex.extract_frames(iter(frames[:R21D_STACK]), 25.0)  # cuDNN set-up
+    feats, turns = {}, {4: [], 0: []}
+    for depth in ((4, 0, 0, 4) if timed_turns else (4, 0)):
+        ex.stream_depth = depth
+        out, seconds = timed(ex, frames)
+        feats.setdefault(depth, out["r21d"])
+        turns[depth].append(len(out["r21d"]) / seconds)
+    if not np.array_equal(feats[4], feats[0]):
+        raise AssertionError("r21d depth=4 and depth=0 features differ: "
+                             f"{float(np.abs(feats[4] - feats[0]).max())}")
+    stats = dict(frames=n_frames, clips=len(feats[4]))
+    if timed_turns:
+        stats["turns_clips_per_s"] = {f"depth{d}": v
+                                      for d, v in turns.items()}
+        for depth in (4, 0):
+            ex.stream_depth = depth
+            stats[f"depth{depth}_profile"] = profile_run(ex, frames)
+    return stats
+
+
+def parallel_phase(dev) -> dict:
+    """The parallel plane at full width: (a) raft over two devices, (b)
+    r21d cross-video packing, (c) CLIP tensor parallelism, (d) the
+    FeatureStream's overlap."""
+    devices = parallel_devices(dev)
+    stats = dict(devices=[str(d) for d in devices],
+                 two_cards=devices[0] != devices[1])
+    stats["raft"] = parallel_raft(devices)
+    empty_cache()
+    stats["packed_r21d"] = parallel_packed()
+    stats["clip_tensor_parallel"] = parallel_clip_tp(devices)
+    empty_cache()
+    stats["feature_stream"] = parallel_stream()
+    empty_cache()
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1609,6 +1916,7 @@ def main() -> int:
     resnet_stats = frame_phase("resnet", 2048, "resnet18", 512)
     clip_stats = frame_phase("clip", 512, "RN50", 1024)
     vggish_stats = vggish_phase()
+    parallel_stats = parallel_phase(dev)
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -1622,6 +1930,8 @@ def main() -> int:
                     if r["name"] == "corr_lookup_proj_cuda")
     proj_row["launches_raft_default"] = raft_stats["default_launches"]["proj"]
     proj_row["launches_i3d_raft_bfloat16"] = proj_launches_bf16
+    proj_row["launches_parallel_raft_per_replica"] = [
+        t["proj"] for t in parallel_stats["raft"]["per_replica"]]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -1633,6 +1943,7 @@ def main() -> int:
     resnet_stats["card"] = card
     clip_stats["card"] = card
     vggish_stats["card"] = card
+    parallel_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -1642,6 +1953,7 @@ def main() -> int:
     print(json.dumps({"resnet": resnet_stats}))
     print(json.dumps({"clip": clip_stats}))
     print(json.dumps({"vggish": vggish_stats}))
+    print(json.dumps({"parallel": parallel_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

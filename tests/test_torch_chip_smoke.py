@@ -277,3 +277,54 @@ def test_vggish_phase_runs_on_the_cpu(tmp_path, monkeypatch):
         stats["host_float32"]["profile"]["device_time"]
     assert (tmp_path / "output" / "chip_smoke" / "vggish" /
             "mono16k.wav").exists()
+
+
+def test_parallel_phase_runs_on_the_cpu(tmp_path):
+    """The parallel phase's four parts on the CPU at a small size, with two
+    replicas on the CPU and no timed turns: raft over two devices within
+    1e-3 px of one (2 pairs, one forward on each replica, 2 GRU iterations
+    at 64 px), packed r21d (5 clips of 4 frames, groups of 2: [2, 2, 1])
+    within 1e-4 of unpacked, CLIP tensor parallelism (a tiny ViT) within
+    1e-4 of replicated with its shards' shapes, and the stream's depth 4
+    equal to depth 0."""
+    from video_features_tpu_torch.models.clip import CLIP, CLIPConfig
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+
+    cpu = torch.device("cpu")
+    devices = cs.parallel_devices(cpu)
+    assert devices == [cpu, cpu]
+    raft = cs.parallel_raft(devices, n_frames=3, timed_turns=False,
+                            device="cpu", iters=2, side_size=64,
+                            batch_size=2)
+    assert raft["vs_one_device_max_px"] <= 1e-3
+    assert [t["forwards"] for t in raft["per_replica"]] == [1, 1]
+    small = dict(device="cpu", stack_size=4, step_size=4, clip_batch_size=2)
+    packed = cs.parallel_packed(lengths=(8, 12), workers=2,
+                                timed_turns=False, **small)
+    assert packed["clips"] == [2, 3] and packed["group_sizes"] == [2, 2, 1]
+    ckpt = tmp_path / "tiny_clip.pt"
+    torch.save(seeded_init_(CLIP(CLIPConfig(32, 56, 2, 64, 14, 12, 128, 128,
+                                            2, 2)), 3).state_dict(), ckpt)
+    tp = cs.parallel_clip_tp(devices, n_frames=3, timed_turns=False,
+                             device="cpu", model_name="custom",
+                             weights_path=str(ckpt))
+    assert tp["in_proj_weight_shards"] == [(96, 64)] * 2
+    assert tp["mesh"] == {"data": 1, "model": 2}
+    stream = cs.parallel_stream(n_frames=9, timed_turns=False, **small)
+    assert stream["clips"] == 2
+
+
+def test_packed_feed_cannot_stall_with_contiguous_adds():
+    """Why ``feed_videos`` holds a feed lock: for the phase's clip counts
+    on 3 threads, interleaved adds can leave every thread closing on a
+    part-filled group while videos wait (a short group mid-run without the
+    keeper); with each video's adds contiguous no interleaving can, and
+    the 27 clips go out in ceil(27 / 8) = 4 groups."""
+    walk = _load("packer_interleavings", "tools/packer_interleavings.py")
+    clips = [(n - cs.R21D_STACK) // cs.R21D_STACK + 1
+             for n in cs.PACKED_VIDEOS]
+    assert clips == [2, 3, 4, 5, 6, 7]
+    assert walk.outcomes(clips, cs.PACKED_WORKERS, cs.CLIP_BATCH) == \
+        {4, "stall"}
+    assert walk.outcomes(clips, cs.PACKED_WORKERS, cs.CLIP_BATCH,
+                         contiguous=True) == {4}

@@ -25,6 +25,13 @@ VGGish's device frontend (``ops/audio.py logmel_examples``: cuFFT and a
 float32 matmul on the card) against the numpy frontend, which
 tests/test_torch_vggish.py holds to JAX's, on noise and on silence: 1e-4,
 the JAX package's own bar.
+
+The parallel plane (``parallel/mesh.py``) on two replicas of ``cuda:0``
+(two cards where there are): ``DataParallelApply`` against one device
+(1e-5: cuDNN may pick another algorithm for another batch size), the
+FeatureStream's pinned, event-fenced D2H against ``.cpu()`` (exact), and
+CLIP's tensor parallelism over a ``(data=1, model=2)`` mesh against the
+replicated model (1e-4).
 """
 import numpy as np
 import pytest
@@ -36,6 +43,7 @@ from video_features_tpu_torch.models import raft as traft
 from video_features_tpu_torch.ops import audio as taudio
 from video_features_tpu_torch.ops import colorspace as tcs
 from video_features_tpu_torch.ops import preprocess as tpp
+from video_features_tpu_torch.parallel import mesh as tmesh
 
 CASES = ["random", "integer", "outside", "odd", "degenerate", "q231",
          "nonfinite"]
@@ -190,3 +198,75 @@ def test_logmel_examples_on_card_matches_numpy(cuda_card, signal):
     want = taudio.waveform_to_examples(wav, 16000)
     assert got.shape == want.shape == (5, 96, 64, 1)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _two_devices():
+    if torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", 0), torch.device("cuda", 1)]
+    return [torch.device("cuda", 0)] * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 7])
+def test_data_parallel_two_replicas_on_card(cuda_card, rows):
+    set_precision("float32")
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(torch.nn.Conv2d(3, 16, 3, padding=1),
+                              torch.nn.ReLU(), torch.nn.Flatten(),
+                              torch.nn.Linear(16 * 8 * 8, 10)).eval()
+
+    def fn(m, b):
+        return m(b.permute(0, 3, 1, 2).float() / 255.0)
+
+    one = tmesh.DataParallelApply(fn, net, tmesh.get_mesh("cuda:0"))
+    two = tmesh.DataParallelApply(
+        fn, torch.nn.Sequential(*[m for m in net]),
+        tmesh.get_mesh(devices=_two_devices()))
+    x = np.random.default_rng(rows).integers(
+        0, 256, size=(rows, 8, 8, 3)).astype(np.uint8)
+    np.testing.assert_allclose(two(x), one(x), rtol=0, atol=1e-5)
+    chunks = two.dispatch(x)
+    assert [c.device for c in chunks] == _two_devices()[:len(chunks)]
+
+
+@pytest.mark.cuda
+def test_feature_stream_pinned_copy_equals_cpu(cuda_card):
+    runner = tmesh.DataParallelApply(
+        lambda m, b: b.float().cumsum(dim=1), torch.nn.Identity(),
+        tmesh.get_mesh(devices=_two_devices()))
+    stream = runner.stream(depth=2)
+    batches = [np.random.default_rng(i).normal(size=(5, 4096)).astype(
+        np.float32) for i in range(4)]
+    for b in batches:
+        stream.submit(b)
+    for got, b in zip(stream.finish(), batches):
+        want = torch.cat([c.cpu() for c in runner.dispatch(b)]).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128])
+def test_clip_tensor_parallel_on_card(cuda_card, width):
+    from video_features_tpu_torch.models import clip as tclip
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+
+    set_precision("float32")
+    model = seeded_init_(tclip.CLIP(tclip._cfg(128, 32, 2, width, 16, 64,
+                                                2)), 0).eval()
+    specs = tmesh.param_specs_by_rules(model, tmesh.TP_RULES_TRANSFORMER)
+    x = np.random.default_rng(0).normal(size=(4, 32, 32, 3)).astype(
+        np.float32)
+
+    def fn(m, b):
+        return m.encode_image(b)
+
+    ref = tmesh.DataParallelApply(fn, model, tmesh.get_mesh("cuda:0"))(x)
+    tp = tmesh.DataParallelApply(
+        fn, model, tmesh.get_mesh(devices=_two_devices(),
+                                  axis_names=("data", "model"),
+                                  shape=(1, 2)),
+        shard=lambda m, devs: tclip.tensor_parallel(m, devs, specs))
+    attn = tp.replicas[0].visual.transformer.resblocks[0].attn
+    assert [tuple(s.in_proj_weight.shape) for s in attn.shards] == \
+        [(3 * width // 2, width)] * 2
+    np.testing.assert_allclose(tp(x), ref, rtol=0, atol=1e-4)

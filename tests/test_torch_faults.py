@@ -3,6 +3,9 @@
 - Every key of the JAX YAMLs whose plane the port does not run raises
   ``NotImplementedError`` naming its ROADMAP.md Queue 1 item when set away
   from its default, in every ported family; at the default it passes.
+  The keys of batching and data parallelism (``distributed``,
+  ``mesh_devices``, ``video_workers``, ``cross_video_batching``,
+  ``model_parallel``) are ported: each runs at the values JAX accepts.
   Every family dispatches (``vggish`` too).
 - ``RetryPolicy`` and ``classify`` agree with the JAX ones (defaults,
   backoff delays under one seeded rng, the category of each exception).
@@ -33,13 +36,10 @@ from video_features_tpu_torch.utils import faults as tfaults
 REPO = Path(__file__).resolve().parents[1]
 FAMILIES = ("i3d", "raft", "pwc", "r21d", "s3d", "resnet", "clip")
 #: gated keys that only CLIP's YAML carries
-CLIP_ONLY_KEYS = {"model_parallel", "vision_attn"}
+CLIP_ONLY_KEYS = {"vision_attn"}
 
 
 GATED_CASES = [
-    ("distributed", True, 6), ("mesh_devices", 2, 6),
-    ("video_workers", 4, 6), ("video_workers", "auto", 6),
-    ("cross_video_batching", True, 6), ("model_parallel", 2, 6),
     ("cache", True, 7),
     ("cache_dir", "/c", 7), ("cache_scope", "tenant", 7),
     ("compile_cache", True, 8), ("compile_cache_dir", "/c", 8),
@@ -65,14 +65,107 @@ def test_gated_keys_raise_naming_their_item(key, value, item):
 
 
 def test_every_gated_key_is_tested_and_in_every_yaml():
-    """``cross_video_batching`` is a launch key of the JAX package, in no
-    YAML; ``model_parallel`` and ``vision_attn`` are in CLIP's alone (as in
-    the JAX YAMLs); every other gated key is in every port YAML."""
+    """``vision_attn`` is in CLIP's YAML alone (as in the JAX YAMLs); every
+    other gated key is in every port YAML. None of the parallel keys is
+    gated."""
     assert {k for k, _, _ in GATED_CASES} == set(tconfig.GATED_KEYS)
+    assert not {k for k, _ in PARALLEL_CASES} & set(tconfig.GATED_KEYS)
     for family in FAMILIES:
         missing = set(tconfig.GATED_KEYS) - set(tconfig.load_config(family))
-        assert missing == {"cross_video_batching"} | (
-            set() if family == "clip" else CLIP_ONLY_KEYS), family
+        assert missing == (set() if family == "clip" else CLIP_ONLY_KEYS), \
+            family
+
+
+#: the keys of batching and data parallelism, at values JAX accepts
+PARALLEL_CASES = [
+    ("distributed", True), ("mesh_devices", 2), ("video_workers", 4),
+    ("video_workers", "auto"), ("cross_video_batching", True),
+    ("model_parallel", 2)]
+
+
+def _tiny_clip_checkpoint(path):
+    """A seeded heads=1 ViT in OpenAI's key layout (``model_name=custom``
+    builds its architecture from the shapes)."""
+    from video_features_tpu_torch.models import clip as tclip
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+    torch.save(seeded_init_(tclip.CLIP(tclip._cfg(128, 32, 2, 64, 16, 64,
+                                                   2)), 0).state_dict(), path)
+    return path
+
+
+@pytest.mark.parametrize("key,value", PARALLEL_CASES)
+def test_parallel_keys_run(key, value, tmp_path, monkeypatch):
+    """Each key passes the port's checks in every family and does what it
+    says on a small run on the CPU."""
+    import numpy as np
+    from video_features_tpu_torch import cli as tcli
+    from video_features_tpu_torch.parallel.mesh import local_shard_of_list
+    from video_features_tpu_torch.registry import get_extractor_cls
+
+    for family in FAMILIES:
+        tconfig.check_ported(tconfig.merge(tconfig.load_config(family),
+                                           tconfig.Config({key: value})))
+    family = "clip" if key == "model_parallel" else (
+        "r21d" if key == "cross_video_batching" else "resnet")
+    over = {"device": "cpu", key: value, "on_extraction": "save_numpy",
+            "allow_random_weights": True, "model_name": "resnet18",
+            "output_path": str(tmp_path / "o"),
+            "tmp_path": str(tmp_path / "t")}
+    if family == "r21d":
+        over.update(model_name="r2plus1d_18_16_kinetics", stack_size=4,
+                    step_size=4, clip_batch_size=3)
+    if family == "clip":
+        over.update(model_name="custom", mesh_devices=4, weights_path=str(
+            _tiny_clip_checkpoint(tmp_path / "clip.pt")))
+    cfg = tconfig.load_config(family, over)
+    tconfig.sanity_check(cfg, require_videos=False)
+    assert cfg[key] == value
+    if key == "video_workers":
+        assert tcli._video_workers(cfg.video_workers) == (
+            4 if value == 4 else max(1, min(8, os.cpu_count() // 2)))
+    elif key == "distributed":
+        import socket
+        import torch.distributed as dist
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+        monkeypatch.setenv("MASTER_PORT", str(port))
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.setenv("WORLD_SIZE", "1")
+        assert not dist.is_initialized()
+        tcli._maybe_init_distributed(cfg)
+        try:
+            assert dist.get_world_size() == 1 and dist.get_rank() == 0
+            tcli._maybe_init_distributed(cfg)  # already in: no second init
+            assert local_shard_of_list(["a.mp4", "b.mp4"]) == \
+                ["a.mp4", "b.mp4"]
+        finally:
+            dist.destroy_process_group()
+    elif key == "mesh_devices":
+        assert get_extractor_cls(family)(cfg).runner.n_devices == 2
+    else:
+        rng = np.random.default_rng(0)
+        frames = [(rng.integers(0, 256, (36, 40, 3), dtype=np.uint8),
+                   i * 40.0, i) for i in range(10)]
+        ex = get_extractor_cls(family)(cfg)
+        got = ex.extract_frames(iter(frames), 25.0)[family]
+        default = {"cross_video_batching": False, "model_parallel": 1}[key]
+        cfg1 = tconfig.merge(cfg, tconfig.Config({key: default}))
+        plain = get_extractor_cls(family)(cfg1)
+        want = plain.extract_frames(iter(frames), 25.0)[family]
+        if key == "cross_video_batching":
+            assert ex._packer is not None and plain._packer is None
+            assert got.shape == (2, 512)
+        else:
+            attn = ex.runner.replicas[0]["model"].visual.transformer \
+                .resblocks[0].attn
+            assert [tuple(s.in_proj_weight.shape) for s in attn.shards] \
+                == [(96, 64)] * 2 and len(ex.runner.replicas) == 2
+            with pytest.raises(ValueError, match="must divide"):
+                get_extractor_cls(family)(tconfig.merge(
+                    cfg, tconfig.Config({"model_parallel": 3})))
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
 
 
 def test_show_pred_is_ported_for_the_clip_stack_families_only():

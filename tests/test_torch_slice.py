@@ -113,7 +113,8 @@ def slice_runs(tmp_path_factory):
         i3d_state_from_jax(jex._flow_stream.runner.params), strict=True)
     tfeats = tex.extract_frames(iter(frames), FPS)
     with torch.inference_mode():
-        tresized = tex._resizer(240, 320)(torch.from_numpy(group)).numpy()
+        tresized = tex._resizer(240, 320, torch.device("cpu"))(
+            torch.from_numpy(group)).numpy()
         tcrops = tex.flow_stream.quantized_flow(
             torch.from_numpy(jresized)).numpy()
     return jfeats, tfeats, jcrops, tcrops, tex, jresized, tresized

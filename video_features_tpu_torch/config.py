@@ -13,6 +13,7 @@ item that will port it (:data:`GATED_KEYS`), instead of being ignored.
 from __future__ import annotations
 
 import os
+import random
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -24,13 +25,6 @@ _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 #: ports the key's plane; None for ``config``, which the JAX package reads
 #: at no value either)
 GATED_KEYS = {
-    # batching and multi-GPU data parallelism (#6)
-    "distributed": ((None, False), 6),
-    "mesh_devices": ((None,), 6),
-    "video_workers": ((None, 1), 6),
-    "cross_video_batching": ((None, False), 6),
-    # CLIP's tensor parallelism over a (data, model) mesh (#6)
-    "model_parallel": ((None, 1), 6),
     # multi-family CLI and the feature cache (#7)
     "cache": ((None, False), 7),
     "cache_dir": ((None,), 7),
@@ -152,9 +146,12 @@ def load_config(feature_type: str,
 
 
 def video_list(video_paths: Union[str, Sequence[str], None] = None,
-               file_with_video_paths: Optional[str] = None) -> List[str]:
+               file_with_video_paths: Optional[str] = None,
+               shuffle: bool = False) -> List[str]:
     """Inline str/list of paths, or a text file with one path per line
-    (blank lines skipped); missing paths warn, they do not raise."""
+    (blank lines skipped); missing paths warn, they do not raise.
+    ``shuffle`` shuffles the list (``random.shuffle``), as the JAX CLI does
+    so that independently launched workers start on different videos."""
     if file_with_video_paths is not None:
         with open(file_with_video_paths) as f:
             paths = [line.strip("\n") for line in f if line.strip("\n")]
@@ -167,6 +164,8 @@ def video_list(video_paths: Union[str, Sequence[str], None] = None,
     for path in paths:
         if not Path(path).exists():
             print(f"The path does not exist: {path}")
+    if shuffle:
+        random.shuffle(paths)
     return paths
 
 
@@ -219,6 +218,40 @@ def _check_vggish(args: Config) -> None:
         pca_weights_path(args)
 
 
+def _check_parallel(args: Config) -> None:
+    """``video_workers`` (an int >= 1 or ``auto``; forced to 1, with the
+    JAX package's warning, where concurrent videos would interleave their
+    stdout), ``mesh_devices`` and ``model_parallel`` (ints >= 1 or null),
+    ``distributed`` and ``cross_video_batching`` (booleans)."""
+    vw = args.get("video_workers") or 1
+    if isinstance(vw, str):
+        vw = vw.strip().lower()
+        if vw != "auto":
+            raise ValueError(f"video_workers={vw!r}: expected an int or "
+                             "'auto'")
+        args.video_workers = vw
+    elif isinstance(vw, bool) or not isinstance(vw, int) or vw < 1:
+        raise ValueError(f"video_workers={vw!r}: expected an int >= 1 or "
+                         "'auto'")
+    if (vw == "auto" or vw > 1) and (
+            args.get("on_extraction", "print") == "print"
+            or args.get("show_pred")):
+        print("WARNING: video_workers > 1 with on_extraction=print or "
+              "show_pred would interleave per-video output; forcing "
+              "video_workers=1. Use save_numpy/save_pickle for pipelined "
+              "multi-video extraction.")
+        args.video_workers = 1
+    for key in ("mesh_devices", "model_parallel"):
+        v = args.get(key)
+        if v is not None and (isinstance(v, bool) or not isinstance(v, int)
+                              or v < 1):
+            raise ValueError(f"{key}={v!r}: expected an int >= 1 or null")
+    for key in ("distributed", "cross_video_batching"):
+        v = args.get(key)
+        if v is not None and not isinstance(v, bool):
+            raise ValueError(f"{key}={v!r}: expected true or false")
+
+
 def pca_weights_path(args: Config) -> str:
     """``pca_weights_path``, which ``postprocess=true`` needs;
     ``FileNotFoundError`` naming the key when it is unset or missing (the
@@ -243,7 +276,10 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     the clip-stack and frame-wise families' ``model_name`` and ``ingest``,
     vggish's ``frontend``, ``postprocess`` and ``pca_weights_path``, the
     retry, deadline and ``inject`` keys,
-    the unported keys, the device (``args.device`` becomes ``cpu``,
+    the parallel keys (``video_workers``, forced to 1 for ``print`` and
+    ``show_pred`` runs as in the JAX package, ``mesh_devices``,
+    ``model_parallel``, ``distributed``, ``cross_video_batching``), the
+    unported keys, the device (``args.device`` becomes ``cpu``,
     ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
     namespacing of ``output_path``/``tmp_path``."""
     check_ported(args)
@@ -287,6 +323,7 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
         parse_plan(inj)  # raises naming the bad clause or unported site
     if args.feature_type == "vggish":
         _check_vggish(args)
+    _check_parallel(args)
 
     if require_videos:
         if not (args.get("file_with_video_paths") or args.get("video_paths")):

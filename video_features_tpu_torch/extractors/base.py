@@ -1,8 +1,11 @@
 """Extraction lifecycle shared by the port's families (port of
 ``video_features_tpu/extractors/base.py``): ``_extract`` = skip-if-exists ->
 ``extract`` -> sink dispatch; device and precision resolution; weights; the
-``resize=auto|host|device`` choice and the per-resolution resizer cache; the
-decode source of ``video_decode`` (:meth:`BaseExtractor.video_source`)."""
+data mesh of the runners (:meth:`BaseExtractor._data_mesh`) and their
+result streams (:meth:`BaseExtractor.feature_stream`); the
+``resize=auto|host|device`` choice and the per-resolution, per-device
+resizer cache; the decode source of ``video_decode``
+(:meth:`BaseExtractor.video_source`)."""
 from __future__ import annotations
 
 import threading
@@ -15,6 +18,7 @@ from torch import nn
 from ..config import Config, check_ported
 from ..device import resolve_device, set_precision
 from ..ops import preprocess as pp
+from ..parallel.mesh import DataParallelApply, FeatureStream, Mesh, get_mesh
 from ..utils import faults, sinks
 from ..utils import io as vio
 from ..weights.bridge import seeded_init_
@@ -60,8 +64,13 @@ def load_weights(module: nn.Module, path: Optional[str], allow_random: bool,
 
 class BaseExtractor:
     output_feat_keys: List[str]
+    #: un-materialized outputs a video's :class:`FeatureStream` may hold
+    stream_depth = 4
+    show_pred = False
 
-    def __init__(self, args: Config) -> None:
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        """``mesh`` replaces the mesh of ``device`` and ``mesh_devices``
+        (tests and ``chip_smoke.py`` put two replicas on one card)."""
         check_ported(args)
         self.feature_type = args.feature_type
         self.on_extraction = args.get("on_extraction", "print")
@@ -83,6 +92,28 @@ class BaseExtractor:
         raw_dd = args.get("decode_depth")
         self.decode_depth = None if raw_dd is None else int(raw_dd)
         self.args = args
+        self._mesh = mesh
+
+    def _data_mesh(self) -> Mesh:
+        """The mesh of this extractor's runners: the one given to the
+        constructor, else ``device``'s (``cuda``: every visible card,
+        ``cuda:N``: that card, ``cpu``: one CPU device) cut or, on the CPU,
+        widened to ``mesh_devices``."""
+        if self._mesh is not None:
+            return self._mesh
+        n = self.args.get("mesh_devices")
+        return get_mesh(self.device, n_devices=None if n is None else int(n))
+
+    def feature_stream(self, runner: DataParallelApply,
+                       on_result: Optional[Callable] = None
+                       ) -> FeatureStream:
+        """An async result stream over ``runner`` of depth
+        :attr:`stream_depth`; when ``show_pred`` needs per-batch host
+        values it is synchronous (depth 0) with ``on_result`` fired per
+        batch: one code path either way."""
+        if self.show_pred and on_result is not None:
+            return runner.stream(depth=0, callback=on_result)
+        return runner.stream(depth=self.stream_depth)
 
     def video_source(self, video_path: str, **kwargs):
         """The decode source of ``video_decode`` (``inline``:
@@ -125,20 +156,22 @@ class BaseExtractor:
         return mode
 
     def _edge_resizer(self, in_h: int, in_w: int, size: int,
-                      to_smaller_edge: bool = True,
+                      device: torch.device, to_smaller_edge: bool = True,
                       interpolation: str = "bilinear") -> Callable:
-        """The device resize (PIL's ``interpolation``) of ``(..., in_h,
-        in_w, 3)`` uint8 frames to ``size`` on the smaller (or larger) edge;
-        built once per source resolution, at most 8 kept."""
+        """The resize on ``device`` (PIL's ``interpolation``) of ``(...,
+        in_h, in_w, 3)`` uint8 frames to ``size`` on the smaller (or larger)
+        edge; built once per source resolution and device (each replica
+        resizes on its own), at most 8 kept."""
+        key = (in_h, in_w, device)
         with self._resize_lock:
-            fn = self._resizers.get((in_h, in_w))
+            fn = self._resizers.get(key)
             if fn is None:
                 if len(self._resizers) >= _RESIZE_CACHE_SIZE:
                     self._resizers.pop(next(iter(self._resizers)))
                 ow, oh = pp.resize_edge_size(in_w, in_h, size,
                                              to_smaller_edge)
-                fn = self._resizers[(in_h, in_w)] = pp.make_device_resizer(
-                    in_h, in_w, oh, ow, self.device, interpolation)
+                fn = self._resizers[key] = pp.make_device_resizer(
+                    in_h, in_w, oh, ow, device, interpolation)
             return fn
 
     def _extract(self, video_path: str) -> Optional[Dict[str, np.ndarray]]:

@@ -8,6 +8,12 @@ partial stack is dropped, reference utils/utils.py:59-68). Card: the
 windows of ``clip_batch_size`` clips go over in one copy and one forward;
 the last group may be short. Only the (G, D) features come back.
 
+Each video's groups go through its own ``FeatureStream`` (the forward of
+one group overlaps the decode and transform of the next; synchronous under
+``show_pred``). ``cross_video_batching=true`` sends the clips instead into
+one ``ClipPacker`` shared by the ``video_workers`` threads, whose groups go
+out full (``parallel/packer.py``). Both run over the data mesh.
+
 ``extract(video_path)`` decodes with the transform on the decode-ahead
 thread; ``extract_frames(frames, fps)`` takes any iterable of
 ``(frame_rgb_u8, t, idx)`` and applies the transform itself. Output key:
@@ -15,19 +21,22 @@ thread; ``extract_frames(frames, fps)`` takes any iterable of
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, List, Tuple
+import threading
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..config import Config
-from ..runner import Runner
+from ..parallel.mesh import DataParallelApply, Mesh
+from ..parallel.packer import ClipPacker
 from ..utils.io import Prefetcher
 from ..utils.lists import form_slices
 from .base import BaseExtractor
 
 
 class ClipStackExtractor(BaseExtractor):
-    """Families set ``host_transform``, ``runner`` and ``maybe_show_pred``.
+    """Families set ``host_transform``, ``runner`` (a
+    ``DataParallelApply`` over :meth:`_data_mesh`) and ``maybe_show_pred``.
 
     ``ingest`` is the host-to-device wire format: ``float32`` (the default
     in float32), ``uint8`` (the default in bfloat16: quantisation noise of
@@ -36,9 +45,9 @@ class ClipStackExtractor(BaseExtractor):
 
     supported_ingest = ("yuv420", "uint8", "float32")
 
-    def __init__(self, args: Config, default_stack: int,
-                 default_step: int) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, default_stack: int, default_step: int,
+                 mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         self.model_name = args.get("model_name")
         self.stack_size = args.get("stack_size") or default_stack
         self.step_size = args.get("step_size") or default_step
@@ -54,7 +63,22 @@ class ClipStackExtractor(BaseExtractor):
                 f"{self.supported_ingest}")
         self.ingest = ingest
         self.host_transform = None
-        self.runner: Runner = None
+        self.runner: DataParallelApply = None
+        self.cross_video = bool(args.get("cross_video_batching", False))
+        if self.cross_video and self.show_pred:
+            raise NotImplementedError(
+                "cross_video_batching=true is incompatible with "
+                "show_pred=true (predictions print per video group; packed "
+                "groups interleave videos)")
+        self._packer: Optional[ClipPacker] = None
+        self._packer_lock = threading.Lock()
+
+    def _get_packer(self) -> ClipPacker:
+        with self._packer_lock:
+            if self._packer is None:
+                self._packer = ClipPacker(self.runner,
+                                          batch=self.clip_batch_size)
+            return self._packer
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         src = self.video_source(video_path, fps=self.extraction_fps,
@@ -107,15 +131,24 @@ class ClipStackExtractor(BaseExtractor):
 
     def _features(self, frames: Iterable[Tuple[np.ndarray, float, int]]
                   ) -> Dict[str, np.ndarray]:
-        feats: List[np.ndarray] = []
+        if self.cross_video:
+            return self._features_packed(frames)
+        return self._features_grouped(frames)
+
+    def _features_grouped(self, frames: Iterable[Tuple[np.ndarray, float,
+                                                        int]]
+                          ) -> Dict[str, np.ndarray]:
+        """Groups of ``clip_batch_size`` windows through this video's
+        stream; the last group may be short."""
+        stream = self.feature_stream(
+            self.runner,
+            on_result=lambda feats, ctx: self.maybe_show_pred(feats, *ctx))
         stacks: List[np.ndarray] = []
         windows: List[Tuple[int, int]] = []
 
         def flush():
             group = np.stack(stacks)
-            out = self.runner(group)
-            self.maybe_show_pred(out, list(windows), group)
-            feats.extend(list(out))
+            stream.submit(group, ctx=(list(windows), group))
             stacks.clear()
             windows.clear()
 
@@ -126,7 +159,24 @@ class ClipStackExtractor(BaseExtractor):
                 flush()
         if stacks:
             flush()
+        feats = [row for out in stream.finish() for row in out]
         return {self.feature_type: np.array(feats)}
+
+    def _features_packed(self, frames: Iterable[Tuple[np.ndarray, float,
+                                                       int]]
+                         ) -> Dict[str, np.ndarray]:
+        """The clips into the shared packer; they come back per video in
+        clip order. A failure aborts the video's handle, so that it cannot
+        wedge the other workers' closes."""
+        packer = self._get_packer()
+        handle = packer.open_video()
+        try:
+            for _, stack in self._iter_stacks(frames):
+                packer.add(handle, stack)
+        except BaseException:
+            packer.abort_video(handle)
+            raise
+        return {self.feature_type: packer.close_video(handle)}
 
     def maybe_show_pred(self, feats: np.ndarray, windows,
                         group: np.ndarray) -> None:

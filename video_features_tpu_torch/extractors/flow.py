@@ -5,9 +5,11 @@ models/_base/base_flow_extractor.py).
   host:   decode ``batch_size + 1`` frames per batch with a 1-frame overlap
           between batches (N+1 frames -> N flows), the optional PIL edge
           resize (``side_size``, ``resize_to_smaller_edge``), uint8 pairs
-  device: ``(B, 2, H, W, 3)`` uint8 pairs -> the optional device resize
-          (``resize=device``, only with ``side_size``) -> the family's flow
-          net -> ``(B, H, W, 2)`` float32 flow
+  device: ``(B, 2, H, W, 3)`` uint8 pairs, split over the data mesh
+          (``parallel/mesh.py`` ``DataParallelApply``) -> the optional
+          device resize (``resize=device``, only with ``side_size``) -> the
+          family's flow net on each replica's card -> ``(B, H, W, 2)``
+          float32 flow, back through the video's ``FeatureStream``
 
 Timestamps drop the duplicate overlap timestamp between consecutive batches
 (base_flow_extractor.py:94-95); a single-frame batch yields no pair but its
@@ -22,24 +24,26 @@ Output keys: ``[feature_type, fps, timestamps_ms]``.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import Config
 from ..ops import host_transforms as ht
-from ..runner import Runner
+from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import Prefetcher, _batched
 from .base import BaseExtractor
 
 
 class OpticalFlowExtractor(BaseExtractor):
-    """Families implement ``flow``: ``(B, 2, H, W, 3)`` uint8 pairs on the
-    device -> ``(B, H, W, 2)`` float32 flow on the device."""
+    """Families set ``model`` and implement ``flow``: ``(B, 2, H, W, 3)``
+    uint8 pairs on a replica's device -> ``(B, H, W, 2)`` float32 flow
+    there; :meth:`_build_runner` puts ``model`` on the data mesh."""
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         self.batch_size = int(args.get("batch_size") or 1)
         self.side_size = args.get("side_size")
         self.resize_to_smaller_edge = bool(args.get("resize_to_smaller_edge",
@@ -56,18 +60,23 @@ class OpticalFlowExtractor(BaseExtractor):
         if self.side_size is not None and self.resize_mode == "host":
             self.host_transform = ht.EdgeResize(int(self.side_size),
                                                 self.resize_to_smaller_edge)
-        self.runner = Runner(self._forward, self.device)
+        self.runner: DataParallelApply = None
 
-    def flow(self, pairs: torch.Tensor) -> torch.Tensor:
+    def _build_runner(self) -> None:
+        self.runner = DataParallelApply(self._forward, self.model,
+                                        self._data_mesh())
+
+    def flow(self, model: nn.Module, pairs: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def _forward(self, pairs: torch.Tensor) -> torch.Tensor:
-        """(B, 2, H, W, 3) uint8 on the device -> (B, H', W', 2) float32."""
+    def _forward(self, model: nn.Module, pairs: torch.Tensor) -> torch.Tensor:
+        """(B, 2, H, W, 3) uint8 on ``model``'s device -> (B, H', W', 2)
+        float32."""
         if self.resize_mode == "device":
             pairs = self._edge_resizer(
                 pairs.shape[2], pairs.shape[3], int(self.side_size),
-                self.resize_to_smaller_edge)(pairs)
-        return self.flow(pairs)
+                pairs.device, self.resize_to_smaller_edge)(pairs)
+        return self.flow(model, pairs)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         src = self.video_source(video_path, fps=self.extraction_fps,
@@ -89,15 +98,16 @@ class OpticalFlowExtractor(BaseExtractor):
             _batched(iter(frames), self.batch_size + 1, 1), fps)
 
     def _extract_batches(self, batches, fps: float) -> Dict[str, np.ndarray]:
-        flows: List[np.ndarray] = []
+        stream = self.feature_stream(self.runner)
         timestamps_ms: List[float] = []
         first = True
         for batch, ts, _ in batches:
             if len(batch) >= 2:  # a lone frame yields no pair
                 arr = np.stack(batch)  # (n, H, W, 3) uint8
-                out = self.runner(np.stack([arr[:-1], arr[1:]], axis=1))
-                flows.extend(out.transpose(0, 3, 1, 2))
+                stream.submit(np.stack([arr[:-1], arr[1:]], axis=1))
             timestamps_ms.extend(ts if first else ts[1:])
             first = False
+        flows = [f for out in stream.finish()
+                 for f in out.transpose(0, 3, 1, 2)]
         return {self.feature_type: np.array(flows), "fps": np.array(fps),
                 "timestamps_ms": np.array(timestamps_ms)}

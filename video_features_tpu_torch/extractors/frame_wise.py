@@ -3,8 +3,10 @@
 models/_base/base_framewise_extractor.py:11-88).
 
 One feature row per decoded frame, in batches of ``batch_size`` frames;
-each batch goes to the card in one copy and one forward, and only the
-(B, D) features come back. Two places to resize:
+each batch is split over the data mesh (``parallel/mesh.py``
+``DataParallelApply``), each share crosses to its card in one copy and one
+forward, and only the (B, D) features come back, through the video's
+``FeatureStream`` (synchronous under ``show_pred``). Two places to resize:
 
   - ``resize=host`` (the ``auto`` choice for ``print`` and ``show_pred``
     runs): the family's ``ResizeCropTransform`` (PIL resize of the smaller
@@ -14,7 +16,8 @@ each batch goes to the card in one copy and one forward, and only the
     decodes; raw uint8 RGB frames, or under ``ingest=yuv420`` cv2-layout
     I420 planes (H*3/2, W) converted on the card and rounded back to uint8,
     go to the card, where PIL's coefficients resize them as two matmuls
-    (one resizer per source resolution, ``BaseExtractor._edge_resizer``)
+    (one resizer per source resolution and device,
+    ``BaseExtractor._edge_resizer``, inside each replica's forward)
     and the centre crop takes the same window as the host crop. A source
     with odd dimensions has no I420 layout and ships RGB instead.
 
@@ -33,7 +36,7 @@ import torch
 from ..config import Config
 from ..ops import colorspace
 from ..ops import preprocess as pp
-from ..runner import Runner
+from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import Prefetcher, _batched, get_video_props
 from .base import BaseExtractor
 
@@ -49,8 +52,9 @@ class I420Planes:
 
 class FrameWiseExtractor(BaseExtractor):
     """Families set ``resize_spec`` ``(size, interpolation)``,
-    ``crop_size``, ``host_transform``, ``backbone_forward`` and
-    ``maybe_show_pred``.
+    ``crop_size``, ``host_transform``, ``runner`` (a ``DataParallelApply``
+    of :meth:`_device_forward` over the data mesh), ``backbone_forward``
+    and ``maybe_show_pred``.
 
     ``ingest`` is the host-to-device wire: ``uint8`` (the default, lossless:
     PIL's resize gives uint8) or ``yuv420`` (1.5 bytes a pixel, the colour
@@ -58,8 +62,8 @@ class FrameWiseExtractor(BaseExtractor):
 
     supported_ingest = ("uint8", "yuv420")
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         self.model_name = args.get("model_name")
         self.batch_size = int(args.batch_size)
         self.extraction_fps = args.get("extraction_fps")
@@ -76,18 +80,20 @@ class FrameWiseExtractor(BaseExtractor):
         self.resize_spec: Tuple[int, str] = None
         self.crop_size: int = None
         self.host_transform: Optional[Callable] = None
-        self.runner = Runner(self._device_forward, self.device)
+        self.runner: DataParallelApply = None
 
-    def backbone_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, crop, crop, 3) uint8 or float in [0, 255] on the card ->
-        (B, D) float32 features."""
+    def backbone_forward(self, net: torch.nn.Module,
+                         x: torch.Tensor) -> torch.Tensor:
+        """(B, crop, crop, 3) uint8 or float in [0, 255] on ``net``'s
+        device -> (B, D) float32 features."""
         raise NotImplementedError
 
-    def _device_forward(self, batch: torch.Tensor) -> torch.Tensor:
-        """One batch on the card, in the layout its wire gives it: (B, H*3/2,
-        W) I420 planes or (B, H, W, 3) raw frames to resize and crop
-        (``resize=device``), or the host's (B, c*c*3/2) packed I420 or (B, c,
-        c, 3) uint8 crops."""
+    def _device_forward(self, net: torch.nn.Module,
+                        batch: torch.Tensor) -> torch.Tensor:
+        """One batch share on its replica's device, in the layout its wire
+        gives it: (B, H*3/2, W) I420 planes or (B, H, W, 3) raw frames to
+        resize and crop (``resize=device``), or the host's (B, c*c*3/2)
+        packed I420 or (B, c, c, 3) uint8 crops."""
         c = self.crop_size
         if self.resize_mode == "device":
             if batch.dim() == 3:
@@ -95,14 +101,14 @@ class FrameWiseExtractor(BaseExtractor):
                     batch, batch.shape[1] * 2 // 3, batch.shape[2])
             h, w = batch.shape[1:3]
             size, interpolation = self.resize_spec
-            batch = self._edge_resizer(h, w, size,
+            batch = self._edge_resizer(h, w, size, batch.device,
                                        interpolation=interpolation)(batch)
             i, j = pp.center_crop_offsets(batch.shape[1], batch.shape[2], c,
                                           c)
             batch = batch[:, i:i + c, j:j + c]
         elif batch.dim() == 2:
             batch = colorspace.yuv420_packed_to_rgb(batch, c, c)
-        return self.backbone_forward(batch)
+        return self.backbone_forward(net, batch)
 
     def _raw_wire(self, h: int, w: int, what: str) -> str:
         """``resize=device``'s wire for a source of ``h`` x ``w``: ``i420``
@@ -153,13 +159,14 @@ class FrameWiseExtractor(BaseExtractor):
 
     def _features(self, batches: Iterable[Tuple[List, List[float], List]],
                   fps: float) -> Dict[str, np.ndarray]:
-        feats: List[np.ndarray] = []
+        stream = self.feature_stream(
+            self.runner,
+            on_result=lambda feats, _: self.maybe_show_pred(feats))
         timestamps_ms: List[float] = []
         for batch, times, _ in batches:
-            out = self.runner(np.stack(batch))
-            self.maybe_show_pred(out)
-            feats.extend(out)
+            stream.submit(np.stack(batch))
             timestamps_ms.extend(times)
+        feats = [row for out in stream.finish() for row in out]
         return {self.feature_type: np.array(feats), "fps": np.array(fps),
                 "timestamps_ms": np.array(timestamps_ms)}
 

@@ -12,10 +12,13 @@ The flow stream runs ``flow_type=pwc`` (the YAML default) or ``raft``
 I3D weights (``cast_floating_``) and their inputs before ScaleTo1_1; the
 features come back float32.
 
-Stacks group into ``clip_batch_size`` batches. A group crosses to the card
-once as uint8; under ``resize=device`` it is resized there (PIL's
-coefficients as two matmuls), both streams run on the device, and only the
-(G, 1024) features come back.
+Stacks group into ``clip_batch_size`` batches, each split over the data
+mesh (``parallel/mesh.py`` ``DataParallelApply``): a replica holds both
+streams whole (the flow net and both I3Ds), so the flow->I3D handoff stays
+on its card. A group's share crosses to its card once as uint8; under
+``resize=device`` it is resized there (PIL's coefficients as two matmuls),
+both streams run on the device, and only the (G, S, 1024) features come
+back, through the video's ``FeatureStream``.
 
 ``extract(video_path)`` decodes and hands the frames to
 ``extract_frames(frames, fps)``, which takes any iterable of
@@ -25,16 +28,17 @@ Output keys: ``streams + [fps, timestamps_ms]``.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import Config
 from ..models import i3d as i3d_model
 from ..models.common import cast_floating_
 from ..ops import host_transforms as ht
-from ..runner import Runner
+from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import Prefetcher
 from .base import BaseExtractor, load_weights
 from .i3d_flow import FlowStream, i3d_forward
@@ -44,8 +48,8 @@ SEED_I3D_RGB = 0
 
 class ExtractI3D(BaseExtractor):
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         streams = args.get("streams")
         self.streams: List[str] = (["rgb", "flow"] if streams is None
                                    else [streams])
@@ -61,39 +65,46 @@ class ExtractI3D(BaseExtractor):
         self.clip_batch_size = int(args.get("clip_batch_size") or 8)
         self.output_feat_keys = self.streams + ["fps", "timestamps_ms"]
 
+        mesh = self._data_mesh()
+        nets = {}
         self.rgb_model = None
         if "rgb" in self.streams:
             rgb = load_weights(
                 i3d_model.I3D(400, in_channels=3), args.get("weights_path"),
                 self.allow_random, SEED_I3D_RGB, "i3d_rgb")
-            self.rgb_model = cast_floating_(rgb, self.dtype).to(
-                self.device).eval()
-        self.flow_stream = FlowStream(self, args) \
-            if "flow" in self.streams else None
+            self.rgb_model = nets["rgb"] = cast_floating_(
+                rgb, self.dtype).eval()
+        self.flow_stream = None
+        if "flow" in self.streams:
+            self.flow_stream = nets["flow"] = FlowStream(
+                self, args, mesh.data_devices[0])
         self.resize_mode = self._resolve_resize_mode(args)
         self.host_transform = None if self.resize_mode == "device" \
             else ht.EdgeResize(self.min_side_size)
-        self.runner = Runner(self._forward_group, self.device)
+        self.runner = DataParallelApply(self._forward_group,
+                                        nn.ModuleDict(nets), mesh)
 
-    def _resizer(self, in_h: int, in_w: int):
-        return self._edge_resizer(in_h, in_w, self.min_side_size)
+    def _resizer(self, in_h: int, in_w: int, device: torch.device):
+        return self._edge_resizer(in_h, in_w, self.min_side_size, device)
 
-    def _rgb(self, group: torch.Tensor) -> torch.Tensor:
+    def _rgb(self, model: i3d_model.I3D, group: torch.Tensor) -> torch.Tensor:
         """Centre crop (TensorCenterCrop floor rule), drop the +1 frame the
         flow stream needs (extract_i3d.py:158-159), rgb I3D."""
         c = self.central_crop_size
         i = (group.shape[2] - c) // 2
         j = (group.shape[3] - c) // 2
-        return i3d_forward(self.rgb_model,
-                           group[:, :-1, i:i + c, j:j + c], self.dtype)
+        return i3d_forward(model, group[:, :-1, i:i + c, j:j + c],
+                           self.dtype)
 
-    def _forward_group(self, group: torch.Tensor) -> torch.Tensor:
-        """(G, T+1, H, W, 3) uint8 on the device -> (S, G, 1024)."""
+    def _forward_group(self, net: nn.ModuleDict,
+                       group: torch.Tensor) -> torch.Tensor:
+        """(G, T+1, H, W, 3) uint8 on ``net``'s device -> (G, S, 1024)."""
         if self.resize_mode == "device":
-            group = self._resizer(group.shape[2], group.shape[3])(group)
-        return torch.stack([self._rgb(group) if s == "rgb"
-                            else self.flow_stream(group)
-                            for s in self.streams])
+            group = self._resizer(group.shape[2], group.shape[3],
+                                  group.device)(group)
+        return torch.stack([self._rgb(net["rgb"], group) if s == "rgb"
+                            else net["flow"](group)
+                            for s in self.streams], dim=1)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         src = self.video_source(video_path, fps=self.extraction_fps)
@@ -109,15 +120,13 @@ class ExtractI3D(BaseExtractor):
         window: List[np.ndarray] = []
         stacks: List[np.ndarray] = []
         timestamps_ms: List[float] = []
-        feats: Dict[str, List[np.ndarray]] = {s: [] for s in self.streams}
+        stream = self.feature_stream(self.runner)
 
         def flush():
             if not stacks:
                 return
-            out = self.runner(np.stack(stacks))  # (S, G, 1024)
+            stream.submit(np.stack(stacks))
             stacks.clear()
-            for s, rows in zip(self.streams, out):
-                feats[s].extend(list(rows))
 
         for frame, _, idx in frames:
             if self.host_transform is not None:
@@ -131,7 +140,10 @@ class ExtractI3D(BaseExtractor):
                     flush()
         flush()
 
-        out = {s: np.array(v) for s, v in feats.items()}
+        groups = stream.finish()  # each (G, S, 1024)
+        out = {s: (np.concatenate([g[:, i] for g in groups]) if groups
+                   else np.array([]))
+               for i, s in enumerate(self.streams)}
         out["fps"] = np.array(fps)
         out["timestamps_ms"] = np.array(timestamps_ms)
         return out

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 from ..models import i3d as i3d_model
 from ..models import pwc as pwc_model
@@ -74,8 +75,9 @@ def pyramid_cells(h8: int, w8: int, levels: int = raft_model.CORR_LEVELS
 
 def _flow_budget(device: torch.device) -> int:
     """Bytes one flow forward's dominant allocation may take: 7/16 of the
-    card's free memory (the share the JAX package gave it on its devices),
-    or a fixed 7 GiB off the card."""
+    free memory of the card (the mesh's first: the JAX package sizes its
+    budget per device, and gave the flow net this share of it), or a fixed
+    7 GiB off the card."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         return free * 7 // 16
@@ -124,11 +126,14 @@ def i3d_forward(model: i3d_model.I3D, batch: torch.Tensor,
     return model(x, features=features).float()
 
 
-class FlowStream:
-    """RAFT or PWC + quantisation + flow I3D over a device group of
-    stacks."""
+class FlowStream(nn.Module):
+    """RAFT or PWC + quantisation + flow I3D over a device group of stacks;
+    a module, so that the data mesh replicates it whole. ``budget_device``
+    is the card whose free memory sizes the flow forwards (the mesh's
+    first)."""
 
-    def __init__(self, parent, args) -> None:
+    def __init__(self, parent, args, budget_device: torch.device) -> None:
+        super().__init__()
         raw_sb = args.get("flow_stack_batch", "auto")
         self.stack_batch: Optional[int] = \
             None if raw_sb in (None, "auto") else int(raw_sb)
@@ -141,7 +146,7 @@ class FlowStream:
                 f"flow_type={self.flow_type!r}; reference supports raft/pwc "
                 "(extract_i3d.py:151-157)")
         self.crop = parent.central_crop_size
-        self.device = parent.device
+        self.budget_device = budget_device
         self.dtype = parent.dtype
         weights = args.get("flow_model_weights_path")
         #: the flow net: one of the two is set, by ``flow_type``
@@ -157,17 +162,16 @@ class FlowStream:
                                    args.get("fuse_convc1"), dtype=self.dtype)
             raft = load_weights(raft, weights, parent.allow_random,
                                 SEED_RAFT, "raft_sintel")
-            self.raft = cast_floating_(raft, self.dtype).to(
-                self.device).eval()
+            self.raft = cast_floating_(raft, self.dtype).eval()
         else:
             # PWC's weights stay float32: its bfloat16 layers cast at use
             pwc = load_weights(pwc_model.PWCNet(dtype=self.dtype), weights,
                                parent.allow_random, SEED_PWC, "pwc_sintel")
-            self.pwc = pwc.to(self.device).eval()
+            self.pwc = pwc.eval()
         i3d = load_weights(i3d_model.I3D(400, in_channels=2),
                            args.get("flow_weights_path"), parent.allow_random,
                            SEED_I3D_FLOW, "i3d_flow")
-        self.i3d = cast_floating_(i3d, self.dtype).to(self.device).eval()
+        self.i3d = cast_floating_(i3d, self.dtype).eval()
         #: flow-net forwards run so far (one per chunk of stacks)
         self.forwards = 0
 
@@ -179,9 +183,9 @@ class FlowStream:
         if self.stack_batch:
             k = self.stack_batch
         elif self.raft is not None:
-            k = _stacks_per_forward(t, h, w, self.device)
+            k = _stacks_per_forward(t, h, w, self.budget_device)
         else:
-            k = _pwc_stacks_per_forward(t, h, w, self.device,
+            k = _pwc_stacks_per_forward(t, h, w, self.budget_device,
                                         bytes_per_el=self.dtype.itemsize)
         outs = []
         for i in range(0, g, k):
@@ -197,6 +201,6 @@ class FlowStream:
             outs.append(q.reshape((kc, t) + tuple(q.shape[1:])))
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
-    def __call__(self, group: torch.Tensor) -> torch.Tensor:
+    def forward(self, group: torch.Tensor) -> torch.Tensor:
         """(G, T+1, H, W, 3) uint8 on the device -> (G, 1024) features."""
         return i3d_forward(self.i3d, self.quantized_flow(group), self.dtype)

@@ -10,10 +10,13 @@ and the flow tensors, warp coordinates and flow heads stay float32;
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import Config
 from ..models import pwc as pwc_model
+from ..parallel.mesh import Mesh
 from .base import load_weights
 from .flow import OpticalFlowExtractor
 from .i3d_flow import SEED_PWC
@@ -21,13 +24,15 @@ from .i3d_flow import SEED_PWC
 
 class ExtractPWC(OpticalFlowExtractor):
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         model = load_weights(pwc_model.PWCNet(dtype=self.dtype),
                              args.get("weights_path"), self.allow_random,
                              SEED_PWC, "pwc_sintel")
-        self.model = model.to(self.device).eval()
+        self.model = model.eval()
+        self._build_runner()
 
-    def flow(self, pairs: torch.Tensor) -> torch.Tensor:
+    def flow(self, model: pwc_model.PWCNet,
+             pairs: torch.Tensor) -> torch.Tensor:
         """(B, 2, H, W, 3) uint8 -> (B, H, W, 2) float32."""
-        return self.model(pairs[:, 0], pairs[:, 1])
+        return model(pairs[:, 0], pairs[:, 1])

@@ -9,11 +9,14 @@ parity path.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import Config
 from ..models import raft as raft_model
 from ..models.common import cast_floating_
+from ..parallel.mesh import Mesh
 from .base import load_weights
 from .flow import OpticalFlowExtractor
 from .i3d_flow import SEED_RAFT
@@ -21,8 +24,8 @@ from .i3d_flow import SEED_RAFT
 
 class ExtractRAFT(OpticalFlowExtractor):
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         finetuned_on = args.get("finetuned_on", "sintel")
         if finetuned_on not in ("sintel", "kitti"):
             raise NotImplementedError(
@@ -38,12 +41,14 @@ class ExtractRAFT(OpticalFlowExtractor):
         model = load_weights(model, args.get("weights_path"),
                              self.allow_random, SEED_RAFT,
                              f"raft_{finetuned_on}")
-        self.model = cast_floating_(model, self.dtype).to(self.device).eval()
+        self.model = cast_floating_(model, self.dtype).eval()
+        self._build_runner()
 
-    def flow(self, pairs: torch.Tensor) -> torch.Tensor:
+    def flow(self, model: raft_model.RAFT,
+             pairs: torch.Tensor) -> torch.Tensor:
         """(B, 2, H, W, 3) uint8 -> (B, H, W, 2) float32: pad to /8, RAFT,
         unpad."""
-        flow, ((pt, pb), (pl, pr)) = raft_model.padded_flow(self.model,
+        flow, ((pt, pb), (pl, pr)) = raft_model.padded_flow(model,
                                                             pairs.float())
         hp, wp = flow.shape[1], flow.shape[2]
         return flow[:, pt:hp - pb, pl:wp - pr, :]

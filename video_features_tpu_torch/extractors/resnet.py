@@ -10,14 +10,18 @@ ImageNet labels. Output keys: ``['resnet', 'fps', 'timestamps_ms']``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import Config
 from ..models import resnet as resnet_model
-from ..models.common import cast_floating_
+from ..models.common import Consts, cast_floating_
 from ..ops import host_transforms as ht
 from ..ops import preprocess as pp
+from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.labels import show_predictions_on_dataset
 from .base import load_weights
 from .frame_wise import FrameWiseExtractor
@@ -27,8 +31,8 @@ SEED_RESNET = 5
 
 class ExtractResNet(FrameWiseExtractor):
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         if self.model_name not in resnet_model.VARIANTS:
             raise NotImplementedError(f"Model {self.model_name} not found.")
         model = load_weights(resnet_model.ResNet(self.model_name),
@@ -38,17 +42,20 @@ class ExtractResNet(FrameWiseExtractor):
         self.head = torch.nn.Linear(model.fc.in_features,
                                     model.fc.out_features)
         self.head.load_state_dict(model.fc.state_dict())
-        self.model = cast_floating_(model, self.dtype).to(self.device).eval()
-        self.mean = torch.from_numpy(pp.IMAGENET_MEAN).to(self.device)
-        self.std = torch.from_numpy(pp.IMAGENET_STD).to(self.device)
+        self.model = cast_floating_(model, self.dtype).eval()
+        net = nn.ModuleDict({"model": self.model, "norm": Consts(
+            mean=pp.IMAGENET_MEAN, std=pp.IMAGENET_STD)})
+        self.runner = DataParallelApply(self._device_forward, net,
+                                        self._data_mesh())
         self.resize_spec = (256, "bilinear")
         self.crop_size = 224
         self.host_transform = ht.ResizeCropTransform(256, 224, "bilinear",
                                                      self.ingest)
 
-    def backbone_forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = (x.float() / 255.0 - self.mean) / self.std
-        return self.model(x.to(self.dtype)).float()
+    def backbone_forward(self, net: nn.ModuleDict,
+                         x: torch.Tensor) -> torch.Tensor:
+        x = (x.float() / 255.0 - net["norm"].mean) / net["norm"].std
+        return net["model"](x.to(self.dtype)).float()
 
     def maybe_show_pred(self, feats: np.ndarray) -> None:
         if not self.show_pred:

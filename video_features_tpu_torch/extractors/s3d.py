@@ -12,6 +12,9 @@ group with ``features=False`` (extract_s3d.py:95-99). Output key:
 """
 from __future__ import annotations
 
+from functools import partial
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -20,7 +23,7 @@ from ..models import s3d as s3d_model
 from ..models.common import cast_floating_
 from ..ops import colorspace
 from ..ops import host_transforms as ht
-from ..runner import Runner
+from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.labels import show_predictions_on_dataset
 from .base import load_weights
 from .clip_stack import ClipStackExtractor
@@ -30,20 +33,21 @@ SEED_S3D = 4
 
 class ExtractS3D(ClipStackExtractor):
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args, default_stack=64, default_step=64)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, default_stack=64, default_step=64, mesh=mesh)
         if self.extraction_fps is None:
             self.extraction_fps = 25  # reference extract_s3d.py:29
         model = load_weights(s3d_model.S3D(400), args.get("weights_path"),
                              self.allow_random, SEED_S3D, "s3d_kinetics400")
-        self.model = cast_floating_(model, self.dtype).to(self.device).eval()
+        self.model = cast_floating_(model, self.dtype).eval()
         self.host_transform = ht.S3DTransform(self.ingest)
-        self.runner = Runner(self._device_forward, self.device)
-        self._logits_runner = Runner(
-            lambda batch: self._device_forward(batch, features=False),
-            self.device)
+        self.runner = DataParallelApply(self._device_forward, self.model,
+                                        self._data_mesh())
+        # show_pred's logits: the same replicas, the head instead
+        self._logits_runner = self.runner.with_fn(
+            partial(self._device_forward, features=False))
 
-    def _device_forward(self, batch: torch.Tensor,
+    def _device_forward(self, model: s3d_model.S3D, batch: torch.Tensor,
                         features: bool = True) -> torch.Tensor:
         """(B, T, 224, 224, 3) float [0, 1] or uint8, or (B, T, 75264)
         packed I420 -> (B, 1024) features or (B, 400) logits, float32."""
@@ -51,7 +55,7 @@ class ExtractS3D(ClipStackExtractor):
             batch = colorspace.yuv420_packed_to_rgb(batch, 224, 224) / 255.0
         elif batch.dtype == torch.uint8:
             batch = batch.float() / 255.0
-        return self.model(batch.to(self.dtype), features=features).float()
+        return model(batch.to(self.dtype), features=features).float()
 
     def maybe_show_pred(self, feats: np.ndarray, windows,
                         group: np.ndarray) -> None:

@@ -13,7 +13,9 @@ other suffix raises. The waveform becomes 0.96 s examples and each batch of
     (B, 15600) waveform chunks; the log-mel runs on the card in float32
     (``ops/audio.py logmel_examples``) and is cast afterwards.
 
-The last batch runs as it is (the JAX mesh pads it to ``batch_size``).
+Each batch is split over the data mesh (``parallel/mesh.py``
+``DataParallelApply``) and comes back through a ``FeatureStream``. The
+last batch runs as it is (the JAX mesh pads it to ``batch_size``).
 ``show_pred`` raises (extract_vggish.py:25-26). Output key: ``[vggish]``,
 with no fps or timestamps; 0 examples give ``(0, 128)``. ``postprocess=true``
 applies the PCA whitening and quantization from ``pca_weights_path``. The
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,7 +34,7 @@ from ..config import Config, pca_weights_path
 from ..models import vggish as vggish_model
 from ..models.common import cast_floating_
 from ..ops import audio
-from ..runner import Runner
+from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import extract_wav_from_mp4
 from .base import BaseExtractor, load_weights
 
@@ -42,8 +44,8 @@ FRONTENDS = ("host", "device")
 
 class ExtractVGGish(BaseExtractor):
 
-    def __init__(self, args: Config) -> None:
-        super().__init__(args)
+    def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
+        super().__init__(args, mesh)
         if args.get("show_pred"):
             raise NotImplementedError(
                 "show_pred is unsupported for vggish "
@@ -56,17 +58,19 @@ class ExtractVGGish(BaseExtractor):
             raise NotImplementedError(f"frontend={self.frontend!r}")
         model = load_weights(vggish_model.VGGish(), args.get("weights_path"),
                              self.allow_random, SEED_VGGISH, "vggish")
-        self.model = cast_floating_(model, self.dtype).to(self.device).eval()
-        self.runner = Runner(self._device_forward, self.device)
+        self.model = cast_floating_(model, self.dtype).eval()
+        self.runner = DataParallelApply(self._device_forward, self.model,
+                                        self._data_mesh())
         self._pca = (vggish_model.load_pca_params(pca_weights_path(args))
                      if args.get("postprocess") else None)
 
-    def _device_forward(self, batch: torch.Tensor) -> torch.Tensor:
+    def _device_forward(self, model: vggish_model.VGGish,
+                        batch: torch.Tensor) -> torch.Tensor:
         """(B, 96, 64, 1) examples, or (B, 15600) chunks under
         ``frontend=device``, -> (B, 128) float32 embeddings."""
         if self.frontend == "device":
             batch = audio.logmel_examples(batch)
-        return self.model(batch.to(self.dtype)).float()
+        return model(batch.to(self.dtype)).float()
 
     def examples(self, data: np.ndarray, rate: int) -> np.ndarray:
         """The frontend's host part: (N, 96, 64, 1) log-mel examples, or
@@ -78,9 +82,10 @@ class ExtractVGGish(BaseExtractor):
     def embed(self, examples: np.ndarray) -> np.ndarray:
         """(N, 128) float32 embeddings of the frontend's host output, in
         batches of ``batch_size``, PCA-postprocessed when asked."""
-        feats: List[np.ndarray] = [
-            self.runner(examples[start:start + self.batch_size])
-            for start in range(0, len(examples), self.batch_size)]
+        stream = self.feature_stream(self.runner)
+        for start in range(0, len(examples), self.batch_size):
+            stream.submit(examples[start:start + self.batch_size])
+        feats = stream.finish()
         out = (np.concatenate(feats) if feats else
                np.zeros((0, vggish_model.EMBEDDING_SIZE), dtype=np.float32))
         if self._pca is not None:

@@ -33,7 +33,9 @@ Beside each kernel is its plain PyTorch version, :func:`corr_lookup_gather_ref`
 the packed plane through the same address map as the kernel). A wrapper
 takes the plain version only for a CPU tensor; for a CUDA tensor it launches
 its kernel or raises. Each wrapper counts its kernel launches in a plain
-integer attribute, ``launches``. A NaN or infinite coord gives what the JAX
+integer attribute, ``launches``, bumped under a module lock
+(:func:`count_launch`) so that concurrent ``video_workers`` threads lose
+none. A NaN or infinite coord gives what the JAX
 counterpart gives: zeros from the gather (``relu(bias)`` from the
 projection), NaN from the packed lookup, whose weights ``c - floor(c)`` are
 NaN; kernel and plain version agree.
@@ -41,7 +43,8 @@ NaN; kernel and plain version agree.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+import threading
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -286,6 +289,16 @@ def _check_lookup_inputs(pyramid: Sequence[torch.Tensor],
     return q
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper: Callable) -> None:
+    """``wrapper.launches += 1`` as one step under the module lock (the
+    read-modify-write alone loses counts between threads)."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
+
+
 def _level_args(pyramid: Sequence[torch.Tensor]) -> list:
     """(pointer, Hl, Wl) of each level, as the C entry points take them."""
     args = []
@@ -314,7 +327,7 @@ def corr_lookup_level_cuda(pyramid: Sequence[torch.Tensor],
                                         coords.data_ptr(), q, out.data_ptr(),
                                         stream)
         build.check(lib, err, "corr_lookup_level_cuda")
-        corr_lookup_level_cuda.launches += 1
+        count_launch(corr_lookup_level_cuda)
     return out
 
 
@@ -362,7 +375,7 @@ def corr_lookup_proj_cuda(pyramid: Sequence[torch.Tensor],
             *_level_args(pyramid), coords.data_ptr(), q, weight.data_ptr(),
             bias.data_ptr(), out.data_ptr(), stream)
         build.check(lib, err, "corr_lookup_proj_cuda")
-        corr_lookup_proj_cuda.launches += 1
+        count_launch(corr_lookup_proj_cuda)
     return out
 
 
@@ -409,7 +422,7 @@ def corr_lookup_packed_cuda(packed: torch.Tensor,
             packed.data_ptr(), k_total, coords.data_ptr(), q, geometry,
             out.data_ptr(), stream)
         build.check(lib, err, "corr_lookup_packed_cuda")
-        corr_lookup_packed_cuda.launches += 1
+        count_launch(corr_lookup_packed_cuda)
     return out
 
 

@@ -22,17 +22,27 @@ keys are dropped (:func:`checkpoint_state`).
 Public layout is the JAX one: ``encode_image`` takes ``(N, R, R, 3)``
 normalised images in the working dtype, ``encode_text`` ``(N, context)``
 token ids.
+
+Tensor parallelism (``model_parallel``, :func:`tensor_parallel`): a copy of
+the model for one data row of a ``(data, model)`` mesh whose attention
+blocks, MLPs and attention-pool head are cut over the row's model-axis
+devices by ``parallel/mesh.py`` ``TP_RULES_TRANSFORMER``: q, k, v and the
+MLP input column-parallel, the output projections row-parallel, their
+partial sums added on the row's data device and the bias once. The rest is
+replicated there.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections import OrderedDict
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import shard_tensor, split_bounds
 from .common import BNInf, Dense
 
 
@@ -404,3 +414,193 @@ def config_from_state_dict(sd: Mapping[str, torch.Tensor]) -> CLIPConfig:
         transformer_heads=transformer_width // 64,
         transformer_layers=len({k.split(".")[2] for k in sd
                                 if k.startswith("transformer.resblocks")}))
+
+
+class _Shard(nn.Module):
+    """One model-axis device's slices of a tensor-parallel layer, named."""
+
+    def __init__(self, device: torch.device, **tensors: torch.Tensor
+                 ) -> None:
+        super().__init__()
+        self.device = torch.device(device)
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(
+                t.detach().to(self.device), requires_grad=False))
+
+
+def _add_on(partials: Sequence[torch.Tensor], device: torch.device,
+            bias: torch.Tensor) -> torch.Tensor:
+    """The row-parallel reduction: the partial sums copied to ``device``
+    and added in shard order, then the bias, once."""
+    total = partials[0].to(device)
+    for p in partials[1:]:
+        total = total + p.to(device)
+    return total + bias
+
+
+def _check_kinds(what: str, got: Mapping[str, str],
+                 want: Mapping[str, str]) -> None:
+    if dict(got) != dict(want):
+        raise ValueError(f"{what}: the tensor-parallel rules give {got}, "
+                         f"the sharded forward needs {want}")
+
+
+class _TensorParallel(nn.Module):
+    """Shared by the tensor-parallel layers: the shards are kept in a plain
+    list, out of the module's registry, so that ``Module.to`` (which moves
+    the replicated rest to the row's data device) leaves each shard on its
+    own device."""
+
+    def _heads_split(self, qkv, heads: int, mask=None):
+        """Each shard's attention output (B, T, its columns): over its
+        whole heads where they divide evenly, else over all heads on the
+        data device from the gathered q, k and v, cut back into the
+        shards' columns."""
+        n = len(self.shards)
+        if heads % n == 0:
+            return [attention(q, k, v, heads // n,
+                              None if mask is None else mask.to(q.device))
+                    for q, k, v in qkv]
+        q, k, v = (torch.cat([t[i].to(self.data_device) for t in qkv],
+                             dim=-1)
+                   for i in range(3))
+        out = attention(q, k, v, heads, mask)
+        return [out[..., a:b].to(s.device)
+                for s, (a, b) in zip(self.shards, self.bounds)]
+
+
+class TPMHA(_TensorParallel):
+    """:class:`MHA` over model-axis ``devices``: each shard holds its
+    columns of q, k and v (``in_proj`` split within each of them) and the
+    matching input columns of ``out_proj``."""
+
+    KINDS = {"in_proj_weight": "qkv", "in_proj_bias": "qkv",
+             "out_proj.weight": "row"}
+
+    def __init__(self, mha: MHA, devices: Sequence[torch.device],
+                 kinds: Mapping[str, str]) -> None:
+        super().__init__()
+        _check_kinds("attn", kinds, self.KINDS)
+        self.heads = mha.heads
+        self.data_device = torch.device(devices[0])
+        self.bounds = split_bounds(mha.out_proj.weight.shape[0],
+                                   len(devices), mha.heads)
+        parts = zip(shard_tensor(mha.in_proj_weight, "qkv", self.bounds),
+                    shard_tensor(mha.in_proj_bias, "qkv", self.bounds),
+                    shard_tensor(mha.out_proj.weight, "row", self.bounds))
+        self.shards = [_Shard(d, in_proj_weight=w, in_proj_bias=b,
+                              out_proj_weight=o)
+                       for d, (w, b, o) in zip(devices, parts)]
+        self.out_proj_bias = nn.Parameter(mha.out_proj.bias.detach(),
+                                          requires_grad=False)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        qkv = [(F.linear(x.to(s.device), s.in_proj_weight)
+                + s.in_proj_bias).chunk(3, dim=-1) for s in self.shards]
+        outs = self._heads_split(qkv, self.heads, mask)
+        return _add_on([F.linear(o, s.out_proj_weight)
+                        for o, s in zip(outs, self.shards)],
+                       x.device, self.out_proj_bias)
+
+
+class TPMLP(_TensorParallel):
+    """The block's MLP over model-axis ``devices``: ``c_fc`` column- and
+    ``c_proj`` row-parallel, QuickGELU on each shard's columns."""
+
+    KINDS = {"c_fc.weight": "column", "c_fc.bias": "column",
+             "c_proj.weight": "row"}
+
+    def __init__(self, mlp: nn.Sequential, devices: Sequence[torch.device],
+                 kinds: Mapping[str, str]) -> None:
+        super().__init__()
+        _check_kinds("mlp", kinds, self.KINDS)
+        self.data_device = torch.device(devices[0])
+        self.bounds = split_bounds(mlp.c_fc.weight.shape[0], len(devices))
+        parts = zip(shard_tensor(mlp.c_fc.weight, "column", self.bounds),
+                    shard_tensor(mlp.c_fc.bias, "column", self.bounds),
+                    shard_tensor(mlp.c_proj.weight, "row", self.bounds))
+        self.shards = [_Shard(d, c_fc_weight=w, c_fc_bias=b,
+                              c_proj_weight=o)
+                       for d, (w, b, o) in zip(devices, parts)]
+        self.c_proj_bias = nn.Parameter(mlp.c_proj.bias.detach(),
+                                        requires_grad=False)
+        self.gelu = QuickGELU()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _add_on(
+            [F.linear(self.gelu(F.linear(x.to(s.device), s.c_fc_weight)
+                                + s.c_fc_bias), s.c_proj_weight)
+             for s in self.shards], x.device, self.c_proj_bias)
+
+
+class TPAttentionPool(_TensorParallel):
+    """:class:`AttentionPool2d` over model-axis ``devices``: ``q_proj``,
+    ``k_proj`` and ``v_proj`` column- and ``c_proj`` row-parallel; the
+    tokens and the positional embedding on the data device."""
+
+    KINDS = {**{f"{p}_proj.{t}": "column" for p in "qkv"
+                for t in ("weight", "bias")}, "c_proj.weight": "row"}
+
+    def __init__(self, pool: AttentionPool2d,
+                 devices: Sequence[torch.device],
+                 kinds: Mapping[str, str]) -> None:
+        super().__init__()
+        _check_kinds("attnpool", kinds, self.KINDS)
+        self.heads = pool.heads
+        self.data_device = torch.device(devices[0])
+        self.positional_embedding = nn.Parameter(
+            pool.positional_embedding.detach(), requires_grad=False)
+        self.bounds = split_bounds(pool.q_proj.weight.shape[0],
+                                   len(devices), pool.heads)
+        cut = {f"{p}_{t}": shard_tensor(
+            getattr(getattr(pool, f"{p}_proj"), t), "column", self.bounds)
+            for p in "qkv" for t in ("weight", "bias")}
+        cut["c_weight"] = shard_tensor(pool.c_proj.weight, "row",
+                                       self.bounds)
+        self.shards = [_Shard(d, **{k: v[i] for k, v in cut.items()})
+                       for i, d in enumerate(devices)]
+        self.c_proj_bias = nn.Parameter(pool.c_proj.bias.detach(),
+                                        requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tokens = x.flatten(2).transpose(1, 2)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = tokens + self.positional_embedding.to(tokens.dtype)
+        qkv = []
+        for s in self.shards:
+            t = tokens.to(s.device)
+            qkv.append((F.linear(t[:, :1], s.q_weight) + s.q_bias,
+                        F.linear(t, s.k_weight) + s.k_bias,
+                        F.linear(t, s.v_weight) + s.v_bias))
+        outs = self._heads_split(qkv, self.heads)
+        return _add_on([F.linear(o, s.c_weight)
+                        for o, s in zip(outs, self.shards)],
+                       x.device, self.c_proj_bias)[:, 0]
+
+
+def _kinds(specs: Mapping[str, str], prefix: str) -> Dict[str, str]:
+    return {k[len(prefix) + 1:]: v for k, v in specs.items()
+            if k.startswith(prefix + ".")}
+
+
+def tensor_parallel(module: nn.Module, devices: Sequence[torch.device],
+                    specs: Mapping[str, str]) -> nn.Module:
+    """A copy of ``module`` (a :class:`CLIP` or a container of one) for one
+    data row of a ``(data, model)`` mesh: every block's attention and MLP
+    and the attention-pool head become their tensor-parallel twins over
+    ``devices``, cut as ``specs`` (``parallel/mesh.py``
+    ``param_specs_by_rules``) says; everything else is replicated on
+    ``devices[0]``, the row's data device."""
+    rep = copy.deepcopy(module)
+    for name, sub in list(rep.named_modules()):
+        prefix = f"{name}." if name else ""
+        if isinstance(sub, ResidualAttentionBlock):
+            sub.attn = TPMHA(sub.attn, devices,
+                             _kinds(specs, prefix + "attn"))
+            sub.mlp = TPMLP(sub.mlp, devices, _kinds(specs, prefix + "mlp"))
+        elif isinstance(sub, AttentionPool2d):
+            parent, _, attr = name.rpartition(".")
+            setattr(rep.get_submodule(parent), attr,
+                    TPAttentionPool(sub, devices, _kinds(specs, name)))
+    return rep.to(devices[0])

@@ -1,5 +1,6 @@
-"""Shared building blocks (port of ``video_features_tpu/models/common.py``)
-and the port's ``cast_floating_`` (of ``parallel/mesh.py cast_floating``)."""
+"""Shared building blocks (port of ``video_features_tpu/models/common.py``),
+the port's ``cast_floating_`` (of ``parallel/mesh.py cast_floating``) and
+``Consts``, the constants that travel with a replica."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +16,19 @@ def cast_floating_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     and ``running_var`` are cast here too (``Module.to(dtype)`` casts
     exactly the floating parameters and buffers)."""
     return module.to(dtype=dtype)
+
+
+class Consts(nn.Module):
+    """Named float32 constants of a device path (an input normalisation's
+    mean and std) as buffers, so that they travel with a replica
+    (``Module.to``, ``copy.deepcopy``) and a forward reads them on its own
+    device without a host copy."""
+
+    def __init__(self, **values) -> None:
+        super().__init__()
+        for name, value in values.items():
+            self.register_buffer(name, torch.as_tensor(value,
+                                                       dtype=torch.float32))
 
 
 class BNInf(nn.Module):
