@@ -152,16 +152,31 @@ that goes wrong:
    ``in_proj_weight`` (1152, 768). (d) r21d ``extract_frames`` at stream
    depth 4 against 0: identical features, clips/s and the card's busy
    share of each. Rates of both sides of each in turns;
-16. prints one JSON line each of the i3d slice's, the raft family's, the
+16. drives the multi-family run (:func:`multi_phase`) on the
+   vendored ``tests/assets/v_synth_sample.mp4`` (320x240, 19.62 fps, 355
+   frames): ``MultiExtractor`` over one shared decode with i3d two-stream
+   ``flow_type=raft`` at its YAML defaults, r21d and vggish at theirs,
+   resnet50 and ViT-B/32 at ``batch_size=64``, float32, seeded weights;
+   vggish's rip is a seeded WAV writer (the sample has no audio track).
+   Each family's outputs against its single-family run on the same
+   extractors (max abs 1e-4), proj's launches equal in the shared and the
+   single i3d run (counts set to 0 just before each and read just after),
+   the frames the bus decoded below the private sources' sum; then two
+   shared passes with ``cache=true`` into a fresh cache and fresh outputs:
+   the second serves every family from the store with no frame decoded,
+   no rip and no proj launch, bit-equal to the first. Shared and single
+   runs in turns (S, singles, singles, S) and one profiled shared run;
+17. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
-   vggish and parallel phases' numbers, one of the kernels' numbers, and
-   last ``{"ok": true, "device": {...}}``.
+   vggish, parallel and multi phases' numbers, one of the kernels'
+   numbers, and last ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX and needs no cv2, yaml or ffmpeg: the frames and
-the WAVs are synthetic (the WAVs written with the stdlib ``wave`` under
+It imports nothing of JAX and needs no yaml or ffmpeg: the frames and the
+WAVs are synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
-transforms and the I420 encoder are numpy. PIL is needed by the frame-wise
-phases' ``resize=host`` runs only; scipy by the vggish phase's resampling.
+transforms and the I420 encoder are numpy. Only the multi phase decodes a
+video, with cv2, and fails without it. PIL is needed by the frame-wise
+phases' ``resize=host`` runs; scipy by the vggish phase's resampling.
 """
 from __future__ import annotations
 
@@ -1879,6 +1894,253 @@ def parallel_phase(dev) -> dict:
     return stats
 
 
+#: the multi phase: the vendored sample (320x240, 19.62 fps, 355 frames,
+#: no audio track) and the seconds of the seeded WAV that stands in for
+#: its rip
+SAMPLE_VIDEO = "tests/assets/v_synth_sample.mp4"
+SAMPLE_SECONDS = 355 / 19.62
+#: families of the multi phase, in the order they are listed
+MULTI_FAMILIES = ("i3d", "r21d", "resnet", "clip", "vggish")
+#: shared against single runs: float32 on one card, expected 0.0
+MULTI_ATOL = 1e-4
+
+
+def multi_configs(root: str, cache_dir: str, **over) -> dict:
+    """The multi phase's configs at published widths: i3d two-stream with
+    ``flow_type=raft`` at its YAML defaults (20 iterations, stack = step =
+    64, ``flow_stack_batch=auto``, ``clip_batch_size=8``, float32), r21d and
+    vggish at their YAML defaults, resnet50 and ViT-B/32 at
+    ``batch_size=64``; every family with ``save_numpy``, ``resize=auto``
+    (the device resize) and ``cache=true`` into ``cache_dir``, its outputs
+    under ``root/<family>``. ``over`` maps a family to its own overrides
+    (the CPU test's small sizes)."""
+    cfgs = {
+        "i3d": slice_config(root, flow_iters=None, flow_stack_batch="auto",
+                            clip_batch_size=8, resize="auto"),
+        "r21d": clip_config("r21d"),
+        "resnet": frame_config("resnet", batch_size=64, resize="auto"),
+        "clip": frame_config("clip", batch_size=64, resize="auto"),
+        "vggish": vggish_config(),
+    }
+    for family, cfg in cfgs.items():
+        cfg.update(on_extraction="save_numpy", cache=True,
+                   cache_dir=cache_dir, cache_scope="shared",
+                   retry_attempts=1, output_path=f"{root}/{family}",
+                   tmp_path=f"{root}/tmp/{family}")
+        cfg.update(over.get(family, {}))
+    return cfgs
+
+
+class StubRip:
+    """Stands in for ``utils/io.py extract_wav_from_mp4`` (the sample has no
+    audio track and the card's machine no guaranteed ffmpeg): a seeded 16
+    kHz mono WAV of ``seconds``, and an empty aac, per call."""
+
+    def __init__(self, seconds: float):
+        self.seconds = seconds
+        self.calls = 0
+
+    def __call__(self, video_path: str, tmp_path: str):
+        import os
+        self.calls += 1
+        os.makedirs(tmp_path, exist_ok=True)
+        stem = os.path.splitext(os.path.basename(video_path))[0]
+        wav = write_wav(os.path.join(tmp_path, f"{stem}.wav"), self.seconds,
+                        16000, 1, seed=11)
+        aac = os.path.join(tmp_path, f"{stem}.aac")
+        open(aac, "wb").close()
+        return wav, aac
+
+
+def read_outputs(root: str) -> dict:
+    """``{relative path: array}`` of every ``.npy`` under ``root``."""
+    from pathlib import Path
+    return {str(p.relative_to(root)): np.load(p)
+            for p in sorted(Path(root).rglob("*.npy"))}
+
+
+def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
+                timed_turns: bool = True, **over) -> dict:
+    """The multi-family run on one video: ``MultiExtractor`` over one
+    shared decode (``parallel/fanout.py``) against each family run alone
+    (``_extract`` with a private decode), with the same extractors, so the
+    same weights. (1) Equality: each family's outputs of the shared run
+    against its single run (max abs, limit 1e-4), proj's launches equal in
+    both i3d runs. (2) One decode: the frames the bus decoded against the
+    sum of the private sources'. (3) Cache: two shared passes with
+    ``cache=true`` into a fresh cache and fresh outputs; the second serves
+    every family from the store: no frame decoded, no rip, no proj launch,
+    outputs bit-equal to the first. (4) Times: shared and singles in turns
+    (S, singles, singles, S; each run into fresh outputs and a fresh
+    cache), one profile of a shared run. ``over`` maps a family to its own
+    overrides (the CPU test's small sizes)."""
+    import cv2  # noqa: F401  (the decode of the mp4; fail here without it)
+    import os
+    import shutil
+
+    from video_features_tpu_torch.cache import cache_stats
+    from video_features_tpu_torch.extractors import vggish as vggish_mod
+    from video_features_tpu_torch.extractors.multi import MultiExtractor
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.registry import get_extractor_cls
+    from video_features_tpu_torch.utils import io as vio
+
+    root, cache_dir = "output/chip_smoke/multi", "output/chip_smoke/mcache"
+    cfgs = multi_configs(root, cache_dir, **over)
+    t0 = time.perf_counter()
+    exts = {f: get_extractor_cls(f)(cfg) for f, cfg in cfgs.items()}
+    build_s = time.perf_counter() - t0
+    multi = MultiExtractor(cfgs, extractors=exts)
+    rip = StubRip(seconds)
+    real_rip = vggish_mod.extract_wav_from_mp4
+    vggish_mod.extract_wav_from_mp4 = rip
+
+    def fresh(cache: bool = True) -> None:
+        shutil.rmtree(root, ignore_errors=True)
+        if cache:
+            shutil.rmtree(cache_dir, ignore_errors=True)
+
+    def shared() -> dict:
+        """One shared run: wall seconds, frames decoded, rips, proj."""
+        rip.calls = 0
+        reset_counts(cl)
+        synchronize()
+        t = time.perf_counter()
+        statuses = multi.run_video(video)
+        synchronize()
+        wall = time.perf_counter() - t
+        if statuses != dict.fromkeys(MULTI_FAMILIES, "done"):
+            raise AssertionError(f"multi: shared run statuses {statuses}")
+        bus = multi.last_session.bus
+        return dict(seconds=wall, decoded=bus.decoded if bus else 0,
+                    rips=rip.calls, proj=read_counts(cl)["proj"])
+
+    def singles() -> dict:
+        """Each family alone, in turn: seconds each, frames decoded."""
+        out = dict(seconds={}, decoded=0, rips=0, proj=0)
+        rip.calls = 0
+        for family, ext in exts.items():
+            reset_counts(cl)
+            before = vio.decoded_frames()
+            synchronize()
+            t = time.perf_counter()
+            if ext._extract(video) is None:
+                raise AssertionError(f"multi: single {family} skipped")
+            synchronize()
+            out["seconds"][family] = time.perf_counter() - t
+            out["decoded"] += vio.decoded_frames() - before
+            if family == "i3d":
+                out["proj"] = read_counts(cl)["proj"]
+        out["rips"] = rip.calls
+        return out
+
+    try:
+        # the singles first: they set up cuDNN at every shape and give
+        # each family's reference outputs
+        fresh()
+        single0 = singles()
+        want = read_outputs(root)
+        fresh()
+        shared0 = shared()
+        got = read_outputs(root)
+        if sorted(got) != sorted(want) or not want:
+            raise AssertionError(f"multi: outputs {sorted(got)} against "
+                                 f"{sorted(want)}")
+        max_abs = {}
+        for family in MULTI_FAMILIES:
+            errs = [float(np.abs(got[k].astype(np.float64)
+                                 - want[k].astype(np.float64)).max())
+                    if got[k].size else 0.0
+                    for k in want if k.startswith(family + "/")]
+            if not errs:
+                raise AssertionError(f"multi: no outputs of {family}")
+            max_abs[family] = max(errs)
+            if not max_abs[family] <= MULTI_ATOL:
+                raise AssertionError(f"multi: {family} shared vs single "
+                                     f"max abs {max_abs[family]}")
+        if shared0["proj"] != single0["proj"]:
+            raise AssertionError(f"multi: proj launches shared "
+                                 f"{shared0['proj']}, single "
+                                 f"{single0['proj']}")
+        on_card = next(iter(exts.values())).device.type == "cuda"
+        if on_card and cfgs["i3d"].get("streams") in (None, "flow") \
+                and shared0["proj"] == 0:
+            raise AssertionError("multi: proj never launched")
+        if not 0 < shared0["decoded"] < single0["decoded"]:
+            raise AssertionError(f"multi: the bus decoded "
+                                 f"{shared0['decoded']} frames, the "
+                                 f"private sources {single0['decoded']}")
+        if (shared0["rips"], single0["rips"]) != (1, 1):
+            raise AssertionError(f"multi: rips shared {shared0['rips']}, "
+                                 f"single {single0['rips']}")
+
+        # (3) the cache: a miss that stores, then all hits
+        fresh()
+        store_pass = shared()
+        first = {k: v.tobytes() for k, v in read_outputs(root).items()}
+        fresh(cache=False)
+        hit_pass = shared()
+        second = {k: v.tobytes() for k, v in read_outputs(root).items()}
+        if (hit_pass["decoded"], hit_pass["rips"], hit_pass["proj"]) != \
+                (0, 0, 0):
+            raise AssertionError(f"multi: the all-hit pass {hit_pass}")
+        if second != first:
+            raise AssertionError("multi: the all-hit pass's outputs differ "
+                                 "from the storing pass's")
+        stats = cache_stats(cache_dir)
+        if stats["entries"] != len(MULTI_FAMILIES):
+            raise AssertionError(f"multi: cache entries {stats}")
+        lookup_ms = {}
+        for family, ext in exts.items():
+            t = time.perf_counter()
+            if ext.feature_cache().lookup(video,
+                                          ext.output_feat_keys) is None:
+                raise AssertionError(f"multi: no entry for {family}")
+            lookup_ms[family] = (time.perf_counter() - t) * 1e3
+
+        # (4) times in turns, then one profiled shared run
+        turns = {"shared_s": [], "singles_s": [], "singles_by_family": []}
+        if timed_turns:
+            for kind in ("shared", "singles", "singles", "shared"):
+                fresh()
+                if kind == "shared":
+                    turns["shared_s"].append(shared()["seconds"])
+                else:
+                    each = singles()["seconds"]
+                    turns["singles_s"].append(sum(each.values()))
+                    turns["singles_by_family"].append(each)
+        fresh()
+        profile = profile_call(lambda: multi.run_video(video))
+        fresh()
+    finally:
+        vggish_mod.extract_wav_from_mp4 = real_rip
+    n = len(MULTI_FAMILIES)
+    shared_s = turns["shared_s"] or [shared0["seconds"]]
+    singles_s = turns["singles_s"] or [sum(single0["seconds"].values())]
+    return dict(
+        video=video, families=list(MULTI_FAMILIES), rip="stub",
+        build_s=build_s, max_abs_shared_vs_single=max_abs,
+        max_abs_limit=MULTI_ATOL,
+        proj_launches={"shared": shared0["proj"],
+                       "single": single0["proj"],
+                       "all_hit_pass": hit_pass["proj"]},
+        frames_decoded={"shared_bus": shared0["decoded"],
+                        "singles_sum": single0["decoded"],
+                        "all_hit_pass": hit_pass["decoded"]},
+        rips={"shared": shared0["rips"], "singles": single0["rips"],
+              "all_hit_pass": hit_pass["rips"]},
+        cache={"entries": stats["entries"], "bytes": stats["bytes"],
+               "by_family": stats["families"],
+               "store_pass_s": store_pass["seconds"],
+               "hit_pass_s": hit_pass["seconds"],
+               "lookup_ms_per_entry": lookup_ms},
+        single_seconds_first_run=single0["seconds"],
+        turns_seconds=turns,
+        shared_extractions_per_s=[n / s for s in shared_s],
+        singles_extractions_per_s=[n / s for s in singles_s],
+        shared_profile=profile)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1917,6 +2179,9 @@ def main() -> int:
     clip_stats = frame_phase("clip", 512, "RN50", 1024)
     vggish_stats = vggish_phase()
     parallel_stats = parallel_phase(dev)
+    empty_cache()
+    multi_stats = multi_phase()
+    empty_cache()
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -1944,6 +2209,7 @@ def main() -> int:
     clip_stats["card"] = card
     vggish_stats["card"] = card
     parallel_stats["card"] = card
+    multi_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -1954,6 +2220,7 @@ def main() -> int:
     print(json.dumps({"clip": clip_stats}))
     print(json.dumps({"vggish": vggish_stats}))
     print(json.dumps({"parallel": parallel_stats}))
+    print(json.dumps({"multi": multi_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -328,3 +328,73 @@ def test_packed_feed_cannot_stall_with_contiguous_adds():
         {4, "stall"}
     assert walk.outcomes(clips, cs.PACKED_WORKERS, cs.CLIP_BATCH,
                          contiguous=True) == {4}
+
+
+def test_multi_configs_are_the_published_widths():
+    """The multi phase runs i3d two-stream with RAFT at the i3d YAML
+    defaults, r21d and vggish at theirs, resnet50 and ViT-B/32 at
+    ``batch_size=64``, each with the cache on and its own output dir, and
+    each passes the port's checks."""
+    from video_features_tpu_torch import config as tconfig
+
+    cfgs = cs.multi_configs("out", "cache")
+    assert tuple(cfgs) == cs.MULTI_FAMILIES
+    yaml_i3d = tconfig.load_config("i3d")
+    for key in ("stack_size", "step_size", "flow_stack_batch",
+                "clip_batch_size", "flow_iters", "resize", "precision",
+                "extraction_fps", "streams"):
+        assert cfgs["i3d"][key] == yaml_i3d[key], key
+    assert cfgs["i3d"].flow_type == "raft"
+    for family in ("r21d", "vggish"):
+        yaml_cfg = tconfig.load_config(family)
+        for key, value in cfgs[family].items():
+            if key in yaml_cfg and key not in {
+                    "device", "allow_random_weights", "on_extraction",
+                    "output_path", "tmp_path", "cache", "cache_dir",
+                    "retry_attempts"}:
+                assert value == yaml_cfg[key], (family, key)
+    assert (cfgs["resnet"].model_name, cfgs["clip"].model_name) == \
+        ("resnet50", "ViT-B/32")
+    for family, cfg in cfgs.items():
+        assert family not in ("resnet", "clip") or cfg.batch_size == 64
+        assert (cfg.cache, cfg.cache_dir, cfg.output_path) == \
+            (True, "cache", f"out/{family}")
+        tconfig.check_ported(cfg)
+
+
+def test_multi_phase_runs_on_the_cpu(tmp_path, monkeypatch, sample_video):
+    """The multi phase on the CPU at a small size (i3d's RGB stream on one
+    10-frame stack, r21d on one clip, resnet18 and a tiny ViT on 3 frames,
+    2 s of stub audio) and no timed turns: the shared run equals the single
+    runs, the bus decodes fewer frames than the private sources, and the
+    second cache pass decodes nothing, rips nothing and is bit-equal."""
+    from video_features_tpu_torch.models.clip import CLIP, CLIPConfig
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+
+    ckpt = tmp_path / "tiny_clip.pt"
+    torch.save(seeded_init_(CLIP(CLIPConfig(32, 56, 2, 64, 14, 12, 128, 128,
+                                            2, 2)), 3).state_dict(), ckpt)
+    monkeypatch.chdir(tmp_path)
+    cpu = dict(device="cpu")
+    small = dict(
+        i3d=dict(cpu, streams="rgb", stack_size=10, step_size=10,
+                 extraction_fps=1, clip_batch_size=1),
+        r21d=dict(cpu, extraction_fps=1),
+        resnet=dict(cpu, model_name="resnet18", extraction_total=3,
+                    batch_size=2),
+        clip=dict(cpu, model_name="custom", weights_path=str(ckpt),
+                  extraction_total=3, batch_size=2),
+        vggish=dict(cpu))
+    stats = cs.multi_phase(video=sample_video, seconds=2.0,
+                           timed_turns=False, **small)
+    assert set(stats["max_abs_shared_vs_single"]) == set(cs.MULTI_FAMILIES)
+    assert max(stats["max_abs_shared_vs_single"].values()) == 0.0
+    dec = stats["frames_decoded"]
+    assert 0 < dec["shared_bus"] < dec["singles_sum"]
+    assert dec["all_hit_pass"] == 0
+    assert stats["rips"] == {"shared": 1, "singles": 1, "all_hit_pass": 0}
+    assert stats["proj_launches"] == {"shared": 0, "single": 0,
+                                      "all_hit_pass": 0}
+    assert stats["cache"]["entries"] == 5 and stats["cache"]["bytes"] > 0
+    assert "not measured" in stats["shared_profile"]["device_time"]
+    assert not (tmp_path / "output" / "chip_smoke" / "multi").exists()

@@ -32,7 +32,13 @@ The parallel plane (``parallel/mesh.py``) on two replicas of ``cuda:0``
 FeatureStream's pinned, event-fenced D2H against ``.cpu()`` (exact), and
 CLIP's tensor parallelism over a ``(data=1, model=2)`` mesh against the
 replicated model (1e-4).
+
+The multi-family CLI on the card: each family of a shared-decode
+run within 1e-4 of its single-family run, with fewer frames decoded; and a
+cache hit bit-equal to the miss that stored it.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -270,3 +276,105 @@ def test_clip_tensor_parallel_on_card(cuda_card, width):
     assert [tuple(s.in_proj_weight.shape) for s in attn.shards] == \
         [(3 * width // 2, width)] * 2
     np.testing.assert_allclose(tp(x), ref, rtol=0, atol=1e-4)
+
+
+SAMPLE = str(Path(__file__).resolve().parent / "assets" /
+             "v_synth_sample.mp4")
+
+
+def _stub_rip(video_path, tmp_path):
+    """A seeded 2.5 s tone for the sample's missing audio track."""
+    import os
+    import wave
+    os.makedirs(tmp_path, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(video_path))[0]
+    t = np.arange(40000) / 16000.0
+    wav = os.path.join(tmp_path, f"{stem}.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((0.4 * np.sin(2 * np.pi * 330 * t) * 32767).astype(
+            "<i2").tobytes())
+    aac = os.path.join(tmp_path, f"{stem}.aac")
+    open(aac, "wb").close()
+    return wav, aac
+
+
+@pytest.mark.cuda
+def test_multi_family_cli_on_card_matches_single_runs(cuda_card, tmp_path,
+                                                      monkeypatch):
+    """``feature_type=r21d,resnet,vggish`` on the card over one decode:
+    each family's outputs within 1e-4 of its single-family run (the same
+    seeded weights), with fewer frames decoded than the singles'."""
+    import contextlib
+    import io
+
+    from video_features_tpu_torch.cli import main
+    from video_features_tpu_torch.utils import io as tio
+
+    monkeypatch.setattr("video_features_tpu_torch.extractors.vggish."
+                        "extract_wav_from_mp4", _stub_rip)
+    over = {"resnet": ["model_name=resnet18", "extraction_total=6",
+                       "batch_size=8"],
+            "r21d": ["extraction_fps=1", "stack_size=10", "step_size=10"],
+            "vggish": []}
+    base = ["device=cuda", "allow_random_weights=true",
+            "on_extraction=save_numpy", f"tmp_path={tmp_path / 't'}",
+            f"video_paths={SAMPLE}"]
+    decoded = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        before = tio.decoded_frames()
+        for fam, kv in over.items():
+            main([f"feature_type={fam}", f"output_path={tmp_path / 's'}"]
+                 + kv + base)
+        decoded["singles"] = tio.decoded_frames() - before
+        before = tio.decoded_frames()
+        main([f"feature_type={','.join(over)}",
+              f"output_path={tmp_path / 'm'}"]
+             + [f"{f}.{x}" for f, kv in over.items() for x in kv] + base)
+        decoded["shared"] = tio.decoded_frames() - before
+    singles = sorted(p.relative_to(tmp_path / "s")
+                     for p in (tmp_path / "s").rglob("*.npy"))
+    assert len(singles) == 5
+    for rel in singles:
+        np.testing.assert_allclose(np.load(tmp_path / "m" / rel),
+                                   np.load(tmp_path / "s" / rel), rtol=0,
+                                   atol=1e-4, err_msg=str(rel))
+    assert 0 < decoded["shared"] < decoded["singles"]
+
+
+@pytest.mark.cuda
+def test_cache_hit_on_card_bit_equal_to_its_miss(cuda_card, tmp_path):
+    """resnet18 on the card with ``cache=true``: the first extraction
+    stores, a second extractor into another output dir is served from the
+    entry without decoding, bit for bit."""
+    import contextlib
+    import io
+
+    from video_features_tpu_torch import config as tconfig
+    from video_features_tpu_torch.extractors.resnet import ExtractResNet
+    from video_features_tpu_torch.utils import io as tio
+
+    def extractor(out):
+        cfg = tconfig.load_config("resnet", {
+            "device": "cuda", "model_name": "resnet18",
+            "extraction_total": 6, "batch_size": 8, "cache": True,
+            "cache_dir": str(tmp_path / "cache"),
+            "on_extraction": "save_numpy", "allow_random_weights": True,
+            "video_paths": SAMPLE, "output_path": str(tmp_path / out),
+            "tmp_path": str(tmp_path / "t")})
+        tconfig.sanity_check(cfg)
+        return ExtractResNet(cfg)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        miss = extractor("a")._extract(SAMPLE)
+        served = extractor("b")
+        served.extract = None  # a hit never extracts
+        before = tio.decoded_frames()
+        hit = served._extract(SAMPLE)
+    assert tio.decoded_frames() == before
+    assert set(hit) == set(miss)
+    for key in miss:
+        assert np.asarray(hit[key]).tobytes() == \
+            np.asarray(miss[key]).tobytes(), key

@@ -25,9 +25,11 @@
 - ``inject``: one plan parses to JAX's rules and fires at JAX's hits for
   three seeds; a site of an unported plane raises ``NotImplementedError``
   naming its Queue 1 item (JAX accepts it); the sink sites raise as JAX's
-  and leave no temp file; ``decode.read`` fires in a spawned decode worker
-  armed by ``VFT_INJECT``; the CLI arms a plan, prints the summary line
-  JAX's plan gives for the same hits, and disarms it.
+  and leave no temp file; the cache sites fire as JAX's (``cache.store``
+  fails the write, ``cache.lookup=torn`` drops the entry); ``decode.read``
+  fires in a spawned decode worker armed by ``VFT_INJECT``; the CLI arms a
+  plan, prints the summary line JAX's plan gives for the same hits, and
+  disarms it, and a failed cache store leaves the video done.
 
 Spawned children cost a second or two each, so the sources run on a few
 frames and each test spawns only what its assertion needs.
@@ -400,7 +402,7 @@ def test_plan_parses_and_fires_like_jax(seed):
 
 
 @pytest.mark.parametrize("site,item", [
-    ("cache.store", 7), ("cache.lookup", 7), ("queue.claim", 8),
+    ("queue.claim", 8),
     ("queue.steal_staging", 8), ("spool.claim", 8), ("spool.respond", 8),
     ("gateway.read", 8), ("gateway.spool_submit", 8), ("gc.evict", 8),
     ("gc.sweep", 8), ("heartbeat.tick", 9)])
@@ -411,7 +413,51 @@ def test_unported_sites_raise(site, item):
         tinject.parse_plan(spec)
     assert set(tinject.UNPORTED_SITES) | {
         "decode.read", "sink.tmp_write", "sink.fsync", "sink.rename",
-        "worker.kill"} == set(tinject.SITES) == set(jinject.SITES)
+        "worker.kill", "cache.store", "cache.lookup"} == \
+        set(tinject.SITES) == set(jinject.SITES)
+
+
+@pytest.mark.parametrize("site,rule", [("cache.store", "eio@n2"),
+                                       ("cache.lookup", "torn@n1")])
+def test_cache_sites_fire_like_jax(site, rule, tmp_path):
+    """One plan through both packages' ``FeatureCache`` on the same entry
+    sequence: ``cache.store=eio`` fails the second store, leaving the first
+    entry only; ``cache.lookup=torn`` truncates the entry before it is
+    read, so it is dropped and the lookup misses. The plans fire at the
+    same hits and summarise alike."""
+    from video_features_tpu import cache as jcache
+    from video_features_tpu_torch import cache as tcache
+
+    content = tmp_path / "input.mp4"
+    content.write_bytes(b"\x00" * 4096)
+    feats = {"x": np.arange(6, dtype=np.float32)}
+    spec = f"seed=2;{site}={rule}"
+    outcomes, summaries = {}, {}
+    for name, pkg, mod in (("port", tcache, tinject),
+                           ("jax", jcache, jinject)):
+        fc = pkg.FeatureCache(str(tmp_path / name), "resnet", "c" * 64,
+                              "w" * 64)
+        mod.arm_for_run(spec)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                got = []
+                for _ in range(2):
+                    try:
+                        fc.store(str(content), feats)
+                        got.append("stored")
+                    except OSError as e:
+                        got.append(f"OSError{e.errno}")
+                    got.append(fc.lookup(str(content)) is not None)
+            outcomes[name] = got
+            summaries[name] = mod.active().summary()
+        finally:
+            mod.disarm()
+    assert outcomes["port"] == outcomes["jax"]
+    assert summaries["port"] == summaries["jax"]
+    if site == "cache.store":
+        assert outcomes["port"] == ["stored", True, "OSError5", True]
+    else:
+        assert outcomes["port"] == ["stored", False, "stored", True]
 
 
 @pytest.mark.parametrize("spec", [
@@ -466,7 +512,9 @@ def test_cli_arms_prints_and_disarms_like_jax(tmp_path):
     """One injected rename drop on the first write: the video recovers on
     its second attempt, the CLI prints the summary line JAX's plan gives
     for the same two hits (the JAX CLI prints ``plan.summary()`` too), and
-    the plan is disarmed after the run."""
+    the plan is disarmed after the run. Then ``cache.store=eio`` under
+    ``cache=true``: the store fails and is printed, and the video is done
+    with its features on disk."""
     import wave
     from video_features_tpu_torch.cli import main
 
@@ -498,12 +546,22 @@ def test_cli_arms_prints_and_disarms_like_jax(tmp_path):
     assert [line for line in text.splitlines()
             if line.startswith("inject: seed=")] == [jplan.summary()] == [
         f"inject: seed=3 fired/hits {{sink.rename:1/2}} (plan {spec!r})"]
-    from video_features_tpu_torch import config as tconfig
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        tconfig.sanity_check(tconfig.load_config("vggish", dict(
-            device="cpu", inject="seed=1;cache.store=eio",
-            video_paths=str(wav), output_path=str(tmp_path / "x"),
-            tmp_path=str(tmp_path / "y"))))
+    # cache.store=eio with cache=true: the store fails and is printed, the
+    # video is done and its features are on disk, as in the JAX package
+    spec = "seed=1;cache.store=eio"
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            contextlib.redirect_stderr(io.StringIO()):
+        main(["feature_type=vggish", "device=cpu",
+              "allow_random_weights=true", "on_extraction=save_numpy",
+              "cache=true", f"cache_dir={tmp_path / 'c'}", f"inject={spec}",
+              f"output_path={tmp_path / 'x'}", f"tmp_path={tmp_path / 'y'}",
+              f"video_paths={wav}"])
+    text = out.getvalue()
+    assert "INJECT: cache.store=eio fired (hit 1" in text
+    assert "cache: store failed for" in text and "1 extracted" in text
+    assert (tmp_path / "x" / "vggish" / "tone_vggish.npy").exists()
+    assert not list((tmp_path / "c").rglob("*.pkl"))
+    assert tinject.active() is None
 
 
 def test_video_decode_and_deadline_keys_are_accepted(tmp_path):

@@ -5,7 +5,8 @@
   from its default, in every ported family; at the default it passes.
   The keys of batching and data parallelism (``distributed``,
   ``mesh_devices``, ``video_workers``, ``cross_video_batching``,
-  ``model_parallel``) are ported: each runs at the values JAX accepts.
+  ``model_parallel``) and of the feature cache (``cache``, ``cache_dir``,
+  ``cache_scope``) are ported: each runs at the values JAX accepts.
   Every family dispatches (``vggish`` too).
 - ``RetryPolicy`` and ``classify`` agree with the JAX ones (defaults,
   backoff delays under one seeded rng, the category of each exception).
@@ -40,8 +41,6 @@ CLIP_ONLY_KEYS = {"vision_attn"}
 
 
 GATED_CASES = [
-    ("cache", True, 7),
-    ("cache_dir", "/c", 7), ("cache_scope", "tenant", 7),
     ("compile_cache", True, 8), ("compile_cache_dir", "/c", 8),
     ("compilation_cache_dir", "/c", 8), ("fleet", "queue", 8),
     ("fleet_lease_s", 30, 8), ("fleet_max_reclaims", 5, 8),
@@ -69,7 +68,8 @@ def test_every_gated_key_is_tested_and_in_every_yaml():
     other gated key is in every port YAML. None of the parallel keys is
     gated."""
     assert {k for k, _, _ in GATED_CASES} == set(tconfig.GATED_KEYS)
-    assert not {k for k, _ in PARALLEL_CASES} & set(tconfig.GATED_KEYS)
+    assert not {k for k, _ in PARALLEL_CASES + CACHE_CASES} & \
+        set(tconfig.GATED_KEYS)
     for family in FAMILIES:
         missing = set(tconfig.GATED_KEYS) - set(tconfig.load_config(family))
         assert missing == (set() if family == "clip" else CLIP_ONLY_KEYS), \
@@ -166,6 +166,51 @@ def test_parallel_keys_run(key, value, tmp_path, monkeypatch):
                 get_extractor_cls(family)(tconfig.merge(
                     cfg, tconfig.Config({"model_parallel": 3})))
         np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+#: the keys of the feature cache, at the values the gated cases used
+CACHE_CASES = [("cache", True), ("cache_dir", "c"),
+               ("cache_scope", "tenant")]
+
+
+@pytest.mark.parametrize("key,value", CACHE_CASES)
+def test_cache_keys_run(key, value, sample_video, tmp_path, monkeypatch):
+    """Each key passes the port's checks in every family and does what it
+    says on a small run on the CPU: the first extraction stores one entry
+    (under ``cache_dir``, else ``VFT_CACHE_DIR``), a second extractor into
+    another output directory is served from it without extracting, and
+    under ``cache_scope=tenant`` another tenant's request misses."""
+    from video_features_tpu_torch.cache import cache_stats
+    from video_features_tpu_torch.extractors.resnet import ExtractResNet
+    from video_features_tpu_torch.utils.context import use_request
+
+    for family in FAMILIES:
+        tconfig.check_ported(tconfig.merge(tconfig.load_config(family),
+                                           tconfig.Config({key: value})))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("VFT_CACHE_DIR", str(tmp_path / "default"))
+
+    def extractor(out):
+        cfg = tconfig.load_config("resnet", {
+            "cache": True, key: value, "device": "cpu",
+            "model_name": "resnet18", "extraction_total": 2,
+            "on_extraction": "save_numpy", "allow_random_weights": True,
+            "video_paths": sample_video, "output_path": str(tmp_path / out),
+            "tmp_path": str(tmp_path / "t")})
+        tconfig.sanity_check(cfg)
+        return ExtractResNet(cfg)
+
+    with use_request("alpha-r1"), contextlib.redirect_stdout(io.StringIO()):
+        feats = extractor("a")._extract(sample_video)
+        served = extractor("b")
+        served.extract = None  # a hit never extracts
+        got = served._extract(sample_video)
+    assert got["resnet"].tobytes() == feats["resnet"].tobytes()
+    root = tmp_path / ("c" if key == "cache_dir" else "default")
+    assert cache_stats(str(root))["families"]["resnet"]["entries"] == 1
+    with use_request("beta-r2"):
+        other = served.feature_cache().lookup(sample_video)
+    assert (other is None) == (key == "cache_scope")
 
 
 def test_show_pred_is_ported_for_the_clip_stack_families_only():

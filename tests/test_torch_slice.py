@@ -259,7 +259,8 @@ def test_sinks_write_and_skip(tmp_path, sink):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("cache", True), ("telemetry", True), ("trace", True), ("health", True),
+    ("compile_cache", True), ("telemetry", True), ("trace", True),
+    ("health", True),
     ("parity", True), ("roofline", True), ("fps_mode", "reencode"),
     ("show_pred", True)])
 def test_unported_keys_raise(tmp_path, key, value):

@@ -1,5 +1,10 @@
 """CLI: ``python -m video_features_tpu_torch feature_type=<family> key=value
-...`` for the ported families (``registry.py``).
+...`` for the ported families (``registry.py``), or
+``feature_type=<family>,<family>,...`` for several families over one decode
+of each video (``extractors/multi.py``: top-level keys are shared,
+``<family>.key=value`` is one family's own; each family writes under its
+own namespaced output directory, and the summary counts (video, family)
+units with one line per family).
 
 The JAX package's dotlist surface: the family's YAML defaults merged under
 the ``key=value`` overrides, validated, then each video extracted under the
@@ -34,11 +39,12 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
-from typing import List, Optional
+from typing import Callable, List, Optional
 
-from .config import load_config, parse_dotlist, sanity_check, video_list
+from .config import (load_config, load_multi_config, parse_dotlist,
+                     sanity_check, sanity_check_multi, video_list)
 from .parallel.mesh import local_shard_of_list
-from .registry import get_extractor_cls
+from .registry import get_extractor_cls, parse_feature_types
 from .utils import inject
 from .utils.faults import FailureJournal, RetryPolicy
 from .utils.sinks import safe_extract
@@ -49,16 +55,29 @@ def main(argv: Optional[List[str]] = None) -> None:
     feature_type = overrides.get("feature_type")
     if not feature_type:
         raise ValueError("feature_type=... is required")
-    cls = get_extractor_cls(feature_type)
-    args = load_config(feature_type, overrides)
-    sanity_check(args)
-    _maybe_init_distributed(args)
+    families = parse_feature_types(feature_type)
+    if len(families) > 1:
+        # per-family configs (top-level keys shared, `family.key=` a
+        # family's own), one shared decode per video (extractors/multi.py)
+        per_family = load_multi_config(families, overrides)
+        args = per_family[families[0]]
+        _maybe_init_distributed(args)
+        sanity_check_multi(per_family)
+    else:
+        per_family = None
+        args = load_config(families[0], overrides)
+        sanity_check(args)
+        _maybe_init_distributed(args)
     plan = inject.arm_for_run(args.get("inject"))
     if plan is not None:
         print(f"inject: armed plan {plan.spec!r} (seed={plan.seed}; replay "
               "by re-running with this exact inject= string)")
     try:
-        _run(cls(args), args)
+        if per_family is not None:
+            from .extractors.multi import MultiExtractor
+            _run_multi(MultiExtractor(per_family), args)
+        else:
+            _run(get_extractor_cls(families[0])(args), args)
     finally:
         if plan is not None:
             print(plan.summary())
@@ -86,25 +105,14 @@ def _video_workers(value) -> int:
     return int(value or 1)
 
 
-def _run(extractor, args) -> None:
-    policy = RetryPolicy.from_config(args)
-    journal = (FailureJournal(args.output_path)
-               if args.get("on_extraction", "print") != "print" else None)
-    paths = local_shard_of_list(video_list(
-        args.get("video_paths"), args.get("file_with_video_paths"),
-        shuffle=True))
+def _drive(args, paths: List[str], run_one: Callable[[str], None],
+           stop: threading.Event) -> None:
+    """``run_one`` over ``paths``: in order, or on ``video_workers``
+    threads (the host side of several videos feeding the mesh; each video
+    keeps its own stream order and fault isolation). SIGTERM sets ``stop``:
+    the videos in flight finish, the rest are dropped (atomic writes and
+    the skip of finished outputs make a restarted run resume)."""
     workers = _video_workers(args.get("video_workers"))
-    tally = {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
-    failures: List[dict] = []
-    lock = threading.Lock()
-
-    def on_failure(record: dict) -> None:
-        with lock:
-            failures.append(record)
-
-    # preemption: finish the videos in flight (atomic writes and the skip
-    # of finished outputs make a restarted worker resume), drop the rest
-    stop = threading.Event()
     in_main = threading.current_thread() is threading.main_thread()
     prev_handler = None
     if in_main:
@@ -112,18 +120,6 @@ def _run(extractor, args) -> None:
             print("SIGTERM: finishing in-flight video(s), dropping the rest")
             stop.set()
         prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
-
-    def run_one(path: str) -> None:
-        if stop.is_set():
-            return
-        status = safe_extract(extractor._extract, path, policy=policy,
-                              journal=journal,
-                              decode_mode=extractor.video_decode,
-                              on_terminal_failure=on_failure)
-        with lock:
-            tally[status] += 1
-
-    t0 = time.perf_counter()
     try:
         if workers <= 1:
             for path in paths:
@@ -131,9 +127,6 @@ def _run(extractor, args) -> None:
                     break
                 run_one(path)
         else:
-            # the host side (decode, transform) of up to video_workers
-            # videos on threads feeding the mesh; each video keeps its own
-            # stream order and its own fault isolation
             with ThreadPoolExecutor(max_workers=workers,
                                     thread_name_prefix="vft-video") as pool:
                 futures = [pool.submit(run_one, p) for p in paths]
@@ -147,6 +140,40 @@ def _run(extractor, args) -> None:
         # None: a handler installed from C, which signal() cannot restore
         if in_main and prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
+
+
+def _work_list(args) -> List[str]:
+    return local_shard_of_list(video_list(
+        args.get("video_paths"), args.get("file_with_video_paths"),
+        shuffle=True))
+
+
+def _run(extractor, args) -> None:
+    policy = RetryPolicy.from_config(args)
+    journal = (FailureJournal(args.output_path)
+               if args.get("on_extraction", "print") != "print" else None)
+    paths = _work_list(args)
+    tally = {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
+    failures: List[dict] = []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def on_failure(record: dict) -> None:
+        with lock:
+            failures.append(record)
+
+    def run_one(path: str) -> None:
+        if stop.is_set():
+            return
+        status = safe_extract(extractor._extract, path, policy=policy,
+                              journal=journal,
+                              decode_mode=extractor.video_decode,
+                              on_terminal_failure=on_failure)
+        with lock:
+            tally[status] += 1
+
+    t0 = time.perf_counter()
+    _drive(args, paths, run_one, stop)
     summary = (f"{sum(tally.values())}/{len(paths)} videos in "
                f"{time.perf_counter() - t0:.1f}s: {tally['done']} extracted, "
                f"{tally['skipped']} already done, {tally['error']} failed")
@@ -156,5 +183,58 @@ def _run(extractor, args) -> None:
     if failures and journal is not None:
         print(f"failure journal: {journal.path} (retry_failed=true re-runs "
               "quarantined videos)")
+    if stop.is_set():
+        raise SystemExit(143)  # the conventional SIGTERM status
+
+
+def _run_multi(multi, args) -> None:
+    """Every family on each video over one decode: the tally counts
+    (video, family) units, with one summary line per family and one
+    journal line per family that failed. ``video_workers`` counts videos;
+    each video's families run on their own threads inside it."""
+    paths = _work_list(args)
+    tally = {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
+    fam_tally = {f: dict(tally) for f in multi.families}
+    failures: List[dict] = []  # appended from the family threads
+    videos_run = [0]
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def run_one(path: str) -> None:
+        if stop.is_set():
+            return
+        with lock:
+            videos_run[0] += 1
+        statuses = multi.run_video(path, failures=failures)
+        with lock:
+            for fam, status in statuses.items():
+                tally[status] += 1
+                fam_tally[fam][status] += 1
+
+    t0 = time.perf_counter()
+    _drive(args, paths, run_one, stop)
+    elapsed = time.perf_counter() - t0
+    summary = (f"{videos_run[0]}/{len(paths)} videos x "
+               f"{len(multi.families)} families in {elapsed:.1f}s: "
+               f"{tally['done']} extracted, {tally['skipped']} already "
+               f"done, {tally['error']} failed")
+    if tally["quarantined"]:
+        summary += f", {tally['quarantined']} quarantined"
+    if tally["done"]:
+        summary += f" ({tally['done'] / elapsed:.2f} extractions/s)"
+    print(summary)
+    for fam in multi.families:
+        ft = fam_tally[fam]
+        line = (f"  {fam}: {ft['done']} extracted, {ft['skipped']} "
+                f"already done, {ft['error']} failed")
+        if ft["quarantined"]:
+            line += f", {ft['quarantined']} quarantined"
+        print(line)
+    for fam in sorted({rec.get("family") for rec in failures
+                       if rec.get("family")}):
+        journal = multi.journals.get(fam)
+        if journal is not None:
+            print(f"failure journal ({fam}): {journal.path} "
+                  "(retry_failed=true re-runs quarantined videos)")
     if stop.is_set():
         raise SystemExit(143)  # the conventional SIGTERM status

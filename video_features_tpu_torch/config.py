@@ -1,8 +1,9 @@
 """Config system: per-feature YAML defaults + CLI dotlist overrides.
 
 The port's own copy of ``video_features_tpu/config.py`` (``Config``,
-``parse_dotlist``, ``merge``, ``load_config``) with a ``sanity_check`` cut to
-the keys the ported families (``registry.py``) run. ``yaml`` is imported
+``parse_dotlist``, ``merge``, ``load_config``, and for a multi-family run
+``load_multi_config`` and ``sanity_check_multi``) with a ``sanity_check``
+cut to the keys the ported families (``registry.py``) run. ``yaml`` is imported
 only where YAML is parsed, so importing the extractors needs no ``yaml``.
 
 Every port YAML carries every key of its JAX twin at the JAX default. A key
@@ -25,10 +26,6 @@ _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 #: ports the key's plane; None for ``config``, which the JAX package reads
 #: at no value either)
 GATED_KEYS = {
-    # multi-family CLI and the feature cache (#7)
-    "cache": ((None, False), 7),
-    "cache_dir": ((None,), 7),
-    "cache_scope": ((None, "shared"), 7),
     # warm serving, compile caches and the fleet (#8)
     "compile_cache": ((None, "auto", False), 8),
     "compile_cache_dir": ((None,), 8),
@@ -145,6 +142,65 @@ def load_config(feature_type: str,
     return cfg
 
 
+def load_multi_config(families: Sequence[str],
+                      overrides: Optional[Union[Config, Dict[str, Any]]] = None,
+                      ) -> Dict[str, Config]:
+    """Per-family configs of a multi-family run, in the order of
+    ``families``. Top-level keys are shared (merged into every family's
+    YAML defaults); a key nested under a requested family's name is that
+    family's own and wins: ``feature_type=resnet,clip extraction_fps=1
+    clip.extraction_fps=2`` runs resnet at 1 fps and clip at 2. An override
+    block of a known family that is not requested raises, as in JAX."""
+    from .registry import _DISPATCH
+    families = list(families)
+    overrides = Config(dict(overrides or {}))
+    shared = {k: v for k, v in overrides.items()
+              if k != "feature_type" and k not in families}
+    for k in list(shared):
+        if k in _DISPATCH and isinstance(shared[k], dict):
+            raise ValueError(
+                f"per-family override block {k}.* given, but {k!r} is not "
+                f"in feature_type={','.join(families)} — add it to the "
+                "list or drop the override")
+    per: Dict[str, Config] = {}
+    for f in families:
+        fam_over = overrides.get(f)
+        merged = Config(dict(shared))
+        if isinstance(fam_over, dict):
+            merged = merge(merged, Config(dict(fam_over)))
+        cfg = load_config(f, merged)
+        cfg.feature_type = f
+        per[f] = cfg
+    return per
+
+
+def sanity_check_multi(per_family: Dict[str, Config], *,
+                       require_videos: bool = True) -> None:
+    """The multi-family constraints (a file sink, no ``show_pred``, no
+    ``fps_mode=reencode``), then each family's :func:`sanity_check`, which
+    namespaces its ``output_path``/``tmp_path`` under its own
+    ``feature_type[/model_name]``, so sinks and journals never collide."""
+    for args in per_family.values():
+        if args.get("on_extraction", "print") == "print":
+            raise ValueError(
+                "multi-family extraction needs a file sink "
+                "(on_extraction=save_numpy or save_pickle): N families' "
+                "print dumps would interleave, and the per-family skip/"
+                "journal contracts need per-family output dirs")
+        if args.get("show_pred"):
+            raise ValueError(
+                "show_pred=true is unsupported in multi-family runs "
+                "(per-batch prediction printing would interleave across "
+                "families)")
+        if (args.get("fps_mode", "select") or "select") == "reencode":
+            raise ValueError(
+                "fps_mode=reencode is unsupported in multi-family runs: "
+                "each family's reencode provenance is its own lossy "
+                "temp-file decode, which cannot share one pass — run "
+                "golden-parity extractions one family at a time")
+        sanity_check(args, require_videos=require_videos)
+
+
 def video_list(video_paths: Union[str, Sequence[str], None] = None,
                file_with_video_paths: Optional[str] = None,
                shuffle: bool = False) -> List[str]:
@@ -218,6 +274,26 @@ def _check_vggish(args: Config) -> None:
         pca_weights_path(args)
 
 
+def _check_cache(args: Config) -> None:
+    """``cache`` (a boolean), ``cache_dir`` (a path or null) and
+    ``cache_scope`` (``shared`` or ``tenant``), as the JAX package checks
+    them."""
+    ca = args.get("cache", False)
+    if not isinstance(ca, bool):
+        raise ValueError(f"cache={ca!r}: expected true or false (the "
+                         "content-addressed feature cache, cache.py)")
+    cd = args.get("cache_dir")
+    if cd is not None and not isinstance(cd, str):
+        raise ValueError(f"cache_dir={cd!r}: expected a directory path or "
+                         "null (null -> VFT_CACHE_DIR or "
+                         "~/.cache/video_features_tpu/feature_cache)")
+    cs = args.get("cache_scope", "shared") or "shared"
+    if cs not in ("shared", "tenant"):
+        raise ValueError(f"cache_scope={cs!r}: expected 'shared' (one "
+                         "entry per content) or 'tenant' (the requesting "
+                         "tenant salts the key)")
+
+
 def _check_parallel(args: Config) -> None:
     """``video_workers`` (an int >= 1 or ``auto``; forced to 1, with the
     JAX package's warning, where concurrent videos would interleave their
@@ -279,7 +355,8 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     the parallel keys (``video_workers``, forced to 1 for ``print`` and
     ``show_pred`` runs as in the JAX package, ``mesh_devices``,
     ``model_parallel``, ``distributed``, ``cross_video_batching``), the
-    unported keys, the device (``args.device`` becomes ``cpu``,
+    cache keys (``cache``, ``cache_dir``, ``cache_scope``), the unported
+    keys, the device (``args.device`` becomes ``cpu``,
     ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
     namespacing of ``output_path``/``tmp_path``."""
     check_ported(args)
@@ -324,6 +401,7 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     if args.feature_type == "vggish":
         _check_vggish(args)
     _check_parallel(args)
+    _check_cache(args)
 
     if require_videos:
         if not (args.get("file_with_video_paths") or args.get("video_paths")):

@@ -1,11 +1,12 @@
 """Extraction lifecycle shared by the port's families (port of
-``video_features_tpu/extractors/base.py``): ``_extract`` = skip-if-exists ->
-``extract`` -> sink dispatch; device and precision resolution; weights; the
+``video_features_tpu/extractors/base.py``): ``_extract`` = cache hit ->
+skip-if-exists -> ``extract`` -> sink dispatch -> cache store; device and
+precision resolution; weights and their capture for the cache key; the
 data mesh of the runners (:meth:`BaseExtractor._data_mesh`) and their
 result streams (:meth:`BaseExtractor.feature_stream`); the
 ``resize=auto|host|device`` choice and the per-resolution, per-device
-resizer cache; the decode source of ``video_decode``
-(:meth:`BaseExtractor.video_source`)."""
+resizer cache; the decode source of ``video_decode``, or of a multi-family
+run's shared decode (:meth:`BaseExtractor.video_source`)."""
 from __future__ import annotations
 
 import threading
@@ -18,12 +19,43 @@ from torch import nn
 from ..config import Config, check_ported
 from ..device import resolve_device, set_precision
 from ..ops import preprocess as pp
+from ..parallel import fanout
 from ..parallel.mesh import DataParallelApply, FeatureStream, Mesh, get_mesh
 from ..utils import faults, sinks
 from ..utils import io as vio
 from ..weights.bridge import seeded_init_
 
 _RESIZE_CACHE_SIZE = 8
+
+_capture_tls = threading.local()
+
+
+def start_weights_capture() -> list:
+    """Begin a fresh capture of weights resolutions on this thread; returns
+    the live list that later :func:`record_weights` calls on this thread
+    append to (the JAX package's ``weights/store.py``
+    ``start_weights_capture``)."""
+    cap: list = []
+    _capture_tls.capture = cap
+    return cap
+
+
+def record_weights(model_key: str, path: Optional[str]) -> None:
+    """Record what an extractor loaded for ``model_key``, under the JAX
+    package's model keys: ``{model_key, path, sha256}`` for a checkpoint
+    file, ``{model_key, random: True}`` for the seeded init."""
+    cap = getattr(_capture_tls, "capture", None)
+    if cap is None:
+        return
+    if not path:
+        cap.append({"model_key": model_key, "random": True})
+        return
+    from ..cache import file_sha256
+    try:
+        cap.append({"model_key": model_key, "path": str(path),
+                    "sha256": file_sha256(str(path))})
+    except OSError:
+        pass  # keying metadata: an unreadable file fails its load instead
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -51,14 +83,18 @@ def load_weights(module: nn.Module, path: Optional[str], allow_random: bool,
                  seed: int, what: str) -> nn.Module:
     """Load a checkpoint in the reference's torch key layout into
     ``module`` (``strict=True``), or give it the seeded random init when
-    ``path`` is unset and ``allow_random`` is true."""
+    ``path`` is unset and ``allow_random`` is true; ``what`` is the JAX
+    package's model key, recorded for the cache key
+    (:func:`record_weights`)."""
     if path:
+        record_weights(what, path)
         module.load_state_dict(read_state_dict(path), strict=True)
         return module
     if not allow_random:
         raise FileNotFoundError(
             f"no checkpoint for {what}: pass its weights path, or "
             "allow_random_weights=true for a seeded random init")
+    record_weights(what, None)
     return seeded_init_(module, seed)
 
 
@@ -93,6 +129,14 @@ class BaseExtractor:
         self.decode_depth = None if raw_dd is None else int(raw_dd)
         self.args = args
         self._mesh = mesh
+        # cache=true: the capture starts before the subclass loads its
+        # weights; the cache handle is built on the first _extract, once
+        # the resolved attributes (resize_mode, ingest) exist
+        self.cache_enabled = bool(args.get("cache", False))
+        if self.cache_enabled:
+            self._weights_capture = start_weights_capture()
+        self._cache = None
+        self._cache_built = False
 
     def _data_mesh(self) -> Mesh:
         """The mesh of this extractor's runners: the one given to the
@@ -123,7 +167,19 @@ class BaseExtractor:
         :class:`utils.faults.FaultContext` the context's
         ``decode_override`` (the ladder's rung for a retry) replaces
         ``video_decode``, and the source is registered with the context so
-        its deadline watchdog can cancel it."""
+        its deadline watchdog can cancel it.
+
+        Inside a multi-family run (a ``parallel/fanout.py``
+        ``SharedDecodeSession`` on this thread) the first attempt
+        subscribes to the video's one shared decode and gets a
+        ``SharedFrameSource`` with the same surface, registered with the
+        context by the bus; a declined subscription (a retry) falls
+        through to a private source."""
+        session = fanout.current_session()
+        if session is not None:
+            sub = session.subscribe(self.feature_type, **kwargs)
+            if sub is not None:
+                return sub
         ctx = faults.current_context()
         mode = self.video_decode
         if ctx is not None and ctx.decode_override:
@@ -174,12 +230,40 @@ class BaseExtractor:
                     in_h, in_w, oh, ow, device, interpolation)
             return fn
 
+    def feature_cache(self):
+        """This extractor's ``cache.FeatureCache``, or None under
+        ``cache=false``; built once, on first use."""
+        if not self._cache_built:
+            self._cache_built = True
+            if self.cache_enabled:
+                from ..cache import FeatureCache
+                self._cache = FeatureCache.for_extractor(self)
+        return self._cache
+
     def _extract(self, video_path: str) -> Optional[Dict[str, np.ndarray]]:
+        """A cache hit (served through the sink, which still skips files
+        that exist), else the filename skip, else extract, sink and store.
+        The store comes after the sink, so a failing sink keeps features
+        out of the store; a failing store is printed and the video is done
+        (its outputs are on disk)."""
+        cache = self.feature_cache()
+        if cache is not None:
+            feats = cache.lookup(video_path, self.output_feat_keys)
+            if feats is not None:
+                self.action_on_extraction(feats, video_path)
+                return feats
         if sinks.is_already_exist(self.on_extraction, self.output_path,
                                   video_path, self.output_feat_keys):
             return None
         feats = self.extract(video_path)
         self.action_on_extraction(feats, video_path)
+        if cache is not None:
+            try:
+                cache.store(video_path, feats)
+            except Exception as e:
+                print(f"cache: store failed for {video_path} "
+                      f"({type(e).__name__}: {e}) — features are on disk, "
+                      "entry skipped")
         return feats
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:

@@ -35,10 +35,15 @@ from ..ops import preprocess as pp
 from ..parallel.mesh import (TP_RULES_TRANSFORMER, DataParallelApply, Mesh,
                              get_mesh, param_specs_by_rules)
 from ..utils.labels import load_label_map, show_predictions_on_dataset
-from .base import load_weights, read_state_dict
+from .base import load_weights, read_state_dict, record_weights
 from .frame_wise import FrameWiseExtractor
 
 SEED_CLIP = 6
+
+
+def model_key(model_name: str) -> str:
+    """The JAX package's weights key: 'ViT-B/32' -> 'clip_ViT-B-32'."""
+    return "clip_" + model_name.replace("/", "-").replace("@", "-")
 
 
 class ExtractCLIP(FrameWiseExtractor):
@@ -53,6 +58,10 @@ class ExtractCLIP(FrameWiseExtractor):
         elif self.model_name not in clip_model.CONFIGS:
             raise NotImplementedError(f"Model {self.model_name} not found")
         if weights_path:
+            if self.model_name != "custom":
+                # custom reads its architecture off the file: the JAX
+                # package resolves (and records) no model key for it
+                record_weights(model_key(self.model_name), weights_path)
             state = clip_model.checkpoint_state(read_state_dict(weights_path))
             cfg = (clip_model.config_from_state_dict(state)
                    if self.model_name == "custom"
@@ -63,7 +72,7 @@ class ExtractCLIP(FrameWiseExtractor):
             cfg = clip_model.CONFIGS[self.model_name]
             model = load_weights(clip_model.CLIP(cfg), None,
                                  self.allow_random, SEED_CLIP,
-                                 f"clip {self.model_name}")
+                                 model_key(self.model_name))
         self.cfg = cfg
         size = cfg.image_resolution
         if self.ingest == "yuv420" and size % 2:

@@ -2,8 +2,9 @@
 reference models/vggish/extract_vggish.py).
 
 An ``.mp4`` has its audio ripped to wav by ffmpeg (two steps via aac,
-``utils/io.py extract_wav_from_mp4``); a ``.wav`` is read as it is; any
-other suffix raises. The waveform becomes 0.96 s examples and each batch of
+``utils/io.py extract_wav_from_mp4``), once per video in a multi-family run
+(``parallel/fanout.py SharedDecodeSession.shared_wav``); a ``.wav`` is read
+as it is; any other suffix raises. The waveform becomes 0.96 s examples and each batch of
 ``batch_size`` examples goes through the VGG on the card:
 
   - ``frontend=host`` (the default): the numpy log-mel frontend on the host
@@ -34,6 +35,7 @@ from ..config import Config, pca_weights_path
 from ..models import vggish as vggish_model
 from ..models.common import cast_floating_
 from ..ops import audio
+from ..parallel import fanout
 from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import extract_wav_from_mp4
 from .base import BaseExtractor, load_weights
@@ -96,9 +98,16 @@ class ExtractVGGish(BaseExtractor):
         ext = Path(video_path).suffix
         wav_path = aac_path = None
         if ext == ".mp4":
-            wav_path, aac_path = extract_wav_from_mp4(video_path,
-                                                      self.tmp_path)
-            audio_path = wav_path
+            session = fanout.current_session()
+            if session is not None:
+                # a multi-family run: one rip per video for every audio
+                # family; the session removes it when all have finished
+                audio_path = session.shared_wav(video_path, self.tmp_path,
+                                                extract_wav_from_mp4)
+            else:
+                wav_path, aac_path = extract_wav_from_mp4(video_path,
+                                                          self.tmp_path)
+                audio_path = wav_path
         elif ext == ".wav":
             audio_path = video_path
         else:

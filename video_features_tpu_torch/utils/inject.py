@@ -23,8 +23,10 @@ package, so one seed fires at the same hits in both). Each rule is
 The grammar names every site of the JAX package (:data:`SITES`). The port
 hosts ``decode.read`` (``utils/io.py _FrameStream.read``, every decode
 source, spawned decode workers included), ``sink.tmp_write`` /
-``sink.fsync`` / ``sink.rename`` (``utils/sinks.py _write_bytes_atomic``)
-and ``worker.kill`` (``utils/sinks.py safe_extract``, once per attempt). A
+``sink.fsync`` / ``sink.rename`` (``utils/sinks.py _write_bytes_atomic``),
+``worker.kill`` (``utils/sinks.py safe_extract``, once per attempt) and
+``cache.lookup`` (``torn``: the entry is truncated before it is read) /
+``cache.store`` (``cache.py FeatureCache``). A
 plan naming a site whose plane is not ported (:data:`UNPORTED_SITES`) raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` Queue 1 item, so no rule
 is ever left silently dead.
@@ -55,7 +57,6 @@ SITES = (
 #: sites whose plane the port does not run yet -> the ROADMAP.md Queue 1
 #: item that ports it
 UNPORTED_SITES = {
-    "cache.store": 7, "cache.lookup": 7,
     "queue.claim": 8, "queue.steal_staging": 8, "spool.claim": 8,
     "spool.respond": 8, "gateway.read": 8, "gateway.spool_submit": 8,
     "gc.evict": 8, "gc.sweep": 8,

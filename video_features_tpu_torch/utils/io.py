@@ -113,9 +113,38 @@ def plan_frame_selection(src_fps: float, src_num_frames: int,
 #: (the frame-wise families' raw wire under ``ingest=yuv420``)
 CHANNEL_ORDERS = ("rgb", "i420")
 
+_decoded_lock = threading.Lock()
+_decoded = 0
+
+
+def decoded_frames() -> int:
+    """Source frames this process has decoded so far (every grab of every
+    :class:`_FrameStream`: the frames read and the frames skipped)."""
+    return _decoded
+
+
+def _count_decoded() -> None:
+    global _decoded
+    with _decoded_lock:
+        _decoded += 1
+
+
+def convert_decoded(frame_bgr: np.ndarray,
+                    channel_order: Optional[str]) -> np.ndarray:
+    """A decoder-native BGR frame as ``channel_order`` (None: as it is):
+    the one conversion of every decode path, so the shared decode
+    (``parallel/fanout.py``) and a private source cannot drift."""
+    if channel_order is None:
+        return frame_bgr
+    import cv2
+    code = (cv2.COLOR_BGR2RGB if channel_order == "rgb"
+            else cv2.COLOR_BGR2YUV_I420)
+    return cv2.cvtColor(frame_bgr, code)
+
 
 class _FrameStream:
-    """Sequential cv2 decoder (``channel_order`` out) with the reference's
+    """Sequential cv2 decoder (``channel_order`` out, or with None the
+    decoder's own BGR frames, for the shared decode) with the reference's
     retry of a missing frame #0 (reference utils/io.py:99-106).
 
     ``start > 0`` seeks to that source frame first (frame-accurate on the
@@ -132,15 +161,13 @@ class _FrameStream:
     #: how long ``release`` waits for a cv2 call in flight
     RELEASE_GRACE_S = 1.0
 
-    def __init__(self, path: str, channel_order: str = "rgb",
+    def __init__(self, path: str, channel_order: Optional[str] = "rgb",
                  start: int = 0):
         import cv2
-        if channel_order not in CHANNEL_ORDERS:
+        if channel_order is not None and channel_order not in CHANNEL_ORDERS:
             raise ValueError(f"channel_order={channel_order!r}: expected "
                              f"one of {CHANNEL_ORDERS}")
-        self._cv2 = cv2
-        self._code = (cv2.COLOR_BGR2RGB if channel_order == "rgb"
-                      else cv2.COLOR_BGR2YUV_I420)
+        self._order = channel_order
         self._path = str(path)
         self.cap = cv2.VideoCapture(self._path)
         self._busy = threading.Lock()  # held while a cv2 call runs
@@ -174,10 +201,11 @@ class _FrameStream:
             self._first = False
             if not ok:
                 return None
+            _count_decoded()
             if grab_only:
                 return True
             ok, frame = cap.retrieve()
-        return self._cv2.cvtColor(frame, self._code) if ok else None
+        return convert_decoded(frame, self._order) if ok else None
 
     def read(self) -> Optional[np.ndarray]:
         if self._inject is not None:
