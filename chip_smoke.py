@@ -166,17 +166,37 @@ that goes wrong:
    the second serves every family from the store with no frame decoded,
    no rip and no proj launch, bit-equal to the first. Shared and single
    runs in turns (S, singles, singles, S) and one profiled shared run;
-17. prints one JSON line each of the i3d slice's, the raft family's, the
+17. drives the main path through the CLI with the run plane off and on
+   (:func:`telemetry_phase`): ``cli.main`` on i3d two-stream
+   ``flow_type=raft`` at the slice's widths (20 iterations, float32,
+   ``flow_stack_batch=1``, ``clip_batch_size=2``, ``resize=device``,
+   seeded weights) over the vendored sample decoded at 7.3 fps (132
+   frames: two 64-frame stacks), once with every run-plane key off and
+   once with ``telemetry=true trace=true health=true profile=true
+   profile_trace_dir=...``, counts set to 0 just before each and read just
+   after; and once more with those keys but no capture, so the capture's
+   cost shows apart. Held: the features equal bit for bit (max abs 0.0);
+   proj 20 launches per stack in every run; the one ``_telemetry.jsonl`` span valid
+   under the port's schema, ``done``, with ``decode``, ``h2d``, ``forward``
+   and ``write`` all > 0; a final ``_heartbeat_*.json`` and a ``_run.json``
+   whose topology names the card; one valid ``_health.jsonl`` record per
+   output key with no NaN or Inf; a ``_trace.json`` that parses, with the
+   required fields of every event and the load-bearing spans; the
+   ``torch.profiler`` Chrome trace with the proj kernel among its device
+   events; the profile summary printed. Both walls and each stage's total;
+18. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
-   vggish, parallel and multi phases' numbers, one of the kernels'
-   numbers, and last ``{"ok": true, "device": {...}}``.
+   vggish, parallel, multi and telemetry phases' numbers, one of the
+   kernels' numbers, and last ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX and needs no yaml or ffmpeg: the frames and the
-WAVs are synthetic (the WAVs written with the stdlib ``wave`` under
+It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
+synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
-transforms and the I420 encoder are numpy. Only the multi phase decodes a
-video, with cv2, and fails without it. PIL is needed by the frame-wise
-phases' ``resize=host`` runs; scipy by the vggish phase's resampling.
+transforms and the I420 encoder are numpy. The multi and telemetry phases
+decode a video, with cv2, and fail without it; the telemetry phase runs
+the CLI, which reads the family YAML with yaml. PIL is needed by the
+frame-wise phases' ``resize=host`` runs; scipy by the vggish phase's
+resampling.
 """
 from __future__ import annotations
 
@@ -2141,6 +2161,200 @@ def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
         shared_profile=profile)
 
 
+#: the telemetry phase: the sample at 7.3 fps is 132 frames, two 64-frame
+#: stacks; the run-plane keys it turns on (profile_trace_dir beside them)
+TELEMETRY_FPS = 7.3
+TELEMETRY_ON = ("telemetry=true", "trace=true", "health=true",
+                "profile=true")
+#: the stages every span of the main path must show
+TELEMETRY_STAGES = ("decode", "h2d", "forward", "write")
+#: the trace spans the phase requires (profiler stages and the attempt)
+TELEMETRY_SPANS = ("decode", "h2d", "forward", "write", "health",
+                   "video_attempt")
+
+
+def telemetry_argv(root: str, video: str, **over) -> list:
+    """The CLI arguments of the telemetry phase: i3d two-stream RAFT at the
+    slice's widths into ``root``; ``over`` replaces keys (the CPU test's
+    small sizes)."""
+    cfg = dict(feature_type="i3d", flow_type="raft", streams=None,
+               flow_iters=None, flow_stack_batch=1, stack_size=STACK,
+               step_size=STACK, clip_batch_size=2, resize="device",
+               extraction_fps=TELEMETRY_FPS, device="cuda",
+               precision="float32", allow_random_weights=True,
+               on_extraction="save_numpy", retry_attempts=1,
+               output_path=f"{root}/out", tmp_path=f"{root}/tmp",
+               video_paths=video)
+    cfg.update(over)
+    return [f"{k}={'null' if v is None else v}" for k, v in cfg.items()]
+
+
+def check_trace_events(doc: dict, required: dict, spans) -> set:
+    """The ``X`` span names of a ``_trace.json`` document; raises unless
+    every event carries its phase's required fields and every name of
+    ``spans`` is there."""
+    events = doc.get("traceEvents")
+    if not isinstance(events, list) or not events:
+        raise AssertionError("telemetry: _trace.json has no events")
+    for ev in events:
+        missing = [k for k in required.get(ev.get("ph"), ("ph",))
+                   if k not in ev]
+        if missing:
+            raise AssertionError(f"telemetry: trace event {ev} lacks "
+                                 f"{missing}")
+    names = {e["name"] for e in events if e["ph"] == "X"}
+    if not set(spans) <= names:
+        raise AssertionError(f"telemetry: trace spans {sorted(names)} lack "
+                             f"{sorted(set(spans) - names)}")
+    return names
+
+
+def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
+    """The main path through ``cli.main`` with the run plane off, then on
+    (:data:`TELEMETRY_ON` and ``profile_trace_dir``), from the same seeded
+    weights, each run's launch counts set to 0 just before and read just
+    after; then every artifact of the on run checked (module docstring,
+    step 17). ``over`` replaces CLI keys (the CPU test's small sizes)."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+
+    import cv2  # noqa: F401  (the decode of the mp4; fail here without it)
+
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.telemetry import health, schema, trace
+
+    root = "output/chip_smoke/telemetry"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    # "capture_off": the run plane without the torch.profiler capture, so
+    # the capture's own cost shows apart from the recorders'
+    for name, keys in (("off", ()), ("on", TELEMETRY_ON + (
+            f"profile_trace_dir={root}/prof",)),
+                       ("capture_off", TELEMETRY_ON)):
+        argv = telemetry_argv(f"{root}/{name}", video, **over) + list(keys)
+        buf = io.StringIO()
+        reset_counts(cl)
+        synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        synchronize()
+        runs[name] = dict(wall_s=time.perf_counter() - t,
+                          launches=read_counts(cl), stdout=buf.getvalue(),
+                          dir=f"{root}/{name}/out/i3d")
+    on, off = runs["on"], runs["off"]
+    for name, run in runs.items():
+        if "1 extracted" not in run["stdout"]:
+            raise AssertionError(f"telemetry: the {name} run did not "
+                                 f"extract: {run['stdout'][-300:]}")
+
+    # the features, bit for bit, and proj's launches in every run
+    want = read_outputs(off["dir"])
+    stem = os.path.splitext(os.path.basename(video))[0]
+    stacks = len(want.get(f"{stem}_timestamps_ms.npy", []))
+    iters = int(over.get("flow_iters") or ITERS)
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    proj_want = iters * stacks if on_card else 0
+    max_abs = 0.0
+    for name, run in runs.items():
+        got = read_outputs(run["dir"])
+        if sorted(got) != sorted(want) or not want:
+            raise AssertionError(f"telemetry: {name} outputs {sorted(got)} "
+                                 f"against {sorted(want)}")
+        err = max(float(np.abs(got[k].astype(np.float64)
+                               - want[k].astype(np.float64)).max())
+                  if got[k].size else 0.0 for k in want)
+        max_abs = max(max_abs, err)
+        if err != 0.0 or any(got[k].tobytes() != want[k].tobytes()
+                             for k in want):
+            raise AssertionError(f"telemetry: the {name} run's features "
+                                 f"differ from the off run's (max abs "
+                                 f"{err})")
+        if run["launches"] != dict(level=0, proj=proj_want, packed=0):
+            raise AssertionError(f"telemetry: the {name} run launched "
+                                 f"{run['launches']}, proj expected "
+                                 f"{proj_want} ({stacks} stacks)")
+
+    # the span
+    spans = [json.loads(line) for line in
+             open(f"{on['dir']}/_telemetry.jsonl") if line.strip()]
+    if len(spans) != 1:
+        raise AssertionError(f"telemetry: {len(spans)} spans")
+    span = spans[0]
+    errs = schema.validate(span, schema.load_span_schema())
+    stage_s = {k: span["stages"].get(k, {}).get("s", 0.0)
+               for k in TELEMETRY_STAGES}
+    if errs or span["status"] != "done" or not all(
+            v > 0 for v in stage_s.values()):
+        raise AssertionError(f"telemetry: span {errs} {span['status']} "
+                             f"{span['stages']}")
+
+    # the heartbeat and the manifest
+    beats = glob.glob(f"{on['dir']}/_heartbeat_*.json")
+    if len(beats) != 1:
+        raise AssertionError(f"telemetry: heartbeats {beats}")
+    beat = json.load(open(beats[0]))
+    manifest = json.load(open(f"{on['dir']}/_run.json"))
+    card_name = torch.cuda.get_device_name(0) if on_card else None
+    topo = manifest["topology"]
+    if not beat["final"] or topo.get("device_name") != card_name or (
+            on_card and card_name not in topo.get("device_kinds", [])):
+        raise AssertionError(f"telemetry: heartbeat final {beat['final']}, "
+                             f"topology {topo}")
+
+    # one valid health record per output key, all finite
+    records = [json.loads(line) for line in
+               open(f"{on['dir']}/{health.HEALTH_FILENAME}")
+               if line.strip()]
+    keys = sorted(k[len(stem) + 1:-4] for k in got)
+    bad = [r for r in records if health.validate_health(r)
+           or r["nan"] or r["inf"]]
+    if sorted(r["key"] for r in records) != keys or bad:
+        raise AssertionError(f"telemetry: health records "
+                             f"{[r['key'] for r in records]} for {keys}, "
+                             f"bad {bad}")
+
+    # the host trace and the device trace
+    required = {"X": trace.REQUIRED_X_FIELDS, "i": trace.REQUIRED_I_FIELDS,
+                "C": trace.REQUIRED_C_FIELDS, "M": trace.REQUIRED_M_FIELDS}
+    host_spans = check_trace_events(
+        json.load(open(f"{on['dir']}/{trace.TRACE_FILENAME}")), required,
+        TELEMETRY_SPANS)
+    prof = glob.glob(f"{root}/prof/*.pt.trace.json")
+    if len(prof) != 1 or f"profile trace: {prof[0]}" not in on["stdout"]:
+        raise AssertionError(f"telemetry: profiler traces {prof}")
+    device_events = [e for e in json.load(open(prof[0]))["traceEvents"]
+                     if e.get("cat") == "kernel"]
+    proj_events = [e for e in device_events
+                   if "proj_kernel" in e.get("name", "")]
+    if on_card and len(proj_events) != proj_want:
+        raise AssertionError(f"telemetry: the profiler trace holds "
+                             f"{len(proj_events)} proj kernels of "
+                             f"{len(device_events)} device events, "
+                             f"{proj_want} expected")
+    if "[profile: i3d x 1 videos] total accounted:" not in on["stdout"]:
+        raise AssertionError("telemetry: no profile summary printed")
+    return dict(
+        video=video, fps=TELEMETRY_FPS, stacks=stacks,
+        wall_s={name: run["wall_s"] for name, run in runs.items()},
+        max_abs_on_vs_off=max_abs,
+        proj_launches={name: run["launches"]["proj"]
+                       for name, run in runs.items()},
+        span_stages=span["stages"], span_wall_s=span["wall_s"],
+        stage_totals=manifest["stage_totals"],
+        health_records=len(records), trace_spans=sorted(host_spans),
+        trace_events=len(json.load(open(
+            f"{on['dir']}/{trace.TRACE_FILENAME}"))["traceEvents"]),
+        profiler_device_events=len(device_events),
+        profiler_proj_kernels=len(proj_events),
+        profiler_trace_bytes=os.path.getsize(prof[0]),
+        topology_device_name=topo.get("device_name"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2182,6 +2396,8 @@ def main() -> int:
     empty_cache()
     multi_stats = multi_phase()
     empty_cache()
+    telemetry_stats = telemetry_phase()
+    empty_cache()
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -2195,6 +2411,9 @@ def main() -> int:
                     if r["name"] == "corr_lookup_proj_cuda")
     proj_row["launches_raft_default"] = raft_stats["default_launches"]["proj"]
     proj_row["launches_i3d_raft_bfloat16"] = proj_launches_bf16
+    proj_row["launches_telemetry_off_on"] = [
+        telemetry_stats["proj_launches"]["off"],
+        telemetry_stats["proj_launches"]["on"]]
     proj_row["launches_parallel_raft_per_replica"] = [
         t["proj"] for t in parallel_stats["raft"]["per_replica"]]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
@@ -2210,6 +2429,7 @@ def main() -> int:
     vggish_stats["card"] = card
     parallel_stats["card"] = card
     multi_stats["card"] = card
+    telemetry_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -2221,6 +2441,7 @@ def main() -> int:
     print(json.dumps({"vggish": vggish_stats}))
     print(json.dumps({"parallel": parallel_stats}))
     print(json.dumps({"multi": multi_stats}))
+    print(json.dumps({"telemetry": telemetry_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

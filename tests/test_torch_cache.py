@@ -37,9 +37,10 @@ from video_features_tpu.telemetry import health as jhealth
 from video_features_tpu.telemetry.context import use_request as j_use_request
 from video_features_tpu_torch import cache as tcache
 from video_features_tpu_torch import config as tconfig
+from video_features_tpu_torch.telemetry import health as thealth
 from video_features_tpu_torch.utils import inject as tinject
 from video_features_tpu_torch.utils import io as tio
-from video_features_tpu_torch.utils.context import use_request
+from video_features_tpu_torch.telemetry.context import use_request
 
 REPO = Path(__file__).resolve().parents[1]
 FAMILIES = ("i3d", "raft", "pwc", "r21d", "s3d", "resnet", "clip", "vggish")
@@ -133,10 +134,12 @@ def test_weights_fingerprint_and_content_signature_equal_jax():
     for arr in (x, x.astype(np.float64), np.float64(4.0),
                 np.array([np.nan, np.inf, -np.inf, 1e30]),
                 np.array([{"a": 1}], dtype=object), x + 1e-4):
-        assert tcache.content_signature(arr) == \
+        assert thealth.content_signature(arr) == \
             jhealth.content_signature(arr)
-    assert tcache.SIG_GRID == jhealth.SIG_GRID
-    assert tcache.content_signature(x + 0.1) != tcache.content_signature(x)
+    assert thealth.SIG_GRID == jhealth.SIG_GRID
+    assert thealth.content_signature(x + 0.1) != \
+        thealth.content_signature(x)
+    assert tcache.content_signature is thealth.content_signature
 
 
 @pytest.mark.parametrize("tenant", [None, "alpha"])
@@ -268,7 +271,8 @@ def test_jax_and_port_entries_never_serve_each_other(store, tmp_path):
 
 @pytest.fixture(scope="module")
 def resnet18_ckpts(tmp_path_factory):
-    """Two seeded resnet18 checkpoints in torchvision's key layout."""
+    """Two seeded resnet18 checkpoints in torchvision's key layout, removed
+    when the module's tests are done."""
     from video_features_tpu_torch.models.resnet import ResNet
     from video_features_tpu_torch.weights.bridge import seeded_init_
     td = tmp_path_factory.mktemp("cache_ckpt")
@@ -277,7 +281,9 @@ def resnet18_ckpts(tmp_path_factory):
         paths.append(td / f"resnet18_{seed}.pt")
         torch.save(seeded_init_(ResNet("resnet18"), seed).state_dict(),
                    paths[-1])
-    return paths
+    yield paths
+    for path in paths:
+        path.unlink(missing_ok=True)
 
 
 def _raw_cfg(video, out, cache_dir, **over):

@@ -398,3 +398,55 @@ def test_multi_phase_runs_on_the_cpu(tmp_path, monkeypatch, sample_video):
     assert stats["cache"]["entries"] == 5 and stats["cache"]["bytes"] > 0
     assert "not measured" in stats["shared_profile"]["device_time"]
     assert not (tmp_path / "output" / "chip_smoke" / "multi").exists()
+
+
+def test_telemetry_argv_is_the_slice_through_the_cli():
+    """The telemetry phase's CLI arguments are i3d two-stream RAFT at the
+    slice's widths and pass the port's checks; the sample at its fps gives
+    two 64-frame stacks."""
+    from video_features_tpu_torch import config as tconfig
+    from video_features_tpu_torch.utils.io import plan_frame_selection
+
+    argv = cs.telemetry_argv("root", "v.mp4", device="cpu")
+    cfg = tconfig.load_config("i3d", tconfig.parse_dotlist(argv))
+    tconfig.sanity_check(cfg)
+    want = dict(flow_type="raft", streams=None, flow_iters=None,
+                flow_stack_batch=1, stack_size=64, step_size=64,
+                clip_batch_size=2, resize="device", precision="float32",
+                on_extraction="save_numpy", extraction_fps=cs.TELEMETRY_FPS)
+    assert {k: cfg[k] for k in want} == want
+    assert cfg.output_path == "root/out/i3d"
+    n = plan_frame_selection(19.62, 355, fps=cs.TELEMETRY_FPS)[2]
+    assert (n - 1) // cs.STACK == 2
+
+
+def test_check_trace_events_fails_a_missing_field_or_span():
+    from video_features_tpu_torch.telemetry import trace
+
+    required = {"X": trace.REQUIRED_X_FIELDS}
+    ev = dict(ph="X", ts=0.0, dur=1.0, pid=1, tid=1, name="decode")
+    assert cs.check_trace_events({"traceEvents": [ev]}, required,
+                                 ["decode"]) == {"decode"}
+    with pytest.raises(AssertionError, match="lack"):
+        cs.check_trace_events({"traceEvents": [ev]}, required, ["write"])
+    with pytest.raises(AssertionError, match="lacks"):
+        cs.check_trace_events({"traceEvents": [
+            {k: v for k, v in ev.items() if k != "dur"}]}, required, [])
+
+
+def test_telemetry_phase_runs_on_the_cpu(tmp_path, monkeypatch,
+                                         sample_video):
+    """The telemetry phase on the CPU at a small size (one 10-frame stack,
+    2 RAFT iterations): the run plane on and off give equal features, and
+    every artifact checks; no lookup kernel runs on the CPU."""
+    monkeypatch.chdir(tmp_path)
+    stats = cs.telemetry_phase(
+        video=sample_video, device="cpu", stack_size=10, step_size=10,
+        flow_iters=2, extraction_fps=1)
+    assert stats["max_abs_on_vs_off"] == 0.0 and stats["stacks"] == 1
+    assert stats["proj_launches"] == {"off": 0, "on": 0, "capture_off": 0}
+    assert stats["health_records"] == 4
+    assert {"decode", "h2d", "forward", "write"} <= set(
+        stats["stage_totals"])
+    assert stats["topology_device_name"] is None
+    assert stats["profiler_trace_bytes"] > 0

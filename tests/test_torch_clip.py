@@ -345,12 +345,15 @@ def test_custom_needs_weights_path(tmp_path, sample_video):
 
 @pytest.fixture(scope="module")
 def vit_b32_checkpoint(tmp_path_factory):
+    """A seeded full-width ViT-B/32 checkpoint (577 MB), removed when the
+    module's tests are done."""
     path = tmp_path_factory.mktemp("clip") / "vit_b32.pt"
     model = seeded_init_(tc.CLIP(tc.CONFIGS["ViT-B/32"]), 11)
     with torch.no_grad():
         model.logit_scale.fill_(float(np.log(1 / 0.07)))
     torch.save(model.state_dict(), path)
-    return path
+    yield path
+    path.unlink(missing_ok=True)
 
 
 def _compare(jex, tex, video, key_dim):

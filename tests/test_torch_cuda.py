@@ -36,6 +36,10 @@ replicated model (1e-4).
 The multi-family CLI on the card: each family of a shared-decode
 run within 1e-4 of its single-family run, with fewer frames decoded; and a
 cache hit bit-equal to the miss that stored it.
+
+The run plane's device trace: ``utils/profiling.py TraceCapture`` around
+proj launches on the card writes a Chrome trace whose device events name
+the proj kernel once per launch.
 """
 from pathlib import Path
 
@@ -378,3 +382,26 @@ def test_cache_hit_on_card_bit_equal_to_its_miss(cuda_card, tmp_path):
     for key in miss:
         assert np.asarray(hit[key]).tobytes() == \
             np.asarray(miss[key]).tobytes(), key
+
+
+@pytest.mark.cuda
+def test_trace_capture_on_card_names_the_proj_kernel(cuda_card, tmp_path):
+    import json
+
+    from video_features_tpu_torch.utils.profiling import TraceCapture
+
+    pyramid, coords = _case("random")
+    tp = [torch.from_numpy(p).to(cuda_card) for p in pyramid]
+    tc = torch.from_numpy(coords).to(cuda_card)
+    weight = torch.full((324, 256), 0.01, device=cuda_card)
+    bias = torch.zeros(256, device=cuda_card)
+    tcl.corr_lookup_proj_cuda(tp, tc, weight, bias)  # build before the trace
+    torch.cuda.synchronize()
+    with TraceCapture(str(tmp_path)) as cap:
+        for _ in range(3):
+            tcl.corr_lookup_proj_cuda(tp, tc, weight, bias)
+        torch.cuda.synchronize()
+    assert cap.path is not None and Path(cap.path).parent == tmp_path
+    events = json.loads(Path(cap.path).read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("proj_kernel" in name for name in kernels) == 3, kernels

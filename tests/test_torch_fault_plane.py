@@ -26,7 +26,9 @@
   three seeds; a site of an unported plane raises ``NotImplementedError``
   naming its Queue 1 item (JAX accepts it); the sink sites raise as JAX's
   and leave no temp file; the cache sites fire as JAX's (``cache.store``
-  fails the write, ``cache.lookup=torn`` drops the entry); ``decode.read``
+  fails the write, ``cache.lookup=torn`` drops the entry); the
+  ``heartbeat.tick`` site fires as JAX's (``freeze`` skips a tick, ``eio``
+  is a counted tick error); ``decode.read``
   fires in a spawned decode worker armed by ``VFT_INJECT``; the CLI arms a
   plan, prints the summary line JAX's plan gives for the same hits, and
   disarms it, and a failed cache store leaves the video done.
@@ -405,7 +407,7 @@ def test_plan_parses_and_fires_like_jax(seed):
     ("queue.claim", 8),
     ("queue.steal_staging", 8), ("spool.claim", 8), ("spool.respond", 8),
     ("gateway.read", 8), ("gateway.spool_submit", 8), ("gc.evict", 8),
-    ("gc.sweep", 8), ("heartbeat.tick", 9)])
+    ("gc.sweep", 8)])
 def test_unported_sites_raise(site, item):
     spec = f"seed=1;{site}=eio@n1"
     jinject.parse_plan(spec)  # the JAX package hosts it
@@ -413,8 +415,41 @@ def test_unported_sites_raise(site, item):
         tinject.parse_plan(spec)
     assert set(tinject.UNPORTED_SITES) | {
         "decode.read", "sink.tmp_write", "sink.fsync", "sink.rename",
-        "worker.kill", "cache.store", "cache.lookup"} == \
+        "worker.kill", "cache.store", "cache.lookup", "heartbeat.tick"} == \
         set(tinject.SITES) == set(jinject.SITES)
+
+
+@pytest.mark.parametrize("rule", ["freeze@n2", "eio@n3"])
+def test_heartbeat_tick_site_fires_like_jax(rule):
+    """``heartbeat.tick`` through both packages' ``HeartbeatThread`` on a
+    10 ms interval: ``freeze`` skips the second tick silently, ``eio``
+    fails the third and is counted as a tick error; each plan fired once
+    (the hit counts depend on the thread's timing)."""
+    from video_features_tpu.telemetry import heartbeat as jhb
+    from video_features_tpu_torch.telemetry import heartbeat as thb
+
+    spec = f"seed=3;heartbeat.tick={rule}"
+    got = {}
+    for name, inj, hb in (("port", tinject, thb), ("jax", jinject, jhb)):
+        plan = inj.arm_for_run(spec)
+        ticks = []
+        thread = hb.HeartbeatThread(lambda: ticks.append(1), 0.01)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                thread.start()
+                deadline = time.monotonic() + 30
+                while len(ticks) < 4 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                thread.stop()
+        finally:
+            inj.disarm()
+        assert len(ticks) >= 4
+        got[name] = (thread.frozen_ticks, thread.tick_errors_total,
+                     dict(plan.fired))
+    assert got["port"] == got["jax"]
+    assert got["port"][2] == {"heartbeat.tick": 1}
+    assert got["port"][:2] == ((1, 0) if rule.startswith("freeze")
+                               else (0, 1))
 
 
 @pytest.mark.parametrize("site,rule", [("cache.store", "eio@n2"),

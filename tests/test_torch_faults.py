@@ -6,7 +6,10 @@
   The keys of batching and data parallelism (``distributed``,
   ``mesh_devices``, ``video_workers``, ``cross_video_batching``,
   ``model_parallel``) and of the feature cache (``cache``, ``cache_dir``,
-  ``cache_scope``) are ported: each runs at the values JAX accepts.
+  ``cache_scope``) are ported: each runs at the values JAX accepts. So are
+  the run-plane keys (``telemetry``, ``metrics_interval_s``, ``trace``,
+  ``health``): each writes its artifact and is rejected at a bad value as
+  JAX rejects it.
   Every family dispatches (``vggish`` too).
 - ``RetryPolicy`` and ``classify`` agree with the JAX ones (defaults,
   backoff delays under one seeded rng, the category of each exception).
@@ -45,8 +48,7 @@ GATED_CASES = [
     ("compilation_cache_dir", "/c", 8), ("fleet", "queue", 8),
     ("fleet_lease_s", 30, 8), ("fleet_max_reclaims", 5, 8),
     ("fleet_canary", True, 8), ("serve_slo_s", 0.5, 8),
-    ("telemetry", True, 9), ("metrics_interval_s", 5, 9),
-    ("trace", True, 9), ("health", True, 9), ("parity", True, 9),
+    ("parity", True, 9),
     ("roofline", True, 9), ("history", True, 9), ("alerts", True, 9),
     ("vision_attn", "blockwise", 10), ("config", "other.yml", None)]
 
@@ -68,12 +70,60 @@ def test_every_gated_key_is_tested_and_in_every_yaml():
     other gated key is in every port YAML. None of the parallel keys is
     gated."""
     assert {k for k, _, _ in GATED_CASES} == set(tconfig.GATED_KEYS)
-    assert not {k for k, _ in PARALLEL_CASES + CACHE_CASES} & \
-        set(tconfig.GATED_KEYS)
+    assert not {k for k, _ in PARALLEL_CASES + CACHE_CASES
+                + TELEMETRY_CASES} & set(tconfig.GATED_KEYS)
     for family in FAMILIES:
         missing = set(tconfig.GATED_KEYS) - set(tconfig.load_config(family))
         assert missing == (set() if family == "clip" else CLIP_ONLY_KEYS), \
             family
+
+
+#: the run-plane keys, at values JAX accepts, with the artifact each
+#: makes appear (``metrics_interval_s`` with ``telemetry=true``)
+TELEMETRY_CASES = [
+    ("telemetry", True), ("metrics_interval_s", 5), ("trace", True),
+    ("health", True)]
+
+
+@pytest.mark.parametrize("key,value", TELEMETRY_CASES)
+def test_telemetry_keys_run(key, value, tmp_path):
+    """Each key passes the port's checks in every family, is rejected at a
+    bad value as the JAX package rejects it, and writes its artifact on a
+    small resnet18 run of the CLI on the CPU."""
+    from video_features_tpu import config as jconfig
+    from video_features_tpu_torch.cli import main as tmain
+
+    for family in FAMILIES:
+        tconfig.check_ported(tconfig.merge(tconfig.load_config(family),
+                                           tconfig.Config({key: value})))
+    bad = 0 if key == "metrics_interval_s" else "yes"
+    for mod in (tconfig, jconfig):
+        cfg = mod.load_config("resnet", {key: bad, "device": "cpu",
+                                         "output_path": str(tmp_path / "o"),
+                                         "tmp_path": str(tmp_path / "t"),
+                                         "video_paths": "a.mp4"})
+        with pytest.raises(ValueError, match=key):
+            mod.sanity_check(cfg)
+    extra = [f"{key}={value}"] + (["telemetry=true"]
+                                  if key == "metrics_interval_s" else [])
+    with contextlib.redirect_stdout(io.StringIO()):
+        tmain(["feature_type=resnet", "model_name=resnet18", "device=cpu",
+               "allow_random_weights=true", "extraction_total=2",
+               "on_extraction=save_numpy", f"output_path={tmp_path / 'o'}",
+               f"tmp_path={tmp_path / 't'}",
+               f"video_paths={REPO / 'tests/assets/v_synth_sample.mp4'}"]
+              + extra)
+    out = tmp_path / "o" / "resnet" / "resnet18"
+    made = {p.name for p in out.iterdir() if p.name.startswith("_")}
+    want = {"telemetry": {"_telemetry.jsonl", "_run.json"},
+            "trace": {"_trace.json"}, "health": {"_health.jsonl"}}
+    if key == "metrics_interval_s":
+        hb = json.loads(next(out.glob("_heartbeat_*.json")).read_text())
+        assert hb["interval_s"] == 5.0
+    else:
+        assert want[key] <= made, made
+        assert not ({"_trace.json", "_health.jsonl", "_run.json"}
+                    - want[key]) & made, made
 
 
 #: the keys of batching and data parallelism, at values JAX accepts
@@ -182,7 +232,7 @@ def test_cache_keys_run(key, value, sample_video, tmp_path, monkeypatch):
     under ``cache_scope=tenant`` another tenant's request misses."""
     from video_features_tpu_torch.cache import cache_stats
     from video_features_tpu_torch.extractors.resnet import ExtractResNet
-    from video_features_tpu_torch.utils.context import use_request
+    from video_features_tpu_torch.telemetry.context import use_request
 
     for family in FAMILIES:
         tconfig.check_ported(tconfig.merge(tconfig.load_config(family),
@@ -297,6 +347,7 @@ def cli_runs(tmp_path_factory):
                        journal.read_text().splitlines()]
             runs.append(dict(rc=rc, out=buf.getvalue(), records=records))
         out[name] = runs
+    ckpt.unlink()  # 127 MB; the runs are done with it
     return out
 
 
@@ -335,10 +386,11 @@ def test_main_returns_none_as_jax(cli_runs):
         [r["rc"] for r in cli_runs["port"]] == [None] * 3
 
 
-def test_exit_status_on_failed_video_matches_jax(tmp_path):
+def test_exit_status_on_failed_video_matches_jax(tmp_path, request):
     bad = tmp_path / "broken.mp4"
     bad.write_bytes(b"not a video")
     ckpt = r21d_checkpoint(tmp_path / "r21d.pt")
+    request.addfinalizer(lambda: ckpt.unlink(missing_ok=True))
     args = ["feature_type=r21d", "device=cpu", f"weights_path={ckpt}",
             "retry_attempts=1", f"output_path={tmp_path / 'o'}",
             f"tmp_path={tmp_path / 't'}", f"video_paths={bad}"]

@@ -299,7 +299,8 @@ def test_multi_cli_bit_identical_to_singles(corpus, single_runs, tmp_path,
 @pytest.fixture(scope="module")
 def checkpoints(tmp_path_factory):
     """Seeded checkpoints in the reference's torch key layouts, read by both
-    packages through ``<family>.weights_path``."""
+    packages through ``<family>.weights_path``; removed when the module's
+    tests are done."""
     from video_features_tpu_torch.models import r21d, resnet, vggish
     from video_features_tpu_torch.weights.bridge import seeded_init_
     td = tmp_path_factory.mktemp("multi_ckpt")
@@ -310,7 +311,9 @@ def checkpoints(tmp_path_factory):
     for i, (fam, net) in enumerate(nets.items()):
         paths[fam] = td / f"{fam}.pt"
         torch.save(seeded_init_(net, 20 + i).state_dict(), paths[fam])
-    return paths
+    yield paths
+    for path in paths.values():
+        path.unlink(missing_ok=True)
 
 
 def test_multi_cli_matches_jax_multi_cli(corpus, checkpoints, tmp_path):

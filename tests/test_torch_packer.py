@@ -232,7 +232,7 @@ def _write_clip(path: str, frames: int, seed: int) -> str:
     return path
 
 
-def test_r21d_cli_cross_video_matches_unpacked_and_jax(tmp_path):
+def test_r21d_cli_cross_video_matches_unpacked_and_jax(tmp_path, request):
     from video_features_tpu.cli import main as jmain
     from video_features_tpu_torch.cli import main as tmain
     from video_features_tpu_torch.models import r21d as tr
@@ -241,6 +241,7 @@ def test_r21d_cli_cross_video_matches_unpacked_and_jax(tmp_path):
     ckpt = tmp_path / "r21d.pt"
     torch.save(seeded_init_(tr.R2Plus1D("r2plus1d_18_16_kinetics"), 11)
                .state_dict(), ckpt)
+    request.addfinalizer(lambda: ckpt.unlink(missing_ok=True))
     vids = [_write_clip(str(tmp_path / f"v{i}.mp4"), frames, i)
             for i, frames in enumerate((16, 32, 32))]
     bad = tmp_path / "broken.mp4"

@@ -339,7 +339,8 @@ def i3d_runs(tmp_path_factory, jax_params):
     10-frame stack, and the port's on the same weights: PWC's
     ``init_params`` tree bridged across, both I3D streams from checkpoints
     in the reference's layout (the port's seeded init), which both packages
-    read through their weights paths."""
+    read through their weights paths; the checkpoints are removed when the
+    module's tests are done."""
     from video_features_tpu.config import load_config, sanity_check
     from video_features_tpu.extractors.i3d import ExtractI3D as JaxI3D
     from video_features_tpu_torch.extractors.i3d import ExtractI3D
@@ -379,8 +380,10 @@ def i3d_runs(tmp_path_factory, jax_params):
     with torch.inference_mode():
         tcrops = tex.flow_stream.quantized_flow(
             torch.from_numpy(jresized)).numpy()
-    return (jfeats, tfeats, jcrops, tcrops, tex,
-            jex._flow_stream.runner.params)
+    yield (jfeats, tfeats, jcrops, tcrops, tex,
+           jex._flow_stream.runner.params)
+    for key in ("weights_path", "flow_weights_path"):
+        os.unlink(over[key])  # 97 MB, once the module is done
 
 
 def test_i3d_pwc_quantized_flow_crops(i3d_runs):

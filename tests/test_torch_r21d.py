@@ -243,7 +243,8 @@ def extractors(tmp_path_factory, sample_video):
     jconfig.sanity_check(jcfg)
     tcfg = tconfig.load_config("r21d", over)
     tconfig.sanity_check(tcfg)
-    return JExtract(jcfg), ExtractR21D(tcfg)
+    yield JExtract(jcfg), ExtractR21D(tcfg)
+    ckpt.unlink(missing_ok=True)  # 127 MB, once the module is done
 
 
 def run_both(extractors, frames, capsys):

@@ -15,8 +15,10 @@ resize differences (about 0.006% of pixels here) move a random-weight RAFT's
 flow by far more than 1e-5 px, and flip about 0.3% of the quantised crops.
 
 Also here: the port's host-side pieces against the JAX package's (config,
-decode plan, resize, sinks) and the import guard.
+decode plan, resize, sinks), the run-plane keys (``telemetry``, ``trace``,
+``health``) on the slice's extractor, and the import guard.
 """
+import json
 import os
 import subprocess
 import sys
@@ -259,14 +261,57 @@ def test_sinks_write_and_skip(tmp_path, sink):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("compile_cache", True), ("telemetry", True), ("trace", True),
-    ("health", True),
+    ("compile_cache", True),
     ("parity", True), ("roofline", True), ("fps_mode", "reencode"),
     ("show_pred", True)])
 def test_unported_keys_raise(tmp_path, key, value):
     cfg = tconfig.load_config("i3d", dict(_overrides(tmp_path), **{key: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.sanity_check(cfg)
+
+
+@pytest.mark.parametrize("key", ["telemetry", "trace", "health"])
+def test_run_plane_keys_run_on_the_slice(tmp_path, key):
+    """The i3d slice's extractor under each key: the config passes and the
+    extractor runs it (``health``: the digests land beside the outputs;
+    ``telemetry``, ``trace``: the recorder the CLI starts records the
+    stages of ``extract_frames``)."""
+    from video_features_tpu_torch.extractors.i3d import ExtractI3D
+    from video_features_tpu_torch.telemetry import health as thealth
+    from video_features_tpu_torch.telemetry import jsonl as tjsonl
+
+    over = dict(_overrides(tmp_path), **{key: True,
+                                         "on_extraction": "save_numpy"})
+    cfg = tconfig.load_config("i3d", over)
+    tconfig.sanity_check(cfg)
+    assert cfg[key] is True
+    tex = ExtractI3D(cfg)
+    assert tex.health is (key == "health")
+    out = tmp_path / "rec"
+    if key == "telemetry":
+        from video_features_tpu_torch.telemetry.recorder import \
+            TelemetryRecorder
+        rec = TelemetryRecorder(str(out)).start()
+    elif key == "trace":
+        from video_features_tpu_torch.telemetry.trace import TraceRecorder
+        rec = TraceRecorder(str(out)).start()
+    try:
+        feats = tex.extract_frames(iter(_frames()), FPS)
+        tex.action_on_extraction(feats, "synthetic.mp4")
+    finally:
+        if key != "health":
+            rec.close()
+    if key == "health":
+        recs = list(tjsonl.read_jsonl(
+            os.path.join(cfg.output_path, thealth.HEALTH_FILENAME)))
+        assert sorted(r["key"] for r in recs) == sorted(feats)
+    elif key == "telemetry":
+        man = json.loads((out / "_run.json").read_text())
+        assert {"h2d", "forward", "write"} <= set(man["stage_totals"])
+    else:
+        doc = json.loads((out / "_trace.json").read_text())
+        assert {"h2d", "forward", "write"} <= {
+            e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
 
 
 def test_config_matches_jax_parsing_and_namespacing(tmp_path):

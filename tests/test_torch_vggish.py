@@ -280,7 +280,8 @@ def assets(tmp_path_factory, tree):
                                 noise_i16(rng, (97020, 2)), 44100, 2),
             "s100": write_wav(d / "s100.wav", noise_i16(rng, 100)),
             "s8000": write_wav(d / "s8000.wav", noise_i16(rng, 8000))}
-    return dict(dir=d, ckpt=str(ckpt), pca=str(pca), wavs=wavs)
+    yield dict(dir=d, ckpt=str(ckpt), pca=str(pca), wavs=wavs)
+    ckpt.unlink(missing_ok=True)  # 276 MB, once the module is done
 
 
 def _config(load_config, assets, sub, **over):

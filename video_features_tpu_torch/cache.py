@@ -30,9 +30,9 @@ before any decoder is built:
   ``{root}/{family}/{key[:2]}/{key}.pkl``, is the JAX package's.
 
 Serving is verify-before-trust: an entry carries the quantization-tolerant
-content signature (:func:`content_signature`) of every tensor, recomputed
-on load; a torn, stale or corrupted entry is deleted and reported as a
-miss. Entries are written atomically (``utils/sinks.py
+content signature (``telemetry/health.py content_signature``) of every
+tensor, recomputed on load; a torn, stale or corrupted entry is deleted and
+reported as a miss. Entries are written atomically (``utils/sinks.py
 _write_bytes_atomic``). ``FeatureCache.lookup`` and ``store`` host the
 ``cache.lookup`` (``torn``: the entry is truncated before it is read) and
 ``cache.store`` injection sites (``utils/inject.py``).
@@ -47,6 +47,9 @@ import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from .telemetry import trace
+from .telemetry.health import content_signature
 
 #: schema identifier stamped into every entry (the JAX package's)
 SCHEMA_VERSION = "vft.feature_cache/1"
@@ -105,29 +108,10 @@ SEMANTIC_KEYS = frozenset({
     "frontend", "postprocess", "pca_weights_path",
 })
 
-#: the content signature's quantization grid: half the value tier's atol
-#: 1e-2, so runs that differ only by noise under tolerance sign alike
-SIG_GRID = 5e-3
-
 _sha_lock = threading.Lock()
 #: (abspath, size, mtime_ns) -> hex digest; bounded FIFO
 _sha_memo: Dict[tuple, str] = {}
 _SHA_MEMO_CAP = 4096
-
-
-def content_signature(arr: np.ndarray) -> str:
-    """Quantization-tolerant sha256 of a feature tensor: values snapped to
-    the :data:`SIG_GRID` lattice (float64), NaN and +-inf to sentinel
-    buckets, hashed with the shape; an object array hashes its repr."""
-    a = np.asarray(arr)
-    if a.dtype == object:
-        return hashlib.sha256(repr(a.tolist()).encode()).hexdigest()
-    q = np.round(a.astype(np.float64) / SIG_GRID)
-    q = np.nan_to_num(q, nan=2.0 ** 52, posinf=2.0 ** 53, neginf=-2.0 ** 53)
-    q = np.clip(q, -(2.0 ** 53), 2.0 ** 53)
-    h = hashlib.sha256(repr(a.shape).encode())
-    h.update(q.astype(np.int64).tobytes())
-    return h.hexdigest()
 
 
 def file_sha256(path: str) -> str:
@@ -289,7 +273,7 @@ class FeatureCache:
         if self.scope == "tenant":
             # a hit is only ever served to the tenant whose extraction
             # stored it; untenanted work keys under its own sentinel
-            from .utils.context import current_tenant
+            from .telemetry.context import current_tenant
             return entry_key(cid, self.config_fp, self.weights_fp,
                              tenant=current_tenant() or "_untenanted")
         return entry_key(cid, self.config_fp, self.weights_fp)
@@ -302,71 +286,81 @@ class FeatureCache:
                ) -> Optional[Dict[str, np.ndarray]]:
         """The stored features of ``video_path``, or None (a miss). An
         entry that fails to load, has another schema or key set, or fails
-        its signatures is deleted and reported as a miss."""
+        its signatures is deleted and reported as a miss. With
+        ``trace=true`` the lookup is a ``cache.lookup`` span and a verified
+        hit a ``cache.hit`` instant."""
         from .utils import inject
 
-        key = self.key_for(video_path)
-        path = self.entry_path(key)
-        if not os.path.exists(path):
-            return None
-        try:
-            fault = inject.fire("cache.lookup", video=str(video_path),
-                                key=key[:12])
-            if fault is not None and fault.kind == "torn":
-                # a torn entry: verify-before-trust must catch it
-                with open(path, "r+b") as f:
-                    f.truncate(max(1, os.path.getsize(path) // 2))
-            with open(path, "rb") as f:
-                entry = pickle.load(f)
-            feats = entry["feats"]
-            sigs = entry["sigs"]
-            if entry.get("schema") != SCHEMA_VERSION:
-                raise ValueError(
-                    f"schema {entry.get('schema')!r} != {SCHEMA_VERSION}")
-            if expected_keys is not None and \
-                    set(feats) != set(expected_keys):
-                raise ValueError(
-                    f"entry keys {sorted(feats)} != expected "
-                    f"{sorted(expected_keys)}")
-            for k, arr in feats.items():
-                if content_signature(np.asarray(arr)) != sigs.get(k):
-                    raise ValueError(
-                        f"content signature mismatch for key {k!r}")
-        except Exception as e:
-            print(f"cache: dropping corrupted entry {path} "
-                  f"({type(e).__name__}: {e}) — treating as a miss")
+        with trace.span("cache.lookup", video=str(video_path),
+                        family=self.family):
+            key = self.key_for(video_path)
+            path = self.entry_path(key)
+            if not os.path.exists(path):
+                return None
             try:
-                os.unlink(path)
+                fault = inject.fire("cache.lookup", video=str(video_path),
+                                    key=key[:12])
+                if fault is not None and fault.kind == "torn":
+                    # a torn entry: verify-before-trust must catch it
+                    with open(path, "r+b") as f:
+                        f.truncate(max(1, os.path.getsize(path) // 2))
+                with open(path, "rb") as f:
+                    entry = pickle.load(f)
+                feats = entry["feats"]
+                sigs = entry["sigs"]
+                if entry.get("schema") != SCHEMA_VERSION:
+                    raise ValueError(
+                        f"schema {entry.get('schema')!r} != "
+                        f"{SCHEMA_VERSION}")
+                if expected_keys is not None and \
+                        set(feats) != set(expected_keys):
+                    raise ValueError(
+                        f"entry keys {sorted(feats)} != expected "
+                        f"{sorted(expected_keys)}")
+                for k, arr in feats.items():
+                    if content_signature(np.asarray(arr)) != sigs.get(k):
+                        raise ValueError(
+                            f"content signature mismatch for key {k!r}")
+            except Exception as e:
+                print(f"cache: dropping corrupted entry {path} "
+                      f"({type(e).__name__}: {e}) — treating as a miss")
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+                return None
+            try:
+                os.utime(path)  # the last verified hit, for eviction
             except OSError:
                 pass
-            return None
-        try:
-            os.utime(path)  # the last verified hit, for eviction
-        except OSError:
-            pass
-        return feats
+            trace.instant("cache.hit", video=str(video_path),
+                          family=self.family, key=key[:12])
+            return feats
 
     def store(self, video_path: str, feats: Dict[str, Any]) -> str:
         """Write one entry atomically with per-key content signatures;
-        returns its key."""
+        returns its key. With ``trace=true`` a ``cache.store`` span."""
         from .utils import inject
         from .utils.sinks import _write_bytes_atomic
 
-        inject.fire("cache.store", video=str(video_path), family=self.family)
-        key = self.key_for(video_path)
-        arrays = {k: np.asarray(v) for k, v in feats.items()}
-        entry = {
-            "schema": SCHEMA_VERSION,
-            "family": self.family,
-            "video": os.path.basename(str(video_path)),
-            "config_fp": self.config_fp,
-            "weights_fp": self.weights_fp,
-            "sigs": {k: content_signature(a) for k, a in arrays.items()},
-            "feats": arrays,
-            "time": round(time.time(), 3),
-        }
-        _write_bytes_atomic(self.entry_path(key), pickle.dumps(entry))
-        return key
+        with trace.span("cache.store", video=str(video_path),
+                        family=self.family):
+            inject.fire("cache.store", video=str(video_path),
+                        family=self.family)
+            key = self.key_for(video_path)
+            arrays = {k: np.asarray(v) for k, v in feats.items()}
+            entry = {
+                "schema": SCHEMA_VERSION,
+                "family": self.family,
+                "video": os.path.basename(str(video_path)),
+                "config_fp": self.config_fp,
+                "weights_fp": self.weights_fp,
+                "sigs": {k: content_signature(a) for k, a in arrays.items()},
+                "feats": arrays,
+                "time": round(time.time(), 3),
+            }
+            _write_bytes_atomic(self.entry_path(key), pickle.dumps(entry))
+            return key
 
 
 def cache_stats(root: Optional[str] = None) -> Dict[str, Any]:

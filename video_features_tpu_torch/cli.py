@@ -30,11 +30,24 @@ with the mesh over that host's cards; ``video_workers`` videos run at once
 on threads feeding the mesh. On SIGTERM the videos in flight finish, the
 rest are dropped and the process exits 143; a rerun resumes through the
 skip of finished outputs.
+
+The run plane, as in the JAX CLI (each off by default): ``telemetry=true``
+writes ``_telemetry.jsonl`` (one span per video, or per (video, family)),
+``_heartbeat_{host_id}.json`` every ``metrics_interval_s`` and ``_run.json``
+at exit; ``trace=true`` the host pipeline's timeline ``_trace.json``; both
+under the run's output root (``{output_path}/{feature_type}[/model_name]``,
+or the given ``output_path`` of a multi-family run). ``health=true``
+digests every output into the family's ``{output_path}/_health.jsonl`` and
+quarantines non-finite ones. ``profile=true`` prints the per-stage
+breakdown (decode, h2d, forward, write, health) at the end;
+``profile_trace_dir=DIR`` captures a ``torch.profiler`` trace of the run
+into DIR (``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import os
 import signal
+import socket
 import sys
 import threading
 import time
@@ -43,10 +56,12 @@ from typing import Callable, List, Optional
 
 from .config import (load_config, load_multi_config, parse_dotlist,
                      sanity_check, sanity_check_multi, video_list)
-from .parallel.mesh import local_shard_of_list
+from .parallel.mesh import _rank_and_world, local_shard_of_list
 from .registry import get_extractor_cls, parse_feature_types
+from .telemetry import NOOP_SPAN
 from .utils import inject
 from .utils.faults import FailureJournal, RetryPolicy
+from .utils.profiling import TraceCapture, profiler
 from .utils.sinks import safe_extract
 
 
@@ -61,27 +76,94 @@ def main(argv: Optional[List[str]] = None) -> None:
         # family's own), one shared decode per video (extractors/multi.py)
         per_family = load_multi_config(families, overrides)
         args = per_family[families[0]]
+        # the run's own artifacts live at the given root; sanity_check
+        # namespaces each family's sinks and journal under it
+        out_root = str(args.output_path)
         _maybe_init_distributed(args)
         sanity_check_multi(per_family)
     else:
         per_family = None
         args = load_config(families[0], overrides)
         sanity_check(args)
+        out_root = str(args.output_path)
         _maybe_init_distributed(args)
     plan = inject.arm_for_run(args.get("inject"))
     if plan is not None:
         print(f"inject: armed plan {plan.spec!r} (seed={plan.seed}; replay "
               "by re-running with this exact inject= string)")
+    run_label = ",".join(families)
+    recorder = tracer = None
+    tally = _new_tally()
+    failures: List[dict] = []
+    n_paths = 0
     try:
         if per_family is not None:
             from .extractors.multi import MultiExtractor
-            _run_multi(MultiExtractor(per_family), args)
+            extractor = MultiExtractor(per_family)
+            run = _run_multi
         else:
-            _run(get_extractor_cls(families[0])(args), args)
+            extractor = get_extractor_cls(families[0])(args)
+            run = _run
+        # the profiler is process-global: an in-process rerun starts afresh
+        profiler.enabled = bool(args.get("profile"))
+        profiler.reset()
+        recorder = _start_recorder(args, per_family, out_root, run_label)
+        if args.get("trace"):
+            from .telemetry.trace import TraceRecorder
+            tracer = TraceRecorder(out_root).start()
+        with TraceCapture(args.get("profile_trace_dir")) as capture:
+            n_paths = run(extractor, args, recorder, tally, failures)
     finally:
+        if recorder is not None:
+            # in the finally: an aborted run still leaves its manifest and
+            # final heartbeat, which is what its abort is debugged with
+            by_cat: dict = {}
+            for rec in failures:
+                cat = rec.get("category") or "?"
+                by_cat[cat] = by_cat.get(cat, 0) + 1
+            recorder.close(tally=dict(tally), failure_tallies=by_cat)
+        if tracer is not None:
+            tracer.close()  # a complete trace file, aborted run or not
         if plan is not None:
             print(plan.summary())
         inject.disarm()  # in-process callers must not inherit the plan
+        profiler.enabled = False
+    if recorder is not None:
+        print(f"telemetry: {recorder.manifest_path} + {recorder.spans_path} "
+              f"(render with scripts/telemetry_report.py {out_root})")
+    if tracer is not None:
+        print(f"trace: {tracer.trace_path} (render with "
+              f"scripts/trace_report.py {out_root}, or open in "
+              "https://ui.perfetto.dev)")
+    if capture.path is not None:
+        print(f"profile trace: {capture.path} (torch.profiler; open in "
+              "https://ui.perfetto.dev)")
+    configs = per_family.values() if per_family is not None else [args]
+    if any(a.get("health") for a in configs):
+        print("health: per-(video, family) feature digests in "
+              f"{{output_path}}/_health.jsonl under {out_root}")
+    if args.get("profile"):
+        print(profiler.summary(f"profile: {run_label} x {n_paths} videos"))
+
+
+def _new_tally() -> dict:
+    return {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
+
+
+def _start_recorder(args, per_family, out_root: str, run_label: str):
+    """``telemetry=true``: a started ``TelemetryRecorder`` over
+    ``out_root``, with this process's ``p{rank}-{host}`` id (the JAX CLI's
+    ``p{process_index}-{host}``); else None."""
+    if not args.get("telemetry"):
+        return None
+    from .telemetry.recorder import TelemetryRecorder
+    run_config = (dict(args) if per_family is None else
+                  {"feature_type": run_label,
+                   "families": {f: dict(a) for f, a in per_family.items()}})
+    return TelemetryRecorder(
+        out_root, run_config=run_config, feature_type=run_label,
+        interval_s=float(args.get("metrics_interval_s") or 30.0),
+        host_id=f"p{_rank_and_world()[0]}-{socket.gethostname()}").start()
 
 
 def _maybe_init_distributed(args) -> None:
@@ -148,13 +230,18 @@ def _work_list(args) -> List[str]:
         shuffle=True))
 
 
-def _run(extractor, args) -> None:
+def _run(extractor, args, recorder=None, tally: Optional[dict] = None,
+         failures: Optional[List[dict]] = None) -> int:
+    """Every video of the work list under ``safe_extract``, each inside its
+    telemetry span when ``recorder`` is set; fills ``tally`` and
+    ``failures`` (the caller's, or its own) and returns the length of the
+    work list."""
+    tally = _new_tally() if tally is None else tally
+    failures = [] if failures is None else failures
     policy = RetryPolicy.from_config(args)
     journal = (FailureJournal(args.output_path)
                if args.get("on_extraction", "print") != "print" else None)
     paths = _work_list(args)
-    tally = {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
-    failures: List[dict] = []
     lock = threading.Lock()
     stop = threading.Event()
 
@@ -165,10 +252,14 @@ def _run(extractor, args) -> None:
     def run_one(path: str) -> None:
         if stop.is_set():
             return
-        status = safe_extract(extractor._extract, path, policy=policy,
-                              journal=journal,
-                              decode_mode=extractor.video_decode,
-                              on_terminal_failure=on_failure)
+        span_cm = (recorder.video_span(path) if recorder is not None
+                   else NOOP_SPAN)
+        with span_cm as span:
+            status = safe_extract(extractor._extract, path, policy=policy,
+                                  journal=journal,
+                                  decode_mode=extractor.video_decode,
+                                  on_terminal_failure=on_failure)
+            span.annotate(status=status)
         with lock:
             tally[status] += 1
 
@@ -185,17 +276,21 @@ def _run(extractor, args) -> None:
               "quarantined videos)")
     if stop.is_set():
         raise SystemExit(143)  # the conventional SIGTERM status
+    return len(paths)
 
 
-def _run_multi(multi, args) -> None:
+def _run_multi(multi, args, recorder=None, tally: Optional[dict] = None,
+               failures: Optional[List[dict]] = None) -> int:
     """Every family on each video over one decode: the tally counts
     (video, family) units, with one summary line per family and one
-    journal line per family that failed. ``video_workers`` counts videos;
-    each video's families run on their own threads inside it."""
+    journal line per family that failed; ``recorder`` gets a span per
+    (video, family). ``video_workers`` counts videos; each video's
+    families run on their own threads inside it. Returns the length of the
+    work list."""
+    tally = _new_tally() if tally is None else tally
+    failures = [] if failures is None else failures
     paths = _work_list(args)
-    tally = {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
-    fam_tally = {f: dict(tally) for f in multi.families}
-    failures: List[dict] = []  # appended from the family threads
+    fam_tally = {f: _new_tally() for f in multi.families}
     videos_run = [0]
     lock = threading.Lock()
     stop = threading.Event()
@@ -205,7 +300,8 @@ def _run_multi(multi, args) -> None:
             return
         with lock:
             videos_run[0] += 1
-        statuses = multi.run_video(path, failures=failures)
+        statuses = multi.run_video(path, recorder=recorder,
+                                   failures=failures)
         with lock:
             for fam, status in statuses.items():
                 tally[status] += 1
@@ -238,3 +334,4 @@ def _run_multi(multi, args) -> None:
                   "(retry_failed=true re-runs quarantined videos)")
     if stop.is_set():
         raise SystemExit(143)  # the conventional SIGTERM status
+    return len(paths)

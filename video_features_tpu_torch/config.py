@@ -35,15 +35,12 @@ GATED_KEYS = {
     "fleet_max_reclaims": ((None, 3), 8),
     "fleet_canary": ((None, False), 8),
     "serve_slo_s": ((None,), 8),
-    # device-facing telemetry (#9)
-    "telemetry": ((None, False), 9),
-    "trace": ((None, False), 9),
-    "health": ((None, False), 9),
+    # the rest of the telemetry (#9): the parity observatory, roofline
+    # accounting, retained history and alerting
     "parity": ((None, False), 9),
     "roofline": ((None, False), 9),
     "history": ((None, False), 9),
     "alerts": ((None, False), 9),
-    "metrics_interval_s": ((None, 30), 9),
     # CLIP's blockwise vision attention, parallel/sequence.py (#10)
     "vision_attn": ((None, "dense"), 10),
     "config": ((None,), None),
@@ -261,6 +258,26 @@ def check_ported(args: Config) -> None:
             f"binary; {_roadmap(11)})")
 
 
+def _check_telemetry(args: Config) -> None:
+    """``telemetry``, ``trace`` and ``health`` (true or false) and
+    ``metrics_interval_s`` (> 0), as the JAX package checks them."""
+    for key, what in (("telemetry", "writes {output_path}/_telemetry.jsonl, "
+                       "_run.json and heartbeats, telemetry/"),
+                      ("trace", "writes {output_path}/_trace.json, "
+                       "telemetry/trace.py"),
+                      ("health", "digests features into {output_path}/"
+                       "_health.jsonl and quarantines NaN/Inf outputs, "
+                       "telemetry/health.py")):
+        value = args.get(key, False)
+        if not isinstance(value, bool):
+            raise ValueError(f"{key}={value!r}: expected true or false "
+                             f"({what})")
+    mi = args.get("metrics_interval_s")
+    if mi is not None and float(mi) <= 0:
+        raise ValueError(f"metrics_interval_s={mi!r}: need a float > 0 "
+                         "(the heartbeat/metrics flush period)")
+
+
 def _check_vggish(args: Config) -> None:
     """``frontend``, ``postprocess`` and ``pca_weights_path``."""
     frontend = args.get("frontend")
@@ -355,8 +372,9 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     the parallel keys (``video_workers``, forced to 1 for ``print`` and
     ``show_pred`` runs as in the JAX package, ``mesh_devices``,
     ``model_parallel``, ``distributed``, ``cross_video_batching``), the
-    cache keys (``cache``, ``cache_dir``, ``cache_scope``), the unported
-    keys, the device (``args.device`` becomes ``cpu``,
+    cache keys (``cache``, ``cache_dir``, ``cache_scope``), the telemetry
+    keys (``telemetry``, ``metrics_interval_s``, ``trace``, ``health``),
+    the unported keys, the device (``args.device`` becomes ``cpu``,
     ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
     namespacing of ``output_path``/``tmp_path``."""
     check_ported(args)
@@ -402,6 +420,7 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
         _check_vggish(args)
     _check_parallel(args)
     _check_cache(args)
+    _check_telemetry(args)
 
     if require_videos:
         if not (args.get("file_with_video_paths") or args.get("video_paths")):

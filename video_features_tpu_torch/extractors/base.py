@@ -6,7 +6,13 @@ data mesh of the runners (:meth:`BaseExtractor._data_mesh`) and their
 result streams (:meth:`BaseExtractor.feature_stream`); the
 ``resize=auto|host|device`` choice and the per-resolution, per-device
 resizer cache; the decode source of ``video_decode``, or of a multi-family
-run's shared decode (:meth:`BaseExtractor.video_source`)."""
+run's shared decode (:meth:`BaseExtractor.video_source`); and ``health=true``,
+the digest and non-finite gate of every output at the sink
+(``telemetry/health.py``). With telemetry on, the span of the video in
+progress gets the source's ``video_fps`` and ``video_frames`` and a
+``source`` event, a private source's probing is a ``source_probe`` trace
+span, and the cache's work is counted (``vft_cache_{hit,miss,bypass,
+store_failures}_total{family}``)."""
 from __future__ import annotations
 
 import threading
@@ -16,13 +22,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import telemetry
 from ..config import Config, check_ported
 from ..device import resolve_device, set_precision
 from ..ops import preprocess as pp
 from ..parallel import fanout
 from ..parallel.mesh import DataParallelApply, FeatureStream, Mesh, get_mesh
+from ..telemetry import trace
 from ..utils import faults, sinks
 from ..utils import io as vio
+from ..utils.profiling import profiler
 from ..weights.bridge import seeded_init_
 
 _RESIZE_CACHE_SIZE = 8
@@ -127,6 +136,9 @@ class BaseExtractor:
                 f"decode_workers={self.decode_workers}: need >= 1")
         raw_dd = args.get("decode_depth")
         self.decode_depth = None if raw_dd is None else int(raw_dd)
+        # health=true: digest every output at the sink into
+        # {output_path}/_health.jsonl and refuse non-finite ones
+        self.health = bool(args.get("health", False))
         self.args = args
         self._mesh = mesh
         # cache=true: the capture starts before the subclass loads its
@@ -179,6 +191,11 @@ class BaseExtractor:
         if session is not None:
             sub = session.subscribe(self.feature_type, **kwargs)
             if sub is not None:
+                if telemetry.current_span() is not None:
+                    telemetry.annotate(video_fps=sub.fps,
+                                       video_frames=len(sub))
+                    telemetry.event("source", mode="shared",
+                                    cls=type(sub).__name__)
                 return sub
         ctx = faults.current_context()
         mode = self.video_decode
@@ -190,9 +207,16 @@ class BaseExtractor:
             kwargs.setdefault("decode_workers", self.decode_workers)
             if self.decode_depth is not None:
                 kwargs.setdefault("depth", self.decode_depth)
-        src = cls(video_path, **kwargs)
+        # probing can be slow (a recount, spawning workers): its own span
+        with trace.span("source_probe", video=str(video_path), mode=mode):
+            src = cls(video_path, **kwargs)
         if ctx is not None:
             ctx.register(src)
+        if telemetry.current_span() is not None:
+            # which class served this attempt (the ladder may have demoted
+            # it) and the probed properties, for the span's fields
+            telemetry.annotate(video_fps=src.fps, video_frames=len(src))
+            telemetry.event("source", mode=mode, cls=type(src).__name__)
         return src
 
     def _resolve_resize_mode(self, args: Config) -> str:
@@ -246,21 +270,30 @@ class BaseExtractor:
         The store comes after the sink, so a failing sink keeps features
         out of the store; a failing store is printed and the video is done
         (its outputs are on disk)."""
+        family = str(self.feature_type)
         cache = self.feature_cache()
         if cache is not None:
             feats = cache.lookup(video_path, self.output_feat_keys)
             if feats is not None:
+                telemetry.inc("vft_cache_hit_total", family=family)
                 self.action_on_extraction(feats, video_path)
                 return feats
         if sinks.is_already_exist(self.on_extraction, self.output_path,
                                   video_path, self.output_feat_keys):
+            # work avoided without consulting the cache: counted whether
+            # cache=true (a miss the filename skip absorbed) or not
+            telemetry.inc("vft_cache_bypass_total", family=family)
             return None
+        if cache is not None:
+            telemetry.inc("vft_cache_miss_total", family=family)
         feats = self.extract(video_path)
         self.action_on_extraction(feats, video_path)
         if cache is not None:
             try:
                 cache.store(video_path, feats)
             except Exception as e:
+                telemetry.inc("vft_cache_store_failures_total",
+                              family=family)
                 print(f"cache: store failed for {video_path} "
                       f"({type(e).__name__}: {e}) — features are on disk, "
                       "entry skipped")
@@ -271,6 +304,14 @@ class BaseExtractor:
 
     def action_on_extraction(self, feats: Dict[str, np.ndarray],
                              video_path: str) -> None:
+        if self.health:
+            # digest and gate before any write: a non-finite output raises
+            # (POISON) after its digest is journaled, so it is quarantined
+            # rather than persisted
+            from ..telemetry import health
+            with profiler.stage("health"):
+                health.check_features(feats, video_path, self.feature_type,
+                                      self.output_path)
         # re-check before writing: another worker may have just written it
         if self.on_extraction != "print" and sinks.is_already_exist(
                 self.on_extraction, self.output_path, video_path,

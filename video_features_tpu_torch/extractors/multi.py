@@ -22,14 +22,21 @@ the driver only coordinates. Per video:
 A retry after a mid-stream failure cannot rejoin the one pass and decodes
 privately; the decode ladder is a private-source matter, so
 ``safe_extract`` runs with ``decode_mode=None`` here.
+
+With a telemetry recorder each (video, family) gets its own span, stamped
+with the family and, for a shared stream, ``decode_shared_ms``; a family
+skipped by the sweep counts ``vft_cache_bypass_total{family}``; with
+``trace=true`` each family's job is a ``family`` span on its thread.
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional
 
+from .. import telemetry
 from ..config import Config
 from ..parallel import fanout
+from ..telemetry import NOOP_SPAN, trace
 from ..registry import AUDIO_FAMILIES, get_extractor_cls
 from ..utils import sinks
 from ..utils.faults import FailureJournal, RetryPolicy
@@ -68,11 +75,13 @@ class MultiExtractor:
         #: ``rips`` say what the one decode cost)
         self.last_session: Optional[fanout.SharedDecodeSession] = None
 
-    def run_video(self, video_path: str,
-                  failures: Optional[list] = None) -> Dict[str, str]:
+    def run_video(self, video_path: str, failures: Optional[list] = None,
+                  recorder=None) -> Dict[str, str]:
         """One video through every family: ``{family: status}`` in
         ``safe_extract``'s words; each terminal failure record, with its
-        ``family``, is appended to ``failures``."""
+        ``family``, is appended to ``failures``; ``recorder`` (a
+        ``telemetry/recorder.py TelemetryRecorder``) gets one span per
+        family."""
         statuses: Dict[str, str] = {}
         pending: List[str] = []
         for f in self.families:
@@ -81,7 +90,12 @@ class MultiExtractor:
             # family's _extract, where a hit returns before it subscribes
             if sinks.is_already_exist(ext.on_extraction, ext.output_path,
                                       video_path, ext.output_feat_keys):
+                telemetry.inc("vft_cache_bypass_total", family=str(f))
                 statuses[f] = "skipped"
+                if recorder is not None:
+                    with recorder.video_span(video_path,
+                                             feature_type=f) as span:
+                        span.annotate(status="skipped")
             else:
                 pending.append(f)
         if not pending:
@@ -94,8 +108,13 @@ class MultiExtractor:
 
         def family_job(f: str) -> None:
             ext = self.extractors[f]
+            span_cm = (recorder.video_span(video_path, feature_type=f)
+                       if recorder is not None else NOOP_SPAN)
             try:
-                with fanout.use_session(session):
+                with fanout.use_session(session), \
+                        trace.span("family", family=f,
+                                   video=str(video_path)), \
+                        span_cm as span:
                     statuses[f] = sinks.safe_extract(
                         ext._extract, video_path, policy=self.policies[f],
                         journal=self.journals.get(f), decode_mode=None,
@@ -103,6 +122,10 @@ class MultiExtractor:
                             None if failures is None else
                             lambda rec: failures.append(
                                 {**rec, "family": f})))
+                    span.annotate(status=statuses[f])
+                    ms = session.shared_ms(f)
+                    if ms is not None:
+                        span.annotate(decode_shared_ms=ms)
             except BaseException:
                 # safe_extract re-raises only interpreter exits; on a
                 # thread they end this family alone

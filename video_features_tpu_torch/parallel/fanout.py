@@ -35,19 +35,35 @@ failed before decoding); decode starts once all have arrived. A retry
 after a mid-stream failure gets ``None`` from ``subscribe`` (the one pass
 has flowed) and decodes privately. ``_FrameStream.read`` fires the
 ``decode.read`` injection site here as on every decode path.
+
+Telemetry (no-ops when off): the bus's reads, grabs and conversions and
+each family's transform are ``decode`` profiler stages; a put that found a
+family's queue full is ``vft_fanout_put_blocked_ms_total{family}`` (the
+family is the slow consumer), a family's wait on an empty queue
+``vft_fanout_get_starved_ms_total{family}`` (decode is the wall), with the
+queue depth as ``vft_fanout_queue_depth{family}``; a failed pass counts
+``vft_fanout_decode_errors_total``. With ``trace=true`` the stalls past
+``trace.STALL_MIN_S``, the arrival barrier, the whole pass
+(``fanout.decode_pass``) and the shared rip (``wav_rip``) are spans.
+Each subscription records the decode milliseconds the bus had spent when
+its stream completed (``decode_shared_ms``, the family span's field).
 """
 from __future__ import annotations
 
 import os
 import queue
 import threading
+import time
 from contextlib import contextmanager
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import telemetry
+from ..telemetry import trace
 from ..utils import faults
 from ..utils.faults import DeadlineExceeded
+from ..utils.profiling import profiler
 from ..utils.io import (CHANNEL_ORDERS, _batched, _FrameStream,
                         convert_decoded, count_frames_by_decode,
                         get_video_props, plan_frame_selection)
@@ -107,6 +123,8 @@ class SharedFrameSource:
         self._cancelled = False
         self._cancel_reason = ""
         self._error: Optional[str] = None
+        #: ms of the bus's decode that had run when this stream completed
+        self.decode_shared_ms: Optional[float] = None
         self.fps: float = 0.0
         self.index_map: Optional[np.ndarray] = None
         self.num_frames: int = 0
@@ -125,14 +143,37 @@ class SharedFrameSource:
 
     def _push(self, item) -> bool:
         """A bounded put that gives up once this subscriber is closed, so
-        an abandoned family never wedges the bus."""
+        an abandoned family never wedges the bus. A put that found the
+        queue full is put-blocked time (counter, trace span, depth)."""
+        try:
+            # the uncontended put takes no timing call
+            self.queue.put_nowait(item)
+            telemetry.gauge_set("vft_fanout_queue_depth",
+                                self.queue.qsize(), family=self.family)
+            return True
+        except queue.Full:
+            pass
+        t0 = time.perf_counter()
+        ok = False
         while not self.closed:
             try:
                 self.queue.put(item, timeout=0.1)
-                return True
+                ok = True
+                break
             except queue.Full:
                 continue
-        return False
+        dt = time.perf_counter() - t0
+        telemetry.inc("vft_fanout_put_blocked_ms_total", dt * 1e3,
+                      family=self.family)
+        tr = trace.active()
+        if tr is not None and dt >= trace.STALL_MIN_S:
+            tr.complete("fanout.put_blocked", t0, dt, family=self.family)
+            tr.counter(f"fanout_queue_depth/{self.family}",
+                       self.queue.qsize())
+        if ok:
+            telemetry.gauge_set("vft_fanout_queue_depth",
+                                self.queue.qsize(), family=self.family)
+        return ok
 
     # -- consumer side ------------------------------------------------------
     def __len__(self) -> int:
@@ -149,6 +190,7 @@ class SharedFrameSource:
         try:
             while True:
                 self._raise_if_cancelled()
+                t_wait = time.perf_counter()
                 while True:
                     try:
                         # a 1 s poll bounds how stale the cancel and
@@ -171,9 +213,18 @@ class SharedFrameSource:
                                 f"shared decode for {self.path} " +
                                 (f"failed: {err}" if err
                                  else "died without a result")) from None
+                # the time inside get() is this family idle on the decoder
+                waited = time.perf_counter() - t_wait
+                telemetry.inc("vft_fanout_get_starved_ms_total",
+                              waited * 1e3, family=self.family)
+                tr = trace.active()
+                if tr is not None and waited >= trace.STALL_MIN_S:
+                    tr.complete("fanout.get_starved", t_wait, waited,
+                                family=self.family)
                 if tag == "frame":
                     raw, out_idx = payload
-                    x = tf(raw) if tf is not None else raw
+                    with profiler.stage("decode"):
+                        x = tf(raw) if tf is not None else raw
                     yield x, out_idx / self.fps * 1000.0, out_idx
                 elif tag == "done":
                     return
@@ -226,6 +277,8 @@ class FrameBus:
         #: source frames this bus decoded (read or grabbed): the one decode
         #: that the families share
         self.decoded = 0
+        # seconds of the pass's reads, grabs and conversions so far
+        self._decode_s = 0.0
 
     # -- family-side API ----------------------------------------------------
     def subscribe(self, family: str, *, batch_size: int = 1,
@@ -257,10 +310,17 @@ class FrameBus:
         if ctx is not None:
             ctx.register(sub)
         self._maybe_finalize()
+        t_wait = time.perf_counter()
         with self._cond:
             while not self._plans_ready and self._probe_error is None \
                     and not sub._cancelled:
                 self._cond.wait(0.1)
+            waited = time.perf_counter() - t_wait
+            tr = trace.active()
+            if tr is not None and waited >= trace.STALL_MIN_S:
+                # the arrival barrier: this family waited on its siblings
+                tr.complete("fanout.subscribe_wait", t_wait, waited,
+                            family=family)
             sub._raise_if_cancelled()
             if self._probe_error is not None:
                 # a fresh exception per waiter; the embedded type name
@@ -284,6 +344,12 @@ class FrameBus:
         if sub is not None:
             sub.close()
         self._maybe_finalize()
+
+    def shared_ms(self, family: str) -> Optional[float]:
+        """The decode ms the bus had spent when ``family``'s stream
+        completed; None for a family that did not subscribe."""
+        sub = self._subs.get(str(family))
+        return None if sub is None else sub.decode_shared_ms
 
     # -- barrier and plan probing -------------------------------------------
     def _all_arrived(self) -> bool:
@@ -329,11 +395,16 @@ class FrameBus:
             self._thread.start()
 
     # -- the single decode pass ---------------------------------------------
+    def _finish_sub(self, sub: SharedFrameSource, emitted: int) -> None:
+        sub.decode_shared_ms = round(self._decode_s * 1000.0, 3)
+        sub._push(("done", emitted))
+
     def _decode(self) -> None:
         subs = list(self._subs.values())
         ptrs = {s.family: 0 for s in subs}
         emitted = {s.family: 0 for s in subs}
         finished: set = set()
+        t_pass = time.perf_counter()
         stream = _FrameStream(self.path, channel_order=None)
         try:
             src_idx = 0
@@ -363,12 +434,15 @@ class FrameBus:
                         pending = True
                 if not wants and not pending:
                     break  # every plan is satisfied
-                if wants:
-                    frame = stream.read()
-                    ok = frame is not None
-                else:
-                    ok = stream.skip()  # a frame no one keeps: grab only
-                    frame = None
+                t0 = time.perf_counter()
+                with profiler.stage("decode"):
+                    if wants:
+                        frame = stream.read()
+                        ok = frame is not None
+                    else:
+                        ok = stream.skip()  # a frame no one keeps: grab
+                        frame = None
+                self._decode_s += time.perf_counter() - t0
                 if not ok:
                     break  # the end of the stream
                 self.decoded += 1
@@ -379,8 +453,11 @@ class FrameBus:
                             continue
                         arr = by_order.get(s.channel_order)
                         if arr is None:
-                            arr = by_order[s.channel_order] = \
-                                convert_decoded(frame, s.channel_order)
+                            t1 = time.perf_counter()
+                            with profiler.stage("decode"):
+                                arr = by_order[s.channel_order] = \
+                                    convert_decoded(frame, s.channel_order)
+                            self._decode_s += time.perf_counter() - t1
                         for out_idx in outs:
                             if not s._push(("frame", (arr, out_idx))):
                                 break  # the subscriber left mid-frame
@@ -391,7 +468,7 @@ class FrameBus:
                             continue
                         if ptrs[s.family] >= len(s.index_map):
                             finished.add(s.family)
-                            s._push(("done", emitted[s.family]))
+                            self._finish_sub(s, emitted[s.family])
                 src_idx += 1
             for s in subs:
                 if s.family in finished:
@@ -403,12 +480,13 @@ class FrameBus:
                           f"frames (metadata said {s.src_num_frames}); "
                           f"{s.family} emitted {emitted[s.family]}/"
                           f"{len(s.index_map)} resampled frames.")
-                s._push(("done", emitted[s.family]))
+                self._finish_sub(s, emitted[s.family])
         except BaseException as e:
             # the name and message travel on, so the subscribers'
             # classify() sees what an inline failure would show (an
             # injected EIO stays TRANSIENT, ENOSPC stays FATAL)
             msg = f"{type(e).__name__}: {e}"
+            telemetry.inc("vft_fanout_decode_errors_total")
             for s in subs:
                 if s.family in finished:
                     continue
@@ -416,6 +494,11 @@ class FrameBus:
                 s._push(("error", msg))
         finally:
             stream.release()
+            # one span over the whole pass on the bus thread's lane: it
+            # brackets the decode stages, and its gaps are the put stalls
+            trace.complete("fanout.decode_pass", t_pass,
+                           time.perf_counter() - t_pass, video=self.path,
+                           families=len(subs))
 
 
 class SharedDecodeSession:
@@ -442,6 +525,9 @@ class SharedDecodeSession:
         if self.bus is not None:
             self.bus.done(family)
 
+    def shared_ms(self, family: str) -> Optional[float]:
+        return None if self.bus is None else self.bus.shared_ms(family)
+
     def shared_wav(self, video_path, tmp_path, ripper: Callable) -> str:
         """Rip the audio track once; every audio family reads the same wav.
         The session removes it (:meth:`cleanup`), since a family must not
@@ -452,7 +538,9 @@ class SharedDecodeSession:
                                    f"{video_path}: {self._wav_error}")
             if self._wav is None:
                 try:
-                    self._wav = ripper(video_path, tmp_path)
+                    with trace.span("wav_rip", video=str(video_path),
+                                    shared=True):
+                        self._wav = ripper(video_path, tmp_path)
                 except BaseException as e:
                     self._wav_error = f"{type(e).__name__}: {e}"
                     raise

@@ -23,6 +23,18 @@ CLIP's ``model_parallel`` puts a second, ``model`` axis on the mesh: the
 module is cut by :data:`TP_RULES_TRANSFORMER` (:func:`param_specs_by_rules`,
 :func:`shard_tensor`) and each data row runs the tensor-parallel forward of
 ``models/clip.py`` over its model-axis devices.
+
+Profiler stages (``utils/profiling.py``; they add no synchronize and no
+blocking copy): ``h2d`` times :func:`to_device` of each chunk of a host
+batch in :meth:`DataParallelApply.dispatch`, that is the pinned staging
+copy and the enqueue of the non-blocking transfer, a lower bound on the
+wire time, as JAX's ``device_put``. ``forward`` times the host's wait
+for a result, in :meth:`DataParallelApply.__call__` and, under
+:class:`FeatureStream`, in ``_pop``: it is the host's *stall* on the card,
+not device time, as in the JAX package, and near zero means decode hides
+the card's work. The launch of a forward is in no stage (eager PyTorch
+enqueues each kernel from the host, and on the CPU the launch is the
+computation; a span's wall less its stages shows that time).
 """
 from __future__ import annotations
 
@@ -38,6 +50,8 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 from torch import nn
+
+from ..utils.profiling import profiler
 
 Batch = Union[np.ndarray, torch.Tensor]
 
@@ -299,13 +313,19 @@ class DataParallelApply:
         n = batch.shape[0]
         sizes = [len(p) for p in np.array_split(np.arange(n),
                                                 len(self.devices))]
+        host = isinstance(batch, np.ndarray) or batch.device.type == "cpu"
         outs, start = [], 0
         for replica, dev, size in zip(self.replicas, self.devices, sizes):
             if size == 0 and (n or outs):
                 continue  # an empty batch still runs once, on device 0
             with _on(dev), torch.inference_mode():
-                outs.append(self.apply_fn(
-                    replica, to_device(batch[start:start + size], dev)))
+                chunk = batch[start:start + size]
+                if host:
+                    with profiler.stage("h2d"):
+                        chunk = to_device(chunk, dev)
+                else:
+                    chunk = to_device(chunk, dev)
+                outs.append(self.apply_fn(replica, chunk))
             start += size
         return outs
 
@@ -314,7 +334,9 @@ class DataParallelApply:
         """Run a batch; returns its first ``n_valid`` (all) rows on the
         host."""
         n = batch.shape[0] if n_valid is None else n_valid
-        return to_host(self.dispatch(batch))[:n]
+        outs = self.dispatch(batch)
+        with profiler.stage("forward"):
+            return to_host(outs)[:n]
 
     def stream(self, depth: int = 4,
                callback: Optional[Callable[[np.ndarray, Any], None]] = None
@@ -408,7 +430,9 @@ class FeatureStream:
 
     def _pop(self) -> None:
         pending, n, ctx = self._inflight.popleft()
-        feats = pending.wait()[:n]
+        # the host's stall until the oldest result lands (module docstring)
+        with profiler.stage("forward"):
+            feats = pending.wait()[:n]
         if self.callback is not None:
             self.callback(feats, ctx)
         self._done.append(feats)

@@ -40,6 +40,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..utils.profiling import profiler
 from .mesh import to_host
 
 
@@ -227,7 +228,10 @@ class ClipPacker:
             # materialize it, and un-poisoned members would spin in
             # close_video forever instead of surfacing the error
             try:
-                host = to_host(dev)  # blocking D2H
+                # the stage contract of FeatureStream._pop: the host's
+                # stall until the group's result lands
+                with profiler.stage("forward"):
+                    host = to_host(dev)  # blocking D2H
                 with self._lock:
                     for row, (h, idx) in enumerate(manifest):
                         if h in self._results:

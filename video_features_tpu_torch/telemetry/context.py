@@ -1,11 +1,17 @@
-"""The request installed on a thread, and its tenant (port of the part of
-``video_features_tpu/telemetry/context.py`` the feature cache reads).
+"""Request-scoped correlation: the request installed on a thread, and its
+tenant (port of ``video_features_tpu/telemetry/context.py``).
 
 A serving front end installs each request's id on the thread that runs it
-(:func:`use_request`); ``cache_scope=tenant`` salts the cache key with the
-tenant of that id (:func:`current_tenant`), with no plumbing through the
-extractors. Gateway-minted ids are ``{tenant}-{rid}``; an id with no dash
-(a spool-direct client's ``uuid4().hex``) has no tenant."""
+(:func:`use_request`); every emitter of a per-video artifact reads it back
+(:func:`current_request_id`): the ``request_id`` field of a
+``_telemetry.jsonl`` span and of a ``_health.jsonl`` digest, the
+``request_id`` of a ``_failures.jsonl`` record (only when a request is in
+scope), and the ``request`` arg of a trace's ``video_attempt`` span.
+``cache_scope=tenant`` salts the cache key with the tenant of that id
+(:func:`current_tenant`), with no plumbing through the extractors.
+Gateway-minted ids are ``{tenant}-{rid}``; an id with no dash (a
+spool-direct client's ``uuid4().hex``) has no tenant. Outside serving
+nothing is installed and the reads are one thread-local ``getattr``."""
 from __future__ import annotations
 
 import threading

@@ -22,8 +22,12 @@ The port's copy of ``video_features_tpu/utils/faults.py``:
     the ladder's ``decode_override`` that ``BaseExtractor.video_source``
     honours;
   - :class:`FailureJournal`: ``{output_path}/_failures.jsonl``, one
-    atomically appended record per terminal failure; a rerun skips the
-    videos whose latest record is POISON unless ``retry_failed=true``.
+    atomically appended record per terminal failure
+    (``telemetry/jsonl.py append_jsonl``); a rerun skips the videos whose
+    latest record is POISON unless ``retry_failed=true``.
+
+The watchdog counts ``vft_deadline_expirations_total`` and the journal
+``vft_failures_total{category}`` (``telemetry/``; no-ops when off).
 """
 from __future__ import annotations
 
@@ -38,6 +42,10 @@ import traceback
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Union
+
+from .. import telemetry
+from ..telemetry.context import current_request_id
+from ..telemetry.jsonl import append_jsonl
 
 TRANSIENT = "TRANSIENT"  # environment blip: retry with backoff
 POISON = "POISON"        # the input is bad: bounded retries, then quarantine
@@ -86,6 +94,11 @@ def classify(exc: BaseException) -> str:
     if isinstance(exc, FatalError):
         return FATAL
     if isinstance(exc, PoisonError):
+        return POISON
+    from ..telemetry.health import NonFiniteFeatureError
+    if isinstance(exc, NonFiniteFeatureError):
+        # health=true found NaN/Inf in a computed feature: quarantine over
+        # a silent write (retries rarely fix such an input-model pair)
         return POISON
     if isinstance(exc, (NotImplementedError, AssertionError, TypeError,
                         AttributeError, NameError, ImportError)):
@@ -222,6 +235,7 @@ class FaultContext:
         print(f"WATCHDOG: {self.video_path} exceeded video_deadline_s="
               f"{self.deadline_s}; killing its in-flight decode "
               f"({len(sources)} source(s))")
+        telemetry.inc("vft_deadline_expirations_total")
         for s in sources:
             self._cancel_source(s)
 
@@ -244,24 +258,6 @@ class FaultContext:
             self._sources.clear()
 
 
-def append_jsonl(path: str, rec: dict) -> None:
-    """Append one record as a single ``os.write`` on an ``O_APPEND`` fd
-    (concurrent writers never interleave partial lines), first healing a
-    torn tail left by a killed writer with a newline."""
-    line = (json.dumps(rec, sort_keys=True) + "\n").encode()
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
-    try:
-        if os.fstat(fd).st_size > 0:
-            with open(path, "rb") as f:
-                f.seek(-1, os.SEEK_END)
-                if f.read(1) != b"\n":
-                    line = b"\n" + line
-        os.write(fd, line)
-    finally:
-        os.close(fd)
-
-
 class FailureJournal:
     """``{output_path}/_failures.jsonl``: one JSON record per terminal
     failure, ``{video, category, attempts, error, elapsed_s, host, time}``.
@@ -282,8 +278,14 @@ class FailureJournal:
                "attempts": int(attempts), "error": str(error)[:1000],
                "elapsed_s": round(float(elapsed_s), 3),
                "host": socket.gethostname(), "time": time.time()}
+        # the request in scope (telemetry/context.py), only when there is
+        # one, so batch-run records keep their fields
+        rid = current_request_id()
+        if rid is not None:
+            rec["request_id"] = rid
         with self._lock:
             append_jsonl(self.path, rec)
+        telemetry.inc("vft_failures_total", category=str(category))
         return rec
 
     def resolve(self, video: str) -> None:

@@ -26,7 +26,9 @@ source, spawned decode workers included), ``sink.tmp_write`` /
 ``sink.fsync`` / ``sink.rename`` (``utils/sinks.py _write_bytes_atomic``),
 ``worker.kill`` (``utils/sinks.py safe_extract``, once per attempt) and
 ``cache.lookup`` (``torn``: the entry is truncated before it is read) /
-``cache.store`` (``cache.py FeatureCache``). A
+``cache.store`` (``cache.py FeatureCache``) and ``heartbeat.tick``
+(``telemetry/heartbeat.py``, each tick of a ``telemetry=true`` run;
+``freeze`` skips the tick, a raise-kind fault is counted as a tick error). A
 plan naming a site whose plane is not ported (:data:`UNPORTED_SITES`) raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` Queue 1 item, so no rule
 is ever left silently dead.
@@ -60,7 +62,6 @@ UNPORTED_SITES = {
     "queue.claim": 8, "queue.steal_staging": 8, "spool.claim": 8,
     "spool.respond": 8, "gateway.read": 8, "gateway.spool_submit": 8,
     "gc.evict": 8, "gc.sweep": 8,
-    "heartbeat.tick": 9,
 }
 
 #: raise-kind faults -> the errno they raise with (None = RuntimeError)

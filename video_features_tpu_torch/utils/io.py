@@ -26,18 +26,28 @@ import this module and numpy (cv2 where they decode, and whatever the
 transform they are sent needs), never the models or the card. ``cv2`` is
 imported only where a file is decoded. ``_FrameStream.read`` hosts the
 ``decode.read`` injection site (``utils/inject.py``).
+
+Every read, grab-only skip and host transform of :class:`VideoSource` is a
+``decode`` profiler stage (``utils/profiling.py``), and the decode-ahead
+:class:`Prefetcher` carries the consumer's telemetry span onto its thread;
+the spawned sources decode in children, whose stages the parent does not
+see.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ..telemetry import trace
+from ..telemetry.spans import current_span, use_span
 from . import inject
 from .faults import DeadlineExceeded
+from .profiling import profiler
 
 
 def get_video_props(path: Union[str, Path]) -> dict:
@@ -238,9 +248,11 @@ def _select(stream: _FrameStream, src_indices: Sequence[int],
     for want in src_indices:
         while pos < want:
             if pos < want - 1:
-                ok = stream.skip()
+                with profiler.stage("decode"):
+                    ok = stream.skip()
             else:
-                current = stream.read()
+                with profiler.stage("decode"):
+                    current = stream.read()
                 ok = current is not None
             if not ok:
                 return
@@ -310,7 +322,14 @@ class VideoSource:
         ``transform`` when one is set."""
         if self.transform is None:
             return self._decoded()
-        return ((self.transform(f), t, i) for f, t, i in self._decoded())
+        return self._transformed(self.transform)
+
+    def _transformed(self, tf: Callable[[np.ndarray], np.ndarray]
+                     ) -> Iterator[Tuple[np.ndarray, float, int]]:
+        for frame, t, i in self._decoded():
+            with profiler.stage("decode"):
+                x = tf(frame)
+            yield x, t, i
 
     def __iter__(self) -> Iterator[Tuple[List, List[float], List[int]]]:
         return _batched(self.frames(), self.batch_size, self.overlap)
@@ -325,7 +344,8 @@ class VideoSource:
             if self.index_map is None:
                 out_idx = 0
                 while True:
-                    rgb = stream.read()
+                    with profiler.stage("decode"):
+                        rgb = stream.read()
                     if rgb is None:
                         # a released stream ends like EOF: tell them apart
                         self._raise_if_cancelled()
@@ -648,13 +668,18 @@ class Prefetcher:
     """Decode-ahead iterator: runs ``iterable`` on a background thread into
     a bounded queue so host decode overlaps device compute. Producer
     exceptions re-raise in the consumer; an abandoned consumer stops the
-    producer at its next bounded put."""
+    producer at its next bounded put. The producer runs under the telemetry
+    span of the thread that built the prefetcher, so its ``decode`` stages
+    attribute to that video; with ``trace=true`` each pull is a
+    ``prefetch.next`` span and each put that waited a ``prefetch.put_blocked``
+    one."""
 
     _DONE = object()
 
     def __init__(self, iterable, depth: int = 2):
         self.iterable = iterable
         self.depth = depth
+        self._span = current_span()
 
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
@@ -671,9 +696,28 @@ class Prefetcher:
 
         def produce():
             try:
-                for item in self.iterable:
-                    if not put(item):
-                        return
+                with use_span(self._span):
+                    it = iter(self.iterable)
+                    while True:
+                        tr = trace.active()
+                        t0 = time.perf_counter() if tr is not None else 0.0
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            break
+                        if tr is not None:
+                            tr.complete("prefetch.next", t0,
+                                        time.perf_counter() - t0)
+                        t1 = time.perf_counter()
+                        if not put(item):
+                            return
+                        if tr is not None:
+                            # a put that waited: the consumer (the card)
+                            # fell behind
+                            blocked = time.perf_counter() - t1
+                            if blocked >= trace.STALL_MIN_S:
+                                tr.complete("prefetch.put_blocked", t1,
+                                            blocked)
                 put(self._DONE)
             except BaseException as e:  # re-raised on the consumer side
                 put(e)
@@ -722,11 +766,12 @@ def extract_wav_from_mp4(video_path: Union[str, Path],
     stem = Path(video_path).stem
     aac = str(tmp / f"{stem}.aac")
     wav = str(tmp / f"{stem}.wav")
-    for cmd in (
-        [ffmpeg, "-hide_banner", "-loglevel", "panic", "-y", "-i",
-         video_path, "-acodec", "copy", aac],
-        [ffmpeg, "-hide_banner", "-loglevel", "panic", "-y", "-i", aac,
-         wav],
-    ):
-        subprocess.run(cmd, check=True)
+    with trace.span("wav_rip", video=video_path):
+        for cmd in (
+            [ffmpeg, "-hide_banner", "-loglevel", "panic", "-y", "-i",
+             video_path, "-acodec", "copy", aac],
+            [ffmpeg, "-hide_banner", "-loglevel", "panic", "-y", "-i", aac,
+             wav],
+        ):
+            subprocess.run(cmd, check=True)
     return wav, aac

@@ -11,6 +11,14 @@
   - :func:`safe_extract`: one video under the retry policy, deadline
     watchdog, decode ladder and failure journal of ``utils/faults.py``.
 
+Telemetry (``telemetry/``, each a no-op when off): every write is a
+``write`` profiler stage; with a live span each also records an
+``artifact`` event with the size and sha256 of exactly the bytes renamed
+into place; :func:`safe_extract` annotates the span (``decode_mode``,
+``attempts``, the failure), counts retries, recoveries, demotions and
+quarantine skips, and traces each attempt (``video_attempt``) and backoff
+(``retry_backoff``).
+
 The atomic write hosts the ``sink.tmp_write`` (``torn``: a truncated write,
 then EIO), ``sink.fsync`` and ``sink.rename`` (``drop``: the rename is lost)
 injection sites, and each attempt of :func:`safe_extract` the
@@ -19,17 +27,21 @@ injection sites, and each attempt of :func:`safe_extract` the
 from __future__ import annotations
 
 import errno
+import hashlib
 import io
 import os
 import pickle
 import tempfile
 import traceback
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import telemetry
+from ..telemetry import trace
 from . import faults, inject
+from .profiling import profiler
 
 EXTS = {"save_numpy": ".npy", "save_pickle": ".pkl"}
 
@@ -72,14 +84,27 @@ def _write_bytes_atomic(fpath: str, data: bytes) -> None:
         raise
 
 
-def write_numpy(fpath: str, value) -> None:
+def _write_digest(fpath: str, data: bytes,
+                  want_digest: bool) -> Optional[Tuple[int, str]]:
+    """Write ``data`` atomically; with ``want_digest`` return ``(bytes,
+    sha256)`` of exactly what was renamed into place (hashed from memory,
+    so it can never describe a file another worker replaced)."""
+    _write_bytes_atomic(fpath, data)
+    if want_digest:
+        return len(data), hashlib.sha256(data).hexdigest()
+    return None
+
+
+def write_numpy(fpath: str, value, want_digest: bool = False
+                ) -> Optional[Tuple[int, str]]:
     buf = io.BytesIO()
     np.save(buf, np.asarray(value))
-    _write_bytes_atomic(fpath, buf.getvalue())
+    return _write_digest(fpath, buf.getvalue(), want_digest)
 
 
-def write_pickle(fpath: str, value) -> None:
-    _write_bytes_atomic(fpath, pickle.dumps(value))
+def write_pickle(fpath: str, value, want_digest: bool = False
+                 ) -> Optional[Tuple[int, str]]:
+    return _write_digest(fpath, pickle.dumps(value), want_digest)
 
 
 def _load(on_extraction: str, fpath: str) -> None:
@@ -135,11 +160,16 @@ def action_on_extraction(feats_dict: Dict[str, np.ndarray], video_path: str,
         raise NotImplementedError(f"on_extraction: {on_extraction}")
     os.makedirs(output_path, exist_ok=True)
     writer = write_numpy if on_extraction == "save_numpy" else write_pickle
+    span = telemetry.current_span()
     for key, value in feats_dict.items():
         if np.asarray(value).size == 0:
             print("Warning: the value is empty for", key, "@", video_path)
-        writer(make_path(output_path, video_path, key, EXTS[on_extraction]),
-               value)
+        fpath = make_path(output_path, video_path, key, EXTS[on_extraction])
+        with profiler.stage("write"):
+            info = writer(fpath, value, want_digest=span is not None)
+        if info is not None:
+            span.event("artifact", key=key, file=os.path.basename(fpath),
+                       bytes=info[0], sha256=info[1])
 
 
 def safe_extract(extract_fn: Callable, video_path: str,
@@ -170,6 +200,7 @@ def safe_extract(extract_fn: Callable, video_path: str,
     or ``'error'``."""
     if policy is None:
         policy = faults.RetryPolicy()
+    telemetry.annotate(decode_mode=decode_mode)
     if journal is not None and not policy.retry_failed:
         rec = journal.poison_record(video_path)
         if rec is not None:
@@ -177,6 +208,8 @@ def safe_extract(extract_fn: Callable, video_path: str,
                   f'(category={rec.get("category")}, '
                   f'attempts={rec.get("attempts")}) — skipping. '
                   "Pass retry_failed=true to re-run it.")
+            telemetry.inc("vft_quarantine_skips_total")
+            telemetry.event("quarantine_skip", category=rec.get("category"))
             return "quarantined"
 
     t0 = policy.clock()
@@ -191,12 +224,19 @@ def safe_extract(extract_fn: Callable, video_path: str,
                                   decode_override=override)
         inject.fire("worker.kill", video=str(video_path), attempt=attempt)
         try:
-            with ctx:
+            # one timeline span per attempt, failed ones included; it names
+            # the request in scope, if any (telemetry/context.py)
+            rid = telemetry.current_request_id()
+            with trace.span("video_attempt", video=str(video_path),
+                            attempt=attempt,
+                            **({"request": rid} if rid else {})), ctx:
                 result = extract_fn(video_path)
             if attempt > 1:
                 print(f'Recovered "{video_path}" on attempt '
                       f"{attempt}/{policy.attempts}"
                       + (f" (video_decode={mode})" if override else ""))
+                telemetry.inc("vft_video_recoveries_total")
+            telemetry.annotate(attempts=attempt)
             if journal is not None and policy.retry_failed \
                     and journal.poison_record(video_path) is not None:
                 journal.resolve(video_path)
@@ -208,6 +248,8 @@ def safe_extract(extract_fn: Callable, video_path: str,
                   f"(attempt {attempt}/{policy.attempts}, "
                   f"category={category})")
             traceback.print_exc()
+            telemetry.event("attempt_failed", attempt=attempt,
+                            category=category)
             if category == faults.FATAL:
                 break
             if attempt < policy.attempts:
@@ -215,13 +257,21 @@ def safe_extract(extract_fn: Callable, video_path: str,
                 if next_mode is not None:
                     print(f"DECODE LADDER: retrying \"{video_path}\" with "
                           f"video_decode={next_mode} (was {mode})")
+                    telemetry.event("ladder", to=next_mode)
+                    telemetry.inc("vft_decode_demotions_total")
                     mode = next_mode
                 delay = policy.backoff_delay(attempt)
+                telemetry.inc("vft_video_retries_total")
                 if delay > 0:
                     print(f"Retrying \"{video_path}\" in {delay:.2f}s ...")
-                    policy.sleep(delay)
+                    with trace.span("retry_backoff", video=str(video_path),
+                                    attempt=attempt,
+                                    delay_s=round(delay, 3)):
+                        policy.sleep(delay)
 
     elapsed = policy.clock() - t0
+    telemetry.annotate(attempts=attempts_made, category=category,
+                       error=err_repr)
     rec = {"video": str(video_path), "category": category,
            "attempts": attempts_made, "error": err_repr,
            "elapsed_s": round(float(elapsed), 3)}
