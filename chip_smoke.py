@@ -8,7 +8,9 @@ that goes wrong:
 1. prints the card's ``nvidia-smi --query-gpu=name,power.limit`` line;
 2. builds the CUDA kernels from ``video_features_tpu_torch/kernels/csrc``
    and prints each kernel's registers, shared memory and spills from the
-   compiler's ``-Xptxas -v`` report;
+   compiler's ``-Xptxas -v`` report; then prints the card's practical
+   bf16 and read rates (``telemetry/roofline.py measure_peak``) beside the
+   peak registry's entry for the card;
 3. holds level (max abs error 1e-5), proj (1e-4) and packed (1e-5) against
    their plain versions on small ragged cases, whose query counts fill no
    whole tile: 3 pairs on a 7x11 grid (Q = 231), odd level sizes, whole
@@ -173,9 +175,12 @@ that goes wrong:
    seeded weights) over the vendored sample decoded at 7.3 fps (132
    frames: two 64-frame stacks), once with every run-plane key off and
    once with ``telemetry=true trace=true health=true profile=true
-   profile_trace_dir=...``, counts set to 0 just before each and read just
-   after; and once more with those keys but no capture, so the capture's
-   cost shows apart. Held: the features equal bit for bit (max abs 0.0);
+   roofline=true parity=true profile_trace_dir=...``, counts set to 0 just
+   before each and read just after; once more with those keys but no
+   capture, so the capture's cost shows apart; and once with those keys
+   over the sample and a copy of it ("repeat"), whose second dispatch at
+   the same shape runs without the roofline's counting pass. Held: the
+   features of every video equal bit for bit (max abs 0.0);
    proj 20 launches per stack in every run; the one ``_telemetry.jsonl`` span valid
    under the port's schema, ``done``, with ``decode``, ``h2d``, ``forward``
    and ``write`` all > 0; a final ``_heartbeat_*.json`` and a ``_run.json``
@@ -183,18 +188,39 @@ that goes wrong:
    output key with no NaN or Inf; a ``_trace.json`` that parses, with the
    required fields of every event and the load-bearing spans; the
    ``torch.profiler`` Chrome trace with the proj kernel among its device
-   events; the profile summary printed. Both walls and each stage's total;
-18. prints one JSON line each of the i3d slice's, the raft family's, the
+   events; the profile summary printed; in each on run a ``_roofline.json``
+   valid under the port's schema naming the card from the peak registry,
+   its FLOPs at least the proj launches' declared operations at the
+   slice's shapes, ``0 < mfu <= 1``, effective TFLOPS at most the peak and
+   one of the four verdicts, and in the repeat run the one uncounted
+   dispatch timed of two; ``_parity.jsonl`` records at the ``decode``,
+   ``transform`` and ``head`` seams, each valid, and none at ``backbone``
+   (as in JAX, the i3d path's RAFT flow stays on the card; the raft
+   family's backbone seam is the certify phase's); the heartbeat's
+   ``roofline`` and ``parity`` sections and the manifest's roofline
+   filled. The walls, each stage's total, the roofline documents and the
+   counting pass's cost (the capture_off window less the repeat run's);
+18. certifies each bfloat16 default flip on the card
+   (:func:`certify_phase`, ``telemetry/parity.py certify``): ``raft`` and
+   ``pwc`` with ``--flip dtype=bf16`` over the vendored sample, reference
+   arm float32 and candidate bfloat16 in one process; each verdict valid
+   under the port's schema, every seam captured, ``decode`` and
+   ``transform`` within their bands; PWC's verdict ``PASS``; RAFT's, whose
+   ``PASS`` or ``FAIL`` rests on the random weight draw, held at
+   ``backbone`` and ``head`` to its band's cosine and 1.5 times its max
+   abs (:data:`DRAW_SPREAD`); the verdict, its first drifted seam and the
+   per-seam ``max_abs`` and ``cos`` printed;
+19. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
-   vggish, parallel, multi and telemetry phases' numbers, one of the
-   kernels' numbers, and last ``{"ok": true, "device": {...}}``.
+   vggish, parallel, multi, telemetry and certify phases' numbers, one of
+   the kernels' numbers, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
 synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
-transforms and the I420 encoder are numpy. The multi and telemetry phases
-decode a video, with cv2, and fail without it; the telemetry phase runs
-the CLI, which reads the family YAML with yaml. PIL is needed by the
+transforms and the I420 encoder are numpy. The multi, telemetry and certify phases
+decode a video, with cv2, and fail without it; the telemetry and certify
+phases read the family YAML with yaml. PIL is needed by the
 frame-wise phases' ``resize=host`` runs; scipy by the vggish phase's
 resampling.
 """
@@ -209,8 +235,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-F32_PEAK_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+# the port's one copy of each lookup's declared work and of the peaks its
+# bounds are taken against, and of the bfloat16 bands
+from video_features_tpu_torch.kernels.corr_lookup import (
+    F32_PEAK_FLOPS, HBM_BYTES_PER_S, kernel_work)
+from video_features_tpu_torch.telemetry import parity
+
 STACK = 64
 FRAME_H, FRAME_W = 240, 320
 GRID_H, GRID_W = 32, 43  # 256x341 resized, padded to 256x344, /8
@@ -223,10 +253,12 @@ QUEUE_AHEAD_CYCLES = 100_000_000
 #: the bfloat16 flow bound of the JAX package (tests/test_raft.py)
 BF16_MEDIAN_PX, BF16_P99_PX = 0.1, 1.0
 PWC_BATCH = 32  # pwc family pairs per PWC forward
-#: the JAX package's bfloat16 bands (telemetry/parity.py TOLERANCES): PWC
-#: flows ("pwc", *), I3D features ("*", "head")
-PWC_BF16_COS, PWC_BF16_MAX_PX = 0.98, 2.0
-HEAD_COS, HEAD_MAX_ABS = 0.99, 0.5
+#: the bfloat16 bands of the port's telemetry/parity.py TOLERANCES (the
+#: JAX package's): PWC flows ("pwc", "backbone"), features ("*", "head")
+PWC_BF16_COS = parity.tolerance_for("pwc", "backbone")["cos"]
+PWC_BF16_MAX_PX = parity.tolerance_for("pwc", "backbone")["max_abs"]
+HEAD_COS = parity.tolerance_for("*", "head")["cos"]
+HEAD_MAX_ABS = parity.tolerance_for("*", "head")["max_abs"]
 #: the clip-stack phases: frames, window (stack = step) and clips per group
 R21D_FRAMES, R21D_STACK = 257, 16
 S3D_FRAMES, S3D_STACK = 513, 64
@@ -325,21 +357,6 @@ def window_cells(shapes, coords, radius: int = 4) -> int:
 
 def level_shapes(pyramid):
     return [tuple(corr.shape[2:]) for corr in pyramid]
-
-
-def kernel_work(kernel: str, q: int, cells: int, c_out: int = 256):
-    """(bytes, operations) the kernel must move and do for ``q`` queries
-    whose corner windows hold ``cells`` in-plane cells: each input read once
-    (the cells, coords; W and b for proj), each output written once (324
-    taps, or ``c_out`` channels for proj); 12 operations per tap (4 corner
-    weights, 4 products, 4 adds) plus proj's 2 x 324 x ``c_out`` per
-    query."""
-    taps = q * 324
-    read = cells * 4 + q * 8
-    if kernel == "proj":
-        return (read + (324 + 1) * c_out * 4 + q * c_out * 4,
-                2 * taps * c_out + taps * 12)
-    return read + taps * 4, taps * 12
 
 
 def bound(bytes_moved: float, flops: float):
@@ -2165,7 +2182,7 @@ def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
 #: stacks; the run-plane keys it turns on (profile_trace_dir beside them)
 TELEMETRY_FPS = 7.3
 TELEMETRY_ON = ("telemetry=true", "trace=true", "health=true",
-                "profile=true")
+                "profile=true", "roofline=true", "parity=true")
 #: the stages every span of the main path must show
 TELEMETRY_STAGES = ("decode", "h2d", "forward", "write")
 #: the trace spans the phase requires (profiler stages and the attempt)
@@ -2225,17 +2242,27 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
 
     from video_features_tpu_torch import cli
     from video_features_tpu_torch.kernels import corr_lookup as cl
-    from video_features_tpu_torch.telemetry import health, schema, trace
+    from video_features_tpu_torch.telemetry import (health, roofline, schema,
+                                                    trace)
 
     root = "output/chip_smoke/telemetry"
     shutil.rmtree(root, ignore_errors=True)
+    stem = os.path.splitext(os.path.basename(video))[0]
+    again = f"{root}/{stem}_again.mp4"
+    os.makedirs(root)
+    shutil.copyfile(video, again)
     runs = {}
     # "capture_off": the run plane without the torch.profiler capture, so
-    # the capture's own cost shows apart from the recorders'
-    for name, keys in (("off", ()), ("on", TELEMETRY_ON + (
-            f"profile_trace_dir={root}/prof",)),
-                       ("capture_off", TELEMETRY_ON)):
-        argv = telemetry_argv(f"{root}/{name}", video, **over) + list(keys)
+    # the capture's own cost shows apart from the recorders'; "repeat": the
+    # same over the sample and a copy, whose second dispatch at the same
+    # shape runs without the counting pass
+    for name, keys, paths in (
+            ("off", (), video),
+            ("on", TELEMETRY_ON + (f"profile_trace_dir={root}/prof",),
+             video),
+            ("capture_off", TELEMETRY_ON, video),
+            ("repeat", TELEMETRY_ON, f"[{video}, {again}]")):
+        argv = telemetry_argv(f"{root}/{name}", paths, **over) + list(keys)
         buf = io.StringIO()
         reset_counts(cl)
         synchronize()
@@ -2248,36 +2275,45 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
                           dir=f"{root}/{name}/out/i3d")
     on, off = runs["on"], runs["off"]
     for name, run in runs.items():
-        if "1 extracted" not in run["stdout"]:
+        n = 2 if name == "repeat" else 1
+        if f"{n} extracted" not in run["stdout"]:
             raise AssertionError(f"telemetry: the {name} run did not "
                                  f"extract: {run['stdout'][-300:]}")
 
     # the features, bit for bit, and proj's launches in every run
     want = read_outputs(off["dir"])
-    stem = os.path.splitext(os.path.basename(video))[0]
     stacks = len(want.get(f"{stem}_timestamps_ms.npy", []))
     iters = int(over.get("flow_iters") or ITERS)
     on_card = torch.device(over.get("device", "cuda")).type == "cuda"
     proj_want = iters * stacks if on_card else 0
     max_abs = 0.0
     for name, run in runs.items():
-        got = read_outputs(run["dir"])
-        if sorted(got) != sorted(want) or not want:
-            raise AssertionError(f"telemetry: {name} outputs {sorted(got)} "
-                                 f"against {sorted(want)}")
-        err = max(float(np.abs(got[k].astype(np.float64)
-                               - want[k].astype(np.float64)).max())
-                  if got[k].size else 0.0 for k in want)
-        max_abs = max(max_abs, err)
-        if err != 0.0 or any(got[k].tobytes() != want[k].tobytes()
-                             for k in want):
-            raise AssertionError(f"telemetry: the {name} run's features "
-                                 f"differ from the off run's (max abs "
-                                 f"{err})")
-        if run["launches"] != dict(level=0, proj=proj_want, packed=0):
+        outs = read_outputs(run["dir"])
+        again_keys = {k for k in outs if k.startswith(f"{stem}_again_")}
+        # each video's outputs, the copy's under the sample's names
+        videos = [{k: v for k, v in outs.items() if k not in again_keys}]
+        if name == "repeat":
+            videos.append({k.replace(f"{stem}_again_", f"{stem}_"): outs[k]
+                           for k in again_keys})
+        n = len(videos)
+        for got in videos:
+            if sorted(got) != sorted(want) or not want:
+                raise AssertionError(f"telemetry: {name} outputs "
+                                     f"{sorted(got)} against {sorted(want)}")
+            err = max(float(np.abs(got[k].astype(np.float64)
+                                   - want[k].astype(np.float64)).max())
+                      if got[k].size else 0.0 for k in want)
+            max_abs = max(max_abs, err)
+            if err != 0.0 or any(got[k].tobytes() != want[k].tobytes()
+                                 for k in want):
+                raise AssertionError(f"telemetry: the {name} run's "
+                                     f"features differ from the off run's "
+                                     f"(max abs {err})")
+        if run["launches"] != dict(level=0, proj=n * proj_want, packed=0):
             raise AssertionError(f"telemetry: the {name} run launched "
                                  f"{run['launches']}, proj expected "
-                                 f"{proj_want} ({stacks} stacks)")
+                                 f"{n * proj_want} ({stacks} stacks a "
+                                 f"video)")
 
     # the span
     spans = [json.loads(line) for line in
@@ -2310,7 +2346,7 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
     records = [json.loads(line) for line in
                open(f"{on['dir']}/{health.HEALTH_FILENAME}")
                if line.strip()]
-    keys = sorted(k[len(stem) + 1:-4] for k in got)
+    keys = sorted(k[len(stem) + 1:-4] for k in want)
     bad = [r for r in records if health.validate_health(r)
            or r["nan"] or r["inf"]]
     if sorted(r["key"] for r in records) != keys or bad:
@@ -2338,6 +2374,26 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
                              f"{proj_want} expected")
     if "[profile: i3d x 1 videos] total accounted:" not in on["stdout"]:
         raise AssertionError("telemetry: no profile summary printed")
+    rooflines = {name: check_roofline(
+        json.load(open(f"{runs[name]['dir']}/{roofline.ROOFLINE_FILENAME}")),
+        card_name, proj_want) for name in ("on", "capture_off", "repeat")}
+    # the repeat run times its uncounted dispatch alone; the capture_off
+    # run's one dispatch is its counted one, counting pass included
+    rep = rooflines["repeat"]
+    if rep["dispatches"] != 2 or rep["forward_calls"] != 1 or rooflines[
+            "capture_off"]["forward_calls"] != 1:
+        raise AssertionError(f"telemetry: repeat run dispatches "
+                             f"{rep['dispatches']}, timed "
+                             f"{rep['forward_calls']}")
+    counting_pass_s = (rooflines["capture_off"]["forward_s"]
+                       - rep["forward_s"])
+    seams = check_parity(f"{on['dir']}/{parity.PARITY_FILENAME}")
+    if not beat["roofline"].get("families") or not beat["parity"].get(
+            "records") or manifest["roofline"].get("schema") != \
+            roofline.SCHEMA_VERSION:
+        raise AssertionError(f"telemetry: heartbeat roofline "
+                             f"{beat['roofline']}, parity {beat['parity']}, "
+                             f"manifest roofline {manifest['roofline']}")
     return dict(
         video=video, fps=TELEMETRY_FPS, stacks=stacks,
         wall_s={name: run["wall_s"] for name, run in runs.items()},
@@ -2352,7 +2408,127 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
         profiler_device_events=len(device_events),
         profiler_proj_kernels=len(proj_events),
         profiler_trace_bytes=os.path.getsize(prof[0]),
-        topology_device_name=topo.get("device_name"))
+        topology_device_name=topo.get("device_name"),
+        roofline=rooflines, counting_pass_s=counting_pass_s,
+        parity_seams=seams,
+        heartbeat_roofline=beat["roofline"], heartbeat_parity=beat["parity"])
+
+
+def check_roofline(doc: dict, card_name, proj_want: int) -> dict:
+    """A ``_roofline.json`` of the telemetry phase: valid under the port's
+    schema, one i3d family with work counted. On a card: the device named
+    from the registry, at least the proj launches' declared operations at
+    the slice's shapes among the FLOPs, ``0 < mfu <= 1``, effective TFLOPS
+    at most the peak and one of the four verdicts. Returns the family's
+    numbers and the device block."""
+    from video_features_tpu_torch.telemetry import roofline
+
+    errs = roofline.validate_roofline(doc)
+    fam = doc["families"].get("i3d") or {}
+    if errs or not fam.get("flops_total", 0) > 0 or not fam.get(
+            "dispatches"):
+        raise AssertionError(f"telemetry: _roofline.json {errs} {fam}")
+    dev = doc["device"]
+    if card_name is not None:
+        least = proj_want * kernel_work("proj", STACK * GRID_H * GRID_W,
+                                        0)[1]
+        mfu, eff = fam.get("mfu"), fam.get("effective_tflops")
+        if dev.get("device_kind") != card_name \
+                or dev.get("source") != "registry" \
+                or fam["flops_total"] < least or mfu is None \
+                or not 0 < mfu <= 1 or eff > dev["peak_tflops"] \
+                or fam.get("verdict") not in roofline.VERDICTS:
+            raise AssertionError(f"telemetry: roofline device {dev}, family "
+                                 f"{fam}, proj's declared operations "
+                                 f"{least}")
+    return dict(device=dev, **{k: v for k, v in fam.items()
+                               if k != "programs"},
+                programs=fam["programs"])
+
+
+#: the seams the i3d path taps, as JAX's i3d does: its RAFT flow stays on
+#: the card, so the backbone seam is the raft family's (the certify phase)
+I3D_SEAMS = ("decode", "transform", "head")
+
+
+def check_parity(path: str) -> dict:
+    """The ``_parity.jsonl`` of the telemetry phase: every record valid
+    under the port's schema, records at each of :data:`I3D_SEAMS` and at
+    no other seam. Returns the count per seam."""
+    records = [json.loads(line) for line in open(path) if line.strip()]
+    bad = [r for r in records if parity.validate_parity(r)]
+    seams = {s: sum(r["seam"] == s for r in records) for s in parity.SEAMS}
+    if bad or {s for s, n in seams.items() if n} != set(I3D_SEAMS):
+        raise AssertionError(f"telemetry: parity records by seam {seams}, "
+                             f"invalid {bad[:2]}")
+    return seams
+
+
+#: the certify phase: each family's bfloat16 flip over the vendored sample
+CERTIFY_FLIPS = (("raft", "dtype=bf16"), ("pwc", "dtype=bf16"))
+#: the families whose bfloat16 verdict on the port's seeded weights may be
+#: the weight draw's FAIL, and the factor on their band's ``max_abs`` that
+#: still holds them: RAFT's flip read 1.31-2.80 px over four seeded weight
+#: draws, FAILing its 2.0 px band on two of them in the port and in the
+#: JAX package alike (``tools/certify_seeds.py``, PERF.md). Its ``cos``
+#: band holds as it stands.
+DRAW_BOUND_FAMILIES = ("raft",)
+DRAW_SPREAD = 1.5
+
+
+def certify_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
+    """``parity.certify`` of each family's bfloat16 flip over the sample on
+    the card (``over``: config overrides for both arms, the CPU test's
+    small sizes). Held: each verdict valid under the port's schema, every
+    seam captured, the ``decode`` and ``transform`` seams within their
+    bands (host work in float32 that no numerics flip may reach: drift
+    there is a leak), and the verdict ``PASS``. A family of
+    :data:`DRAW_BOUND_FAMILIES` is held instead at ``backbone`` and
+    ``head`` to its band's ``cos`` and to :data:`DRAW_SPREAD` times its
+    ``max_abs``. Returns each verdict's per-seam numbers."""
+    import os
+    import shutil
+
+    root = "output/chip_smoke/certify"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for family, flip in CERTIFY_FLIPS:
+        t = time.perf_counter()
+        doc = parity.certify(family, flip=flip, videos=[video],
+                             out_dir=os.path.join(root, family),
+                             extra_overrides=dict({"device": "cuda"},
+                                                  **over))
+        errs = parity.validate_verdict(doc)
+        out[family] = dict(
+            flip=flip, verdict=doc["verdict"],
+            first_drift=doc["first_drift"], seconds=time.perf_counter() - t,
+            seams={s: {k: m[k] for k in ("pairs", "max_abs", "mean_abs",
+                                         "cos", "tol_max_abs", "tol_cos")}
+                   for s, m in doc["seams"].items()})
+        print(json.dumps({"certify": {family: out[family]}}))
+        leaked = [s for s in ("decode", "transform")
+                  if not doc["seams"][s]["ok"]]
+        empty = [s for s, m in doc["seams"].items() if not m["pairs"]]
+        if errs or leaked or empty:
+            raise AssertionError(f"certify {family} {flip}: {errs}, drift "
+                                 f"upstream of the device at {leaked}, no "
+                                 f"captures at {empty}")
+        if family in DRAW_BOUND_FAMILIES:
+            off = [s for s in ("backbone", "head")
+                   if not (doc["seams"][s]["cos"]
+                           >= parity.tolerance_for(family, s)["cos"]
+                           and doc["seams"][s]["max_abs"] <= DRAW_SPREAD
+                           * parity.tolerance_for(family, s)["max_abs"])]
+            if off:
+                raise AssertionError(f"certify {family} {flip}: outside "
+                                     f"{DRAW_SPREAD}x its band at {off}: "
+                                     f"{out[family]['seams']}")
+        elif doc["verdict"] != "PASS":
+            raise AssertionError(f"certify {family} {flip}: "
+                                 f"{doc['verdict']}, first drift at "
+                                 f"{doc['first_drift']}: "
+                                 f"{out[family]['seams']}")
+    return out
 
 
 def main() -> int:
@@ -2375,6 +2551,13 @@ def main() -> int:
     print(json.dumps({"build_s": build_s, "library": build.library_path().name,
                       "built_in_this_run": not cached,
                       "ptxas": kernel_resources(build)}))
+    # the card's practical bf16 and read rates, beside the registry's entry
+    # that every roofline MFU of the port divides by
+    from video_features_tpu_torch.telemetry import roofline
+    kind = torch.cuda.get_device_name(0)
+    print(json.dumps({"measure_peak": roofline.measure_peak(),
+                      "registry": roofline.registry_peak(kind),
+                      "device_kind": kind, "card": card}))
 
     ragged = check_ragged(dev)
     print(json.dumps({"ragged_max_abs_err": ragged}))
@@ -2397,6 +2580,8 @@ def main() -> int:
     multi_stats = multi_phase()
     empty_cache()
     telemetry_stats = telemetry_phase()
+    empty_cache()
+    certify_stats = certify_phase()
     empty_cache()
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
@@ -2430,6 +2615,7 @@ def main() -> int:
     parallel_stats["card"] = card
     multi_stats["card"] = card
     telemetry_stats["card"] = card
+    certify_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -2442,6 +2628,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel_stats}))
     print(json.dumps({"multi": multi_stats}))
     print(json.dumps({"telemetry": telemetry_stats}))
+    print(json.dumps({"certify": certify_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@ its bytes bound counts, the touched units that tools/level_fetch_model.py
 counts, and which of the two bounds each kernel gets at the main paths'
 shapes. The scripts are imported without running ``main()``."""
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -444,9 +445,96 @@ def test_telemetry_phase_runs_on_the_cpu(tmp_path, monkeypatch,
         video=sample_video, device="cpu", stack_size=10, step_size=10,
         flow_iters=2, extraction_fps=1)
     assert stats["max_abs_on_vs_off"] == 0.0 and stats["stacks"] == 1
-    assert stats["proj_launches"] == {"off": 0, "on": 0, "capture_off": 0}
+    assert stats["proj_launches"] == {"off": 0, "on": 0, "capture_off": 0,
+                                      "repeat": 0}
     assert stats["health_records"] == 4
     assert {"decode", "h2d", "forward", "write"} <= set(
         stats["stage_totals"])
     assert stats["topology_device_name"] is None
     assert stats["profiler_trace_bytes"] > 0
+    # roofline and parity on: counted on the CPU, no peak resolved there
+    # (measure_peak needs a card), records at i3d's three seams, live
+    # sections; the repeat run times its second, uncounted dispatch alone
+    for run in ("on", "capture_off", "repeat"):
+        doc = stats["roofline"][run]
+        assert doc["device"]["source"] == "unresolved"
+        assert doc["flops_total"] > 0 and doc["mfu"] is None
+    assert stats["roofline"]["repeat"]["flops_total"] == stats["roofline"][
+        "capture_off"]["flops_total"]
+    assert isinstance(stats["counting_pass_s"], float)
+    assert {s for s, n in stats["parity_seams"].items() if n} == set(
+        cs.I3D_SEAMS)
+    assert stats["heartbeat_parity"]["records"] == sum(
+        stats["parity_seams"].values())
+    assert stats["heartbeat_roofline"]["families"]["i3d"]["dispatches"] == 1
+
+
+def test_check_roofline_and_parity_fail_bad_artifacts(tmp_path):
+    from video_features_tpu_torch.telemetry import roofline
+
+    doc = {"schema": roofline.SCHEMA_VERSION, "time": 0.0, "wall_s": 1.0,
+           "device": {}, "families": {"i3d": {
+               "programs": [], "flops_total": 0.0, "bytes_total": 0.0,
+               "dispatches": 1, "forward_s": 0.1, "wall_s": 1.0}}}
+    with pytest.raises(AssertionError, match="_roofline.json"):
+        cs.check_roofline(doc, None, 0)
+    doc["families"]["i3d"]["flops_total"] = 1e12
+    assert cs.check_roofline(doc, None, 0)["flops_total"] == 1e12
+    with pytest.raises(AssertionError, match="roofline device"):
+        cs.check_roofline(doc, "NVIDIA H100 80GB HBM3", 40)
+    path = tmp_path / "_parity.jsonl"
+    path.write_text(json.dumps({"seam": "decode"}) + "\n")
+    with pytest.raises(AssertionError, match="parity records"):
+        cs.check_parity(str(path))
+
+
+def test_certify_phase_runs_on_the_cpu(tmp_path, monkeypatch, sample_video):
+    """The certify phase on the CPU at a small size (RAFT at 2 iterations,
+    both flows at 64 px): a valid verdict per flip, held, the upstream
+    seams bit-exact, every seam captured."""
+    monkeypatch.chdir(tmp_path)
+    stats = cs.certify_phase(video=sample_video, device="cpu",
+                             side_size=64, iters=2)
+    assert set(stats) == {f for f, _ in cs.CERTIFY_FLIPS}
+    for family, got in stats.items():
+        assert got["verdict"] == "PASS", family
+        for seam in ("decode", "transform"):
+            assert got["seams"][seam]["max_abs"] == 0.0
+        assert all(m["pairs"] > 0 for m in got["seams"].values())
+    assert (tmp_path / "output" / "chip_smoke" / "certify" / "raft" /
+            "_parity_verdict.json").exists()
+
+
+@pytest.mark.parametrize("family,max_abs,cos,fails", [
+    ("pwc", 2.5, 0.99, True), ("pwc", 0.1, 0.99, False),
+    ("raft", 2.5, 0.99, False), ("raft", 3.5, 0.99, True),
+    ("raft", 0.1, 0.9, True)])
+def test_certify_phase_holds_the_verdict(monkeypatch, family, max_abs, cos,
+                                         fails):
+    """PWC's verdict must be ``PASS``; RAFT's FAIL at ``backbone`` stands
+    within its band's cosine and 1.5x its max abs, and no further."""
+    def certify(fam, flip, videos, out_dir, extra_overrides):
+        band = cs.parity.tolerance_for(fam, "backbone")
+        seams = {s: dict(pairs=1, max_abs=0.0, mean_abs=0.0, cos=1.0,
+                         tol_max_abs=0.0, tol_cos=1.0, ok=True)
+                 for s in ("decode", "transform")}
+        ok = max_abs <= band["max_abs"] and cos >= band["cos"]
+        for s in ("backbone", "head"):
+            seams[s] = dict(pairs=1, max_abs=max_abs, mean_abs=0.1, cos=cos,
+                            tol_max_abs=band["max_abs"],
+                            tol_cos=band["cos"], ok=ok)
+        if fam != family:
+            seams["backbone"] = seams["head"] = dict(
+                seams["decode"], max_abs=0.01)
+            ok = True
+        return dict(verdict="PASS" if ok else "FAIL",
+                    first_drift=None if ok else "backbone", seams=seams)
+
+    monkeypatch.setattr(cs.parity, "certify", certify)
+    monkeypatch.setattr(cs.parity, "validate_verdict", lambda doc: [])
+    if fails:
+        with pytest.raises(AssertionError, match=f"certify {family}"):
+            cs.certify_phase(video="v.mp4")
+    else:
+        assert cs.certify_phase(video="v.mp4")[family]["verdict"] in (
+            "PASS", "FAIL")

@@ -39,7 +39,9 @@ cache hit bit-equal to the miss that stored it.
 
 The run plane's device trace: ``utils/profiling.py TraceCapture`` around
 proj launches on the card writes a Chrome trace whose device events name
-the proj kernel once per launch.
+the proj kernel once per launch. The roofline's count of a small RAFT on
+the card (the lookups through their kernels) equals its count on the CPU
+(through their plain versions).
 """
 from pathlib import Path
 
@@ -405,3 +407,25 @@ def test_trace_capture_on_card_names_the_proj_kernel(cuda_card, tmp_path):
     events = json.loads(Path(cap.path).read_text())["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert sum("proj_kernel" in name for name in kernels) == 3, kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", [None, "packed"])
+def test_roofline_card_on_card_equals_cpu_card(cuda_card, impl):
+    """``telemetry/roofline.py program_cost`` of a small float32 RAFT on
+    the card (the proj or packed kernel, reached through ``ctypes``) equals
+    its count on the CPU (the plain version): the lookups report the same
+    declared work either way and neither's own ops are counted."""
+    from video_features_tpu_torch.telemetry import roofline
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+
+    set_precision("float32")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 255, (2, 64, 96, 3)).astype(np.float32))
+    net = seeded_init_(traft.RAFT(2, impl), 5).eval()
+    with torch.inference_mode():
+        cpu = roofline.program_cost(net, x, x)
+        net = net.to(cuda_card)
+        xc = x.to(cuda_card)
+        card = roofline.program_cost(net, xc, xc)
+    assert card == cpu and cpu["flops"] > 0

@@ -48,8 +48,7 @@ GATED_CASES = [
     ("compilation_cache_dir", "/c", 8), ("fleet", "queue", 8),
     ("fleet_lease_s", 30, 8), ("fleet_max_reclaims", 5, 8),
     ("fleet_canary", True, 8), ("serve_slo_s", 0.5, 8),
-    ("parity", True, 9),
-    ("roofline", True, 9), ("history", True, 9), ("alerts", True, 9),
+    ("history", True, 9), ("alerts", True, 9),
     ("vision_attn", "blockwise", 10), ("config", "other.yml", None)]
 
 
@@ -82,7 +81,7 @@ def test_every_gated_key_is_tested_and_in_every_yaml():
 #: makes appear (``metrics_interval_s`` with ``telemetry=true``)
 TELEMETRY_CASES = [
     ("telemetry", True), ("metrics_interval_s", 5), ("trace", True),
-    ("health", True)]
+    ("health", True), ("parity", True), ("roofline", True)]
 
 
 @pytest.mark.parametrize("key,value", TELEMETRY_CASES)
@@ -116,13 +115,15 @@ def test_telemetry_keys_run(key, value, tmp_path):
     out = tmp_path / "o" / "resnet" / "resnet18"
     made = {p.name for p in out.iterdir() if p.name.startswith("_")}
     want = {"telemetry": {"_telemetry.jsonl", "_run.json"},
-            "trace": {"_trace.json"}, "health": {"_health.jsonl"}}
+            "trace": {"_trace.json"}, "health": {"_health.jsonl"},
+            "parity": {"_parity.jsonl"}, "roofline": {"_roofline.json"}}
     if key == "metrics_interval_s":
         hb = json.loads(next(out.glob("_heartbeat_*.json")).read_text())
         assert hb["interval_s"] == 5.0
     else:
         assert want[key] <= made, made
-        assert not ({"_trace.json", "_health.jsonl", "_run.json"}
+        assert not ({"_trace.json", "_health.jsonl", "_run.json",
+                     "_parity.jsonl", "_roofline.json"}
                     - want[key]) & made, made
 
 

@@ -261,8 +261,7 @@ def test_sinks_write_and_skip(tmp_path, sink):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("compile_cache", True),
-    ("parity", True), ("roofline", True), ("fps_mode", "reencode"),
+    ("compile_cache", True), ("history", True), ("fps_mode", "reencode"),
     ("show_pred", True)])
 def test_unported_keys_raise(tmp_path, key, value):
     cfg = tconfig.load_config("i3d", dict(_overrides(tmp_path), **{key: value}))
@@ -270,12 +269,16 @@ def test_unported_keys_raise(tmp_path, key, value):
         tconfig.sanity_check(cfg)
 
 
-@pytest.mark.parametrize("key", ["telemetry", "trace", "health"])
+@pytest.mark.parametrize("key", ["telemetry", "trace", "health", "parity",
+                                 "roofline"])
 def test_run_plane_keys_run_on_the_slice(tmp_path, key):
     """The i3d slice's extractor under each key: the config passes and the
     extractor runs it (``health``: the digests land beside the outputs;
     ``telemetry``, ``trace``: the recorder the CLI starts records the
-    stages of ``extract_frames``)."""
+    stages of ``extract_frames``; ``parity``: the observer the CLI starts
+    digests the head seam of each output at the sink; ``roofline``: the
+    observer counts the group's dispatch, the RAFT lookups' declared work
+    among its FLOPs)."""
     from video_features_tpu_torch.extractors.i3d import ExtractI3D
     from video_features_tpu_torch.telemetry import health as thealth
     from video_features_tpu_torch.telemetry import jsonl as tjsonl
@@ -295,10 +298,20 @@ def test_run_plane_keys_run_on_the_slice(tmp_path, key):
     elif key == "trace":
         from video_features_tpu_torch.telemetry.trace import TraceRecorder
         rec = TraceRecorder(str(out)).start()
+    elif key == "parity":
+        from video_features_tpu_torch.telemetry import parity as tparity
+        rec = tparity.ParityObserver(str(out))
+        tparity._set_active(rec)
+    elif key == "roofline":
+        from video_features_tpu_torch.telemetry.roofline import \
+            RooflineObserver
+        rec = RooflineObserver(str(out), default_family="i3d").start()
     try:
         feats = tex.extract_frames(iter(_frames()), FPS)
         tex.action_on_extraction(feats, "synthetic.mp4")
     finally:
+        if key == "parity":
+            tparity._set_active(None)
         if key != "health":
             rec.close()
     if key == "health":
@@ -308,6 +321,19 @@ def test_run_plane_keys_run_on_the_slice(tmp_path, key):
     elif key == "telemetry":
         man = json.loads((out / "_run.json").read_text())
         assert {"h2d", "forward", "write"} <= set(man["stage_totals"])
+    elif key == "parity":
+        recs = list(tjsonl.read_jsonl(out / "_parity.jsonl"))
+        assert sorted((r["seam"], r["key"]) for r in recs) == sorted(
+            ("head", k) for k in feats)
+    elif key == "roofline":
+        from video_features_tpu_torch.kernels.corr_lookup import kernel_work
+        fam = json.loads((out / "_roofline.json").read_text())[
+            "families"]["i3d"]
+        assert fam["dispatches"] == 1 and fam["forward_s"] > 0
+        # 2 iterations of the proj lookup over 10 pairs on RAFT's 32x43
+        # grid (240x320 resized to 256x341, padded to 256x344)
+        proj = kernel_work("proj", 10 * 32 * 43, 0)[1]
+        assert fam["flops_total"] > 2 * proj
     else:
         doc = json.loads((out / "_trace.json").read_text())
         assert {"h2d", "forward", "write"} <= {

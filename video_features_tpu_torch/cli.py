@@ -41,7 +41,16 @@ digests every output into the family's ``{output_path}/_health.jsonl`` and
 quarantines non-finite ones. ``profile=true`` prints the per-stage
 breakdown (decode, h2d, forward, write, health) at the end;
 ``profile_trace_dir=DIR`` captures a ``torch.profiler`` trace of the run
-into DIR (``utils/profiling.py``).
+into DIR (``utils/profiling.py``). ``roofline=true`` writes the MFU
+accounting ``_roofline.json`` under the run's output root at exit
+(``telemetry/roofline.py``); ``parity=true`` appends per-seam numerics
+digests to ``_parity.jsonl`` there (``telemetry/parity.py``).
+
+``python -m video_features_tpu_torch parity <run_dir>`` summarizes a run's
+``_parity.jsonl``; ``python -m video_features_tpu_torch parity certify
+--family raft --flip dtype=bf16 device=cuda`` A/B-certifies a numerics
+flip into ``_parity_verdict.json`` (``--out``, default the working
+directory).
 """
 from __future__ import annotations
 
@@ -66,7 +75,11 @@ from .utils.sinks import safe_extract
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    overrides = parse_dotlist(sys.argv[1:] if argv is None else argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "parity":
+        from .telemetry.parity import main as parity_main
+        raise SystemExit(parity_main(argv[1:]))
+    overrides = parse_dotlist(argv)
     feature_type = overrides.get("feature_type")
     if not feature_type:
         raise ValueError("feature_type=... is required")
@@ -92,7 +105,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"inject: armed plan {plan.spec!r} (seed={plan.seed}; replay "
               "by re-running with this exact inject= string)")
     run_label = ",".join(families)
-    recorder = tracer = None
+    recorder = tracer = rf_observer = parity_observer = None
     tally = _new_tally()
     failures: List[dict] = []
     n_paths = 0
@@ -111,6 +124,17 @@ def main(argv: Optional[List[str]] = None) -> None:
         if args.get("trace"):
             from .telemetry.trace import TraceRecorder
             tracer = TraceRecorder(out_root).start()
+        # after the recorder: the observer chains onto its stage hook
+        if args.get("roofline"):
+            from .telemetry.roofline import RooflineObserver
+            rf_observer = RooflineObserver(
+                out_root, default_family=run_label,
+                run_id=(recorder.run_id if recorder is not None
+                        else None)).start()
+        if args.get("parity"):
+            from .telemetry import parity
+            parity_observer = parity.ParityObserver(out_root)
+            parity._set_active(parity_observer)
         with TraceCapture(args.get("profile_trace_dir")) as capture:
             n_paths = run(extractor, args, recorder, tally, failures)
     finally:
@@ -121,9 +145,29 @@ def main(argv: Optional[List[str]] = None) -> None:
             for rec in failures:
                 cat = rec.get("category") or "?"
                 by_cat[cat] = by_cat.get(cat, 0) + 1
-            recorder.close(tally=dict(tally), failure_tallies=by_cat)
+            # summarized before the recorder closes, so the manifest and
+            # the final heartbeat carry the end-of-run MFU and verdicts
+            rf_summary = None
+            if rf_observer is not None:
+                try:
+                    rf_summary = rf_observer.summary(resolve_peak=True)
+                except Exception:
+                    rf_summary = None
+            recorder.close(tally=dict(tally), failure_tallies=by_cat,
+                           roofline=rf_summary)
+        if rf_observer is not None:
+            # after the recorder: it restores the stage hook only if still
+            # its own, and writes _roofline.json atomically
+            rf_observer.close()
         if tracer is not None:
             tracer.close()  # a complete trace file, aborted run or not
+        if parity_observer is not None:
+            # the appends are durable already; detach the global so that
+            # in-process callers do not inherit the taps
+            from .telemetry import parity
+            if parity.active() is parity_observer:
+                parity._set_active(None)
+            parity_observer.close()
         if plan is not None:
             print(plan.summary())
         inject.disarm()  # in-process callers must not inherit the plan
@@ -135,6 +179,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"trace: {tracer.trace_path} (render with "
               f"scripts/trace_report.py {out_root}, or open in "
               "https://ui.perfetto.dev)")
+    if rf_observer is not None:
+        print(f"roofline: {rf_observer.path} (render with python -m "
+              f"video_features_tpu_torch.telemetry.roofline {out_root})")
+    if parity_observer is not None:
+        print(f"parity: per-seam numerics digests in {parity_observer.path} "
+              f"(render with python -m video_features_tpu_torch parity "
+              f"{out_root}; certify flips with python -m "
+              "video_features_tpu_torch parity certify)")
     if capture.path is not None:
         print(f"profile trace: {capture.path} (torch.profiler; open in "
               "https://ui.perfetto.dev)")

@@ -35,10 +35,7 @@ GATED_KEYS = {
     "fleet_max_reclaims": ((None, 3), 8),
     "fleet_canary": ((None, False), 8),
     "serve_slo_s": ((None,), 8),
-    # the rest of the telemetry (#9): the parity observatory, roofline
-    # accounting, retained history and alerting
-    "parity": ((None, False), 9),
-    "roofline": ((None, False), 9),
+    # the rest of the telemetry (#9): retained history and alerting
     "history": ((None, False), 9),
     "alerts": ((None, False), 9),
     # CLIP's blockwise vision attention, parallel/sequence.py (#10)
@@ -259,15 +256,20 @@ def check_ported(args: Config) -> None:
 
 
 def _check_telemetry(args: Config) -> None:
-    """``telemetry``, ``trace`` and ``health`` (true or false) and
-    ``metrics_interval_s`` (> 0), as the JAX package checks them."""
+    """``telemetry``, ``trace``, ``health``, ``parity`` and ``roofline``
+    (true or false) and ``metrics_interval_s`` (> 0), as the JAX package
+    checks them."""
     for key, what in (("telemetry", "writes {output_path}/_telemetry.jsonl, "
                        "_run.json and heartbeats, telemetry/"),
                       ("trace", "writes {output_path}/_trace.json, "
                        "telemetry/trace.py"),
                       ("health", "digests features into {output_path}/"
                        "_health.jsonl and quarantines NaN/Inf outputs, "
-                       "telemetry/health.py")):
+                       "telemetry/health.py"),
+                      ("parity", "per-seam numerics digests into "
+                       "{output_path}/_parity.jsonl, telemetry/parity.py"),
+                      ("roofline", "MFU accounting into {output_path}/"
+                       "_roofline.json, telemetry/roofline.py")):
         value = args.get(key, False)
         if not isinstance(value, bool):
             raise ValueError(f"{key}={value!r}: expected true or false "

@@ -8,7 +8,12 @@ result streams (:meth:`BaseExtractor.feature_stream`); the
 resizer cache; the decode source of ``video_decode``, or of a multi-family
 run's shared decode (:meth:`BaseExtractor.video_source`); and ``health=true``,
 the digest and non-finite gate of every output at the sink
-(``telemetry/health.py``). With telemetry on, the span of the video in
+(``telemetry/health.py``); ``parity=true``, the per-seam digests of
+``telemetry/parity.py`` (decode and transform through the source's
+transform, head at the sink; each family taps its backbone); and, for a
+caller that drives ``_extract`` without the CLI, ``roofline=true``'s
+observer (``telemetry/roofline.py ensure_for_extractor``). With telemetry
+on, the span of the video in
 progress gets the source's ``video_fps`` and ``video_frames`` and a
 ``source`` event, a private source's probing is a ``source_probe`` trace
 span, and the cache's work is counted (``vft_cache_{hit,miss,bypass,
@@ -139,6 +144,13 @@ class BaseExtractor:
         # health=true: digest every output at the sink into
         # {output_path}/_health.jsonl and refuse non-finite ones
         self.health = bool(args.get("health", False))
+        # parity=true: per-seam digests into {output_path}/_parity.jsonl;
+        # off, the transform wrapper is never installed and each tap is
+        # this attribute's read
+        self.parity = bool(args.get("parity", False))
+        # roofline=true for a caller that never went through cli.py: an
+        # observer homed on output_path, made on the first _extract
+        self._roofline_checked = False
         self.args = args
         self._mesh = mesh
         # cache=true: the capture starts before the subclass loads its
@@ -186,7 +198,16 @@ class BaseExtractor:
         subscribes to the video's one shared decode and gets a
         ``SharedFrameSource`` with the same surface, registered with the
         context by the bus; a declined subscription (a retry) falls
-        through to a private source."""
+        through to a private source.
+
+        With ``parity=true`` the host transform is wrapped in a
+        ``telemetry/parity.py TransformTap`` (the decode and transform
+        seams) before the subscribe, so the shared and private sources tap
+        alike on this family's thread."""
+        if self.parity:
+            from ..telemetry import parity
+            kwargs["transform"] = parity.TransformTap(
+                kwargs.get("transform"), str(video_path), self.feature_type)
         session = fanout.current_session()
         if session is not None:
             sub = session.subscribe(self.feature_type, **kwargs)
@@ -271,6 +292,10 @@ class BaseExtractor:
         out of the store; a failing store is printed and the video is done
         (its outputs are on disk)."""
         family = str(self.feature_type)
+        if not self._roofline_checked:
+            self._roofline_checked = True
+            from ..telemetry.roofline import ensure_for_extractor
+            ensure_for_extractor(self)
         cache = self.feature_cache()
         if cache is not None:
             feats = cache.lookup(video_path, self.output_feat_keys)
@@ -302,6 +327,17 @@ class BaseExtractor:
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         raise NotImplementedError
 
+    def tap_backbone(self, outs: List[np.ndarray],
+                     video: Optional[str]) -> None:
+        """With ``parity=true`` and a ``video``: each result as it came off
+        the card is a backbone-seam record, indexed by its position."""
+        if self.parity and video is not None:
+            from ..telemetry import parity
+            for index, out in enumerate(outs):
+                parity.tap("backbone", self.feature_type, out,
+                           video=str(video), feature_type=self.feature_type,
+                           index=index)
+
     def action_on_extraction(self, feats: Dict[str, np.ndarray],
                              video_path: str) -> None:
         if self.health:
@@ -312,6 +348,12 @@ class BaseExtractor:
             with profiler.stage("health"):
                 health.check_features(feats, video_path, self.feature_type,
                                       self.output_path)
+        if self.parity:
+            # the head seam: each output as the sink is about to write it
+            from ..telemetry import parity
+            for key in sorted(feats):
+                parity.tap("head", key, feats[key], video=str(video_path),
+                           feature_type=self.feature_type)
         # re-check before writing: another worker may have just written it
         if self.on_extraction != "print" and sinks.is_already_exist(
                 self.on_extraction, self.output_path, video_path,

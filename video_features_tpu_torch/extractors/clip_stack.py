@@ -83,7 +83,7 @@ class ClipStackExtractor(BaseExtractor):
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         src = self.video_source(video_path, fps=self.extraction_fps,
                                 transform=self.host_transform)
-        return self._features(Prefetcher(src.frames()))
+        return self._features(Prefetcher(src.frames()), video_path)
 
     def extract_frames(self, frames: Iterable[Tuple[np.ndarray, float, int]],
                        fps: float) -> Dict[str, np.ndarray]:
@@ -129,14 +129,18 @@ class ClipStackExtractor(BaseExtractor):
                 current.clear()
                 until_next = gap
 
-    def _features(self, frames: Iterable[Tuple[np.ndarray, float, int]]
-                  ) -> Dict[str, np.ndarray]:
+    def _features(self, frames: Iterable[Tuple[np.ndarray, float, int]],
+                  video: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """With ``parity=true`` and a ``video``, the clips' activations as
+        they came off the card are the backbone seam: one record per group,
+        or one for the video's packed clips."""
         if self.cross_video:
-            return self._features_packed(frames)
-        return self._features_grouped(frames)
+            return self._features_packed(frames, video)
+        return self._features_grouped(frames, video)
 
     def _features_grouped(self, frames: Iterable[Tuple[np.ndarray, float,
-                                                        int]]
+                                                        int]],
+                          video: Optional[str] = None
                           ) -> Dict[str, np.ndarray]:
         """Groups of ``clip_batch_size`` windows through this video's
         stream; the last group may be short."""
@@ -159,11 +163,14 @@ class ClipStackExtractor(BaseExtractor):
                 flush()
         if stacks:
             flush()
-        feats = [row for out in stream.finish() for row in out]
+        outs = stream.finish()
+        self.tap_backbone(outs, video)
+        feats = [row for out in outs for row in out]
         return {self.feature_type: np.array(feats)}
 
     def _features_packed(self, frames: Iterable[Tuple[np.ndarray, float,
-                                                       int]]
+                                                       int]],
+                         video: Optional[str] = None
                          ) -> Dict[str, np.ndarray]:
         """The clips into the shared packer; they come back per video in
         clip order. A failure aborts the video's handle, so that it cannot
@@ -176,7 +183,9 @@ class ClipStackExtractor(BaseExtractor):
         except BaseException:
             packer.abort_video(handle)
             raise
-        return {self.feature_type: packer.close_video(handle)}
+        feats = packer.close_video(handle)
+        self.tap_backbone([feats], video)
+        return {self.feature_type: feats}
 
     def maybe_show_pred(self, feats: np.ndarray, windows,
                         group: np.ndarray) -> None:

@@ -84,7 +84,7 @@ class OpticalFlowExtractor(BaseExtractor):
                                 batch_size=self.batch_size + 1,  # N+1 flows
                                 transform=self.host_transform, overlap=1)
         # decode-ahead: the next batch decodes while this one computes
-        return self._extract_batches(Prefetcher(src), src.fps)
+        return self._extract_batches(Prefetcher(src), src.fps, video_path)
 
     def extract_frames(self, frames: Iterable[Tuple[np.ndarray, float, int]],
                        fps: float) -> Dict[str, np.ndarray]:
@@ -97,7 +97,12 @@ class OpticalFlowExtractor(BaseExtractor):
         return self._extract_batches(
             _batched(iter(frames), self.batch_size + 1, 1), fps)
 
-    def _extract_batches(self, batches, fps: float) -> Dict[str, np.ndarray]:
+    def _extract_batches(self, batches, fps: float,
+                         video: Optional[str] = None
+                         ) -> Dict[str, np.ndarray]:
+        """Flows of ``(frames, timestamps, indices)`` batches; with
+        ``parity=true`` and a ``video`` each batch's raw ``(n, H, W, 2)``
+        field is the backbone seam, as it came off the card."""
         stream = self.feature_stream(self.runner)
         timestamps_ms: List[float] = []
         first = True
@@ -107,7 +112,8 @@ class OpticalFlowExtractor(BaseExtractor):
                 stream.submit(np.stack([arr[:-1], arr[1:]], axis=1))
             timestamps_ms.extend(ts if first else ts[1:])
             first = False
-        flows = [f for out in stream.finish()
-                 for f in out.transpose(0, 3, 1, 2)]
+        outs = stream.finish()
+        self.tap_backbone(outs, video)
+        flows = [f for out in outs for f in out.transpose(0, 3, 1, 2)]
         return {self.feature_type: np.array(flows), "fps": np.array(fps),
                 "timestamps_ms": np.array(timestamps_ms)}

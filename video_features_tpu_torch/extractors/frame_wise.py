@@ -133,7 +133,7 @@ class FrameWiseExtractor(BaseExtractor):
             batch_size=self.batch_size, channel_order=order,
             transform=(None if self.resize_mode == "device"
                        else self.host_transform))
-        return self._features(Prefetcher(src), src.fps)
+        return self._features(Prefetcher(src), src.fps, video_path)
 
     def extract_frames(self, frames: Iterable[Tuple[np.ndarray, float, int]],
                        fps: float) -> Dict[str, np.ndarray]:
@@ -158,7 +158,10 @@ class FrameWiseExtractor(BaseExtractor):
         return self._features(_batched(stream, self.batch_size, 0), fps)
 
     def _features(self, batches: Iterable[Tuple[List, List[float], List]],
-                  fps: float) -> Dict[str, np.ndarray]:
+                  fps: float, video: Optional[str] = None
+                  ) -> Dict[str, np.ndarray]:
+        """With ``parity=true`` and a ``video``, each batch's activations as
+        they came off the card are the backbone seam."""
         stream = self.feature_stream(
             self.runner,
             on_result=lambda feats, _: self.maybe_show_pred(feats))
@@ -166,7 +169,9 @@ class FrameWiseExtractor(BaseExtractor):
         for batch, times, _ in batches:
             stream.submit(np.stack(batch))
             timestamps_ms.extend(times)
-        feats = [row for out in stream.finish() for row in out]
+        outs = stream.finish()
+        self.tap_backbone(outs, video)
+        feats = [row for out in outs for row in out]
         return {self.feature_type: np.array(feats), "fps": np.array(fps),
                 "timestamps_ms": np.array(timestamps_ms)}
 

@@ -20,9 +20,11 @@ on its card. A group's share crosses to its card once as uint8; under
 both streams run on the device, and only the (G, S, 1024) features come
 back, through the video's ``FeatureStream``.
 
-``extract(video_path)`` decodes and hands the frames to
-``extract_frames(frames, fps)``, which takes any iterable of
-``(frame_rgb_u8, t, idx)``.
+``extract(video_path)`` decodes, with the host transform as the source's
+transform (as the JAX extractor passes it), and ``extract_frames(frames,
+fps)`` takes any iterable of decoded ``(frame_rgb_u8, t, idx)`` and applies
+the transform itself. As in JAX, no backbone seam is tapped here: the
+RAFT flow stays on the card, and tapping it would add a copy off the card.
 
 Output keys: ``streams + [fps, timestamps_ms]``.
 """
@@ -107,16 +109,24 @@ class ExtractI3D(BaseExtractor):
                             for s in self.streams], dim=1)
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
-        src = self.video_source(video_path, fps=self.extraction_fps)
+        src = self.video_source(video_path, fps=self.extraction_fps,
+                                transform=self.host_transform)
         # decode-ahead about one stack while the previous group computes
         frames = Prefetcher(src.frames(), depth=max(2, self.stack_size))
-        return self.extract_frames(frames, src.fps)
+        return self._features(frames, src.fps)
 
     def extract_frames(self, frames: Iterable[Tuple[np.ndarray, float, int]],
                        fps: float) -> Dict[str, np.ndarray]:
         """Features of a decoded frame stream: ``frames`` yields
         ``(frame_rgb_u8 (H, W, 3), t, idx)``; ``fps`` is the stream's rate,
         which sets the timestamps."""
+        if self.host_transform is not None:
+            tf = self.host_transform
+            frames = ((tf(f), t, i) for f, t, i in frames)
+        return self._features(frames, fps)
+
+    def _features(self, frames: Iterable[Tuple[np.ndarray, float, int]],
+                  fps: float) -> Dict[str, np.ndarray]:
         window: List[np.ndarray] = []
         stacks: List[np.ndarray] = []
         timestamps_ms: List[float] = []
@@ -129,8 +139,6 @@ class ExtractI3D(BaseExtractor):
             stacks.clear()
 
         for frame, _, idx in frames:
-            if self.host_transform is not None:
-                frame = self.host_transform(frame)
             window.append(frame)
             if len(window) - 1 == self.stack_size:
                 stacks.append(np.stack(window))

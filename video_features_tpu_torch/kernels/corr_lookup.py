@@ -39,12 +39,24 @@ none. A NaN or infinite coord gives what the JAX
 counterpart gives: zeros from the gather (``relu(bias)`` from the
 projection), NaN from the packed lookup, whose weights ``c - floor(c)`` are
 NaN; kernel and plain version agree.
+
+The declared work of each op, :func:`kernel_work` (the bytes it must move
+and the operations it must do), is the one count of it in the repository:
+``chip_smoke.py`` bounds each kernel's time with it, and each kernel's
+wrapper and plain version report it to the roofline counter
+(``telemetry/roofline.py``) through :data:`work_hook`, whichever of the two
+runs, so that a roofline card counted on the CPU equals one counted on the
+card. A ``torch.utils.flop_counter`` pass sees neither the kernels (they are
+reached through ``ctypes``, not the dispatcher) nor, by the same hook, the
+plain versions' own aten ops. With roofline accounting off the hook is None
+and costs each call one global read.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Callable, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +66,65 @@ from . import build
 RADIUS = 4
 LEVELS = 4
 TAPS = (2 * RADIUS + 1) ** 2
+
+#: the H100 SXM's float32 rate outside the tensor cores and its HBM rate
+#: (NVIDIA's data sheet): the peaks the kernels' bounds are taken against
+F32_PEAK_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+# ---- declared work ---------------------------------------------------------
+
+def kernel_work(kernel: str, q: int, cells: int, c_out: int = 256
+                ) -> Tuple[int, int]:
+    """(bytes, operations) the ``kernel`` (``level``, ``proj`` or
+    ``packed``) must move and do for ``q`` queries whose corner windows hold
+    ``cells`` in-plane cells: each input read once (the cells, coords; W and
+    b for proj), each output written once (324 taps, or ``c_out`` channels
+    for proj); 12 operations per tap (4 corner weights, 4 products, 4 adds)
+    plus proj's 2 x 324 x ``c_out`` per query."""
+    taps = q * LEVELS * TAPS
+    read = cells * 4 + q * 8
+    if kernel == "proj":
+        return (read + (LEVELS * TAPS + 1) * c_out * 4 + q * c_out * 4,
+                2 * taps * c_out + taps * 12)
+    return read + taps * 4, taps * 12
+
+
+def declared_cells(shapes: Sequence[Tuple[int, int]], q: int,
+                   radius: int = RADIUS) -> int:
+    """The most in-plane cells ``q`` queries' (2r+2)^2 corner windows can
+    hold over levels of ``shapes`` ((Hl, Wl) each): the shape-only count of
+    :func:`kernel_work`'s ``cells`` that a roofline card takes (the count of
+    a run's own coords, which needs their values, is ``chip_smoke.py
+    window_cells``)."""
+    n = 2 * radius + 2
+    return q * sum(min(n, hl) * min(n, wl) for hl, wl in shapes)
+
+
+#: ``work_hook(name, nbytes, operations)``, installed by the roofline
+#: observer while it is active (``telemetry/roofline.py``); None when
+#: roofline accounting is off. It returns a context manager inside which
+#: the counter leaves the aten ops it sees out.
+work_hook: Optional[Callable] = None
+
+_NO_HOOK = contextlib.nullcontext()
+
+
+def _declared(hook: Optional[Callable], name: str, kernel: str,
+              shapes: Sequence[Tuple[int, int]], coords: torch.Tensor,
+              c_out: int = 256):
+    """``hook``'s context for ``kernel``'s declared work at these shapes,
+    or a no-op context when ``hook`` is None."""
+    if hook is None:
+        return _NO_HOOK
+    q = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    return hook(name, *kernel_work(kernel, q, declared_cells(shapes, q),
+                                   c_out))
+
+
+def _shapes(pyramid: Sequence[torch.Tensor]) -> List[Tuple[int, int]]:
+    return [tuple(c.shape[2:]) for c in pyramid]
 
 
 # ---- plain versions ------------------------------------------------------
@@ -65,6 +136,14 @@ def corr_lookup_gather_ref(pyramid: Sequence[torch.Tensor],
     ``torch.gather``: pyramid per level ``(B, P, Hl, Wl)``, coords
     ``(B, H, W, 2)`` level-0 (x, y). Returns ``(B, H, W, L * (2r+1)^2)``,
     per level the x-offset varying slowest, zeros outside the plane."""
+    hook = work_hook
+    with _declared(hook, "corr_lookup_gather_ref", "level",
+                   _shapes(pyramid) if hook else (), coords):
+        return _gather(pyramid, coords, radius)
+
+
+def _gather(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+            radius: int) -> torch.Tensor:
     b, h, w, _ = coords.shape
     p = h * w
     n = 2 * radius + 1
@@ -143,8 +222,12 @@ def corr_lookup_proj_ref(pyramid: Sequence[torch.Tensor],
     """``relu(corr_lookup_gather_ref(pyramid, coords) @ weight + bias)``:
     weight ``(L * (2r+1)^2, C)`` rows in the lookup's channel order, bias
     ``(C,)``. Returns ``(B, H, W, C)``."""
-    taps = corr_lookup_gather_ref(pyramid, coords, radius)
-    return torch.relu(torch.matmul(taps, weight) + bias)
+    hook = work_hook
+    with _declared(hook, "corr_lookup_proj_ref", "proj",
+                   _shapes(pyramid) if hook else (), coords,
+                   weight.shape[-1]):
+        taps = _gather(pyramid, coords, radius)
+        return torch.relu(torch.matmul(taps, weight) + bias)
 
 
 # ---- lane-dense packed pyramid -------------------------------------------
@@ -209,6 +292,14 @@ def corr_lookup_packed_ref(packed: torch.Tensor,
     ``r`` outside ``[0, hl)`` or ``x`` outside ``[0, wl)`` is zero. Per level
     the x-offset is slowest; the blend order is the JAX ``_packed_kernel``'s
     (``(1-fx)(1-fy)``, ``fx(1-fy)``, ``(1-fx)fy``, ``fx fy``)."""
+    hook = work_hook
+    with _declared(hook, "corr_lookup_packed_ref", "packed",
+                   [(m.hl, m.wl) for m in metas] if hook else (), coords):
+        return _packed(packed, metas, coords, radius)
+
+
+def _packed(packed: torch.Tensor, metas: Sequence[LevelMeta],
+            coords: torch.Tensor, radius: int) -> torch.Tensor:
     b, h, w, _ = coords.shape
     q = b * h * w
     n = 2 * radius + 1
@@ -321,7 +412,10 @@ def corr_lookup_level_cuda(pyramid: Sequence[torch.Tensor],
     if q == 0:
         return out
     lib = build.load()
-    with torch.cuda.device(coords.device):
+    hook = work_hook
+    with torch.cuda.device(coords.device), _declared(
+            hook, "corr_lookup_level_cuda", "level",
+            _shapes(pyramid) if hook else (), coords):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vft_corr_lookup_level(*_level_args(pyramid),
                                         coords.data_ptr(), q, out.data_ptr(),
@@ -369,7 +463,10 @@ def corr_lookup_proj_cuda(pyramid: Sequence[torch.Tensor],
     if q == 0:
         return out
     lib = build.load()
-    with torch.cuda.device(coords.device):
+    hook = work_hook
+    with torch.cuda.device(coords.device), _declared(
+            hook, "corr_lookup_proj_cuda", "proj",
+            _shapes(pyramid) if hook else (), coords, c_out):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vft_corr_lookup_proj(
             *_level_args(pyramid), coords.data_ptr(), q, weight.data_ptr(),
@@ -416,7 +513,10 @@ def corr_lookup_packed_cuda(packed: torch.Tensor,
     lib = build.load()
     geometry = (ctypes.c_int * (5 * LEVELS))(
         *(v for m in metas for v in (m.hl, m.wl, m.j, m.k, m.off)))
-    with torch.cuda.device(coords.device):
+    hook = work_hook
+    with torch.cuda.device(coords.device), _declared(
+            hook, "corr_lookup_packed_cuda", "packed",
+            [(m.hl, m.wl) for m in metas] if hook else (), coords):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vft_corr_lookup_packed(
             packed.data_ptr(), k_total, coords.data_ptr(), q, geometry,

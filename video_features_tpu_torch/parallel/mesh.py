@@ -35,6 +35,12 @@ not device time, as in the JAX package, and near zero means decode hides
 the card's work. The launch of a forward is in no stage (eager PyTorch
 enqueues each kernel from the host, and on the CPU the launch is the
 computation; a span's wall less its stages shows that time).
+
+``roofline=true`` (``telemetry/roofline.py``): each replica's forward in
+:meth:`DataParallelApply.dispatch` runs through the active observer, which
+counts the first dispatch of each (runner, shape, dtype) and records a pair
+of CUDA events around the launches (its device window, read without a
+synchronize). Off, the hook is one global read per dispatch.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..telemetry import roofline
 from ..utils.profiling import profiler
 
 Batch = Union[np.ndarray, torch.Tensor]
@@ -314,6 +321,7 @@ class DataParallelApply:
         sizes = [len(p) for p in np.array_split(np.arange(n),
                                                 len(self.devices))]
         host = isinstance(batch, np.ndarray) or batch.device.type == "cpu"
+        observer = roofline.active()
         outs, start = [], 0
         for replica, dev, size in zip(self.replicas, self.devices, sizes):
             if size == 0 and (n or outs):
@@ -325,7 +333,8 @@ class DataParallelApply:
                         chunk = to_device(chunk, dev)
                 else:
                     chunk = to_device(chunk, dev)
-                outs.append(self.apply_fn(replica, chunk))
+                outs.append(self.apply_fn(replica, chunk) if observer is None
+                            else observer.run_dispatch(self, replica, chunk))
             start += size
         return outs
 

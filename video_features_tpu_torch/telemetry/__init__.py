@@ -13,6 +13,15 @@ output health and the pipeline trace (port of
                                    ``feature_health.schema.json``)
   ``_trace.json``                  the host pipeline's timeline (trace.py,
                                    ``trace=true``)
+  ``_roofline.json``               per-family FLOPs, device windows, MFU
+                                   and verdict (roofline.py,
+                                   ``roofline=true``;
+                                   ``roofline.schema.json``)
+  ``_parity.jsonl``                per-seam numerics digests (parity.py,
+                                   ``parity=true``;
+                                   ``parity.schema.json``)
+  ``_parity_verdict.json``         a ``parity certify`` A/B verdict
+                                   (``parity_verdict.schema.json``)
   metrics registry                 counters, gauges, fixed-bucket
                                    histograms (metrics.py), dumped into the
                                    manifest; Prometheus text export
@@ -24,8 +33,7 @@ output health and the pipeline trace (port of
 ``parallel/`` and ``extractors/`` call the helpers below, which cost one
 global (or thread-local) read when telemetry is off. The device trace is
 ``utils/profiling.py TraceCapture`` (``profile_trace_dir``). Not ported yet
-(ROADMAP.md Queue 1 #9): ``parity``, ``roofline``, ``history`` and
-``alerts``.
+(ROADMAP.md Queue 1 #9): ``history`` and ``alerts``.
 """
 from __future__ import annotations
 

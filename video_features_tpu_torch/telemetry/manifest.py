@@ -5,11 +5,12 @@ The manifest makes a run auditable from its artifacts alone: the config it
 ran with, the code (git commit and the versions of torch, CUDA, cuDNN and
 the host libraries), the hardware it saw (``parallel/mesh.py
 mesh_topology`` and the card's name), and what it did (tally, per-stage
-totals, the metrics dump, the health roll-up). Written by atomic replace
-(``telemetry/jsonl.py``), so a preempted exit never leaves a torn document.
-The ``compile_cache`` and ``roofline`` fields keep the JAX manifest's
-shape and stay ``{}``: the port has neither plane yet (ROADMAP.md Queue 1
-#8 and #9).
+totals, the metrics dump, the health roll-up, and with ``roofline=true``
+the final per-family MFU summary of ``telemetry/roofline.py``). Written by
+atomic replace (``telemetry/jsonl.py``), so a preempted exit never leaves a
+torn document. The ``compile_cache`` field keeps the JAX manifest's shape
+and stays ``{}``: the port has no compile cache yet (ROADMAP.md Queue 1
+#8).
 """
 from __future__ import annotations
 
@@ -88,6 +89,7 @@ def build_manifest(*,
                    stage_totals: Optional[Dict[str, Any]] = None,
                    metrics_dump: Optional[dict] = None,
                    health: Optional[Dict[str, Dict[str, int]]] = None,
+                   roofline: Optional[dict] = None,
                    ) -> dict:
     done = (tally or {}).get("done", 0)
     return {
@@ -112,7 +114,9 @@ def build_manifest(*,
         # output-health roll-up (telemetry/health.py): per-family records
         # and NaN/Inf totals; {} when health=false
         "health": dict(health or {}),
-        "roofline": {},
+        # the run's final per-family MFU and verdict document; {} when
+        # roofline=false
+        "roofline": dict(roofline or {}),
         "config": dict(run_config or {}),
         "versions": _versions(),
         "git": _git_describe(),

@@ -18,8 +18,11 @@ One recorder per CLI run (``cli.py`` builds it when ``telemetry=true``):
 The JAX recorder also counts XLA compile-cache events through a
 ``jax.monitoring`` listener. The port has no compile cache until ROADMAP.md
 Queue 1 #8 brings torch.compile's, so that counter is left out here, and
-the heartbeat's and manifest's ``compile_cache`` sections stay ``{}``, as
-do ``roofline`` and ``parity`` (the rest of Queue 1 #9).
+the heartbeat's and manifest's ``compile_cache`` sections stay ``{}``. The
+heartbeat's ``roofline`` and ``parity`` sections are the active observers'
+live snapshots (``telemetry/roofline.py``, ``telemetry/parity.py``), ``{}``
+when they are off; the manifest carries the run's final roofline summary
+that ``cli.py`` hands to :meth:`TelemetryRecorder.close`.
 
 When no recorder is active every instrumentation point is a constant-time
 no-op: the helpers of ``telemetry/__init__.py`` read one global, the
@@ -97,9 +100,12 @@ class TelemetryRecorder:
 
     def close(self, *, tally: Optional[Dict[str, int]] = None,
               wall_s: Optional[float] = None,
-              failure_tallies: Optional[Dict[str, int]] = None) -> None:
+              failure_tallies: Optional[Dict[str, int]] = None,
+              roofline: Optional[dict] = None) -> None:
         """Stop the heartbeat thread, write a final heartbeat and the run
-        manifest. Idempotent; never raises into the caller's finally."""
+        manifest (with ``roofline``, the run's final MFU summary, ``{}``
+        when roofline is off). Idempotent; never raises into the caller's
+        finally."""
         if self._closed:
             return
         self._closed = True
@@ -110,7 +116,8 @@ class TelemetryRecorder:
         try:
             self.write_heartbeat(final=True)
             jsonl.write_json_atomic(self.manifest_path, self.build_manifest(
-                tally=tally, wall_s=wall_s, failure_tallies=failure_tallies))
+                tally=tally, wall_s=wall_s, failure_tallies=failure_tallies,
+                roofline=roofline))
         except Exception as e:
             print(f"telemetry: failed to write {self.manifest_path}: "
                   f"{type(e).__name__}: {e}")
@@ -227,13 +234,34 @@ class TelemetryRecorder:
             # feature-cache effectiveness (cache.py): per-family hit, miss
             # and bypass totals and the hit rate
             "cache": self.cache_snapshot(),
-            # the JAX heartbeat's sections of planes the port does not run
+            # the JAX heartbeat's section of a plane the port does not run
             # yet, empty as on the JAX package's off path
             "compile_cache": {},
-            "roofline": {},
-            "parity": {},
+            # per-family MFU and verdict, live; {} when roofline=false
+            "roofline": self.roofline_snapshot(),
+            # per-seam record tallies, live; {} when parity=false
+            "parity": self.parity_snapshot(),
         }
         return hb
+
+    def roofline_snapshot(self) -> dict:
+        """The active roofline observer's light per-family summary, ``{}``
+        when roofline is off; never raises (a heartbeat tick must not
+        fail on it)."""
+        try:
+            from . import roofline
+            return roofline.snapshot()
+        except Exception:
+            return {}
+
+    def parity_snapshot(self) -> dict:
+        """The active parity observer's per-seam record tallies, ``{}``
+        when parity is off."""
+        try:
+            from . import parity
+            return parity.snapshot()
+        except Exception:
+            return {}
 
     def _by_family(self, key_of: Dict[str, str], value) -> dict:
         """``{key_of[name]: {family: value(series)}}`` over the registry's
@@ -277,8 +305,8 @@ class TelemetryRecorder:
     # -- manifest ------------------------------------------------------------
     def build_manifest(self, *, tally: Optional[Dict[str, int]] = None,
                        wall_s: Optional[float] = None,
-                       failure_tallies: Optional[Dict[str, int]] = None
-                       ) -> dict:
+                       failure_tallies: Optional[Dict[str, int]] = None,
+                       roofline: Optional[dict] = None) -> dict:
         with self._state_lock:
             tally = dict(tally if tally is not None else self._status_counts)
         stage_totals = {k: {"s": round(v[0], 6), "calls": v[1]}
@@ -295,4 +323,5 @@ class TelemetryRecorder:
             tally=tally,
             failure_tallies=failure_tallies,
             stage_totals=stage_totals,
-            metrics_dump=self.registry.to_dict())
+            metrics_dump=self.registry.to_dict(),
+            roofline=roofline)
