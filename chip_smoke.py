@@ -179,7 +179,8 @@ that goes wrong:
    before each and read just after; once more with those keys but no
    capture, so the capture's cost shows apart; and once with those keys
    over the sample and a copy of it ("repeat"), whose second dispatch at
-   the same shape runs without the roofline's counting pass. Held: the
+   the same shape runs without the roofline's counting pass; every on run
+   with ``history=true alerts=true`` too. Held: the
    features of every video equal bit for bit (max abs 0.0);
    proj 20 launches per stack in every run; the one ``_telemetry.jsonl`` span valid
    under the port's schema, ``done``, with ``decode``, ``h2d``, ``forward``
@@ -198,9 +199,41 @@ that goes wrong:
    (as in JAX, the i3d path's RAFT flow stays on the card; the raft
    family's backbone seam is the certify phase's); the heartbeat's
    ``roofline`` and ``parity`` sections and the manifest's roofline
-   filled. The walls, each stage's total, the roofline documents and the
-   counting pass's cost (the capture_off window less the repeat run's);
-18. certifies each bfloat16 default flip on the card
+   filled; in each on run (:func:`check_alert_plane`) one
+   ``_history_*.jsonl`` of ``vft.history_sample/1`` samples whose last is
+   the final heartbeat's (its ``mfu`` the heartbeat's roofline MFU), the
+   heartbeat's ``alerts`` section with no rule failure, both heartbeat
+   hooks registered and none failed, and no firing record but
+   ``mfu_regression``'s, which is printed as a finding, not failed. The
+   walls, each stage's total, the roofline documents and the counting
+   pass's cost (the capture_off window less the repeat run's);
+18. drives the alerting on the main path (:func:`alerts_phase`): the same
+   CLI over one 64-frame stack of the sample (4 fps) with ``telemetry
+   trace roofline history alerts``, ``metrics_interval_s=0.3``,
+   ``retry_attempts=1`` and ``inject=seed=0;sink.fsync=enospc@n1`` (an
+   ENOSPC at the first feature write, after the stack's RAFT forward).
+   Held: proj 20 launches; exactly one ``failure_spike`` record in the
+   ``firing`` state, valid under ``alert.schema.json``; its bundle passes
+   ``verify_incident``, holds the failure journal and a ``roofline.json``
+   naming the card; the retained history ends with the failure; a later
+   ``telemetry/alerts.py main([dir, "--window", "0.05"])`` resolves it and
+   no alert is current after. Then the cost: the run plane without and
+   with ``history=true alerts=true`` in turns (off, on, on, off) at
+   ``metrics_interval_s=0.3`` and at the default, each run's features
+   bit-equal to the first and proj 20 launches per stack, each on run held
+   as in step 17, each off run without history or journal; then one
+   evaluation of every rule over a clean on run's tree (``observe_root``
+   and ``AlertEngine.evaluate``, what each heartbeat tick runs), the median
+   of 20;
+19. the fleet step (:func:`fleet_step`) over the telemetry and alerts
+   phases' roots: ``fleet_report.aggregate`` finds every current host
+   ``FINISHED``, i3d throughput from the spans and the roofline roll-up
+   naming the card; ``build_prom_dump`` through ``prometheus_text``
+   parses; ``stitch`` writes one trace with a lane per host trace and the
+   ``video_attempt`` and ``forward`` spans the proj launches ran under; the
+   run report (``telemetry/report.py``) renders the fault run, and its
+   ``--fail-on-alert`` gate passes after the resolve;
+20. certifies each bfloat16 default flip on the card
    (:func:`certify_phase`, ``telemetry/parity.py certify``): ``raft`` and
    ``pwc`` with ``--flip dtype=bf16`` over the vendored sample, reference
    arm float32 and candidate bfloat16 in one process; each verdict valid
@@ -210,17 +243,20 @@ that goes wrong:
    ``backbone`` and ``head`` to its band's cosine and 1.5 times its max
    abs (:data:`DRAW_SPREAD`); the verdict, its first drifted seam and the
    per-seam ``max_abs`` and ``cos`` printed;
-19. prints one JSON line each of the i3d slice's, the raft family's, the
+21. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
-   vggish, parallel, multi, telemetry and certify phases' numbers, one of
-   the kernels' numbers, and last ``{"ok": true, "device": {...}}``.
+   vggish, parallel, multi, telemetry, alerts, fleet and certify phases'
+   numbers, one of the alerting's numbers beside the card
+   (:func:`alerts_plane_line`: history samples, transitions, the bundle's
+   artifacts and bytes, one tick's evaluation, the walls), one of the
+   kernels' numbers, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
 synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
-transforms and the I420 encoder are numpy. The multi, telemetry and certify phases
-decode a video, with cv2, and fail without it; the telemetry and certify
-phases read the family YAML with yaml. PIL is needed by the
+transforms and the I420 encoder are numpy. The multi, telemetry, alerts and
+certify phases decode a video, with cv2, and fail without it; the
+telemetry, alerts and certify phases read the family YAML with yaml. PIL is needed by the
 frame-wise phases' ``resize=host`` runs; scipy by the vggish phase's
 resampling.
 """
@@ -2179,10 +2215,13 @@ def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
 
 
 #: the telemetry phase: the sample at 7.3 fps is 132 frames, two 64-frame
-#: stacks; the run-plane keys it turns on (profile_trace_dir beside them)
+#: stacks; the run-plane keys it turns on (profile_trace_dir beside them),
+#: and the retained history and alerting on top of them
 TELEMETRY_FPS = 7.3
-TELEMETRY_ON = ("telemetry=true", "trace=true", "health=true",
-                "profile=true", "roofline=true", "parity=true")
+RUN_PLANE = ("telemetry=true", "trace=true", "health=true", "profile=true",
+             "roofline=true", "parity=true")
+ALERT_KEYS = ("history=true", "alerts=true")
+TELEMETRY_ON = RUN_PLANE + ALERT_KEYS
 #: the stages every span of the main path must show
 TELEMETRY_STAGES = ("decode", "h2d", "forward", "write")
 #: the trace spans the phase requires (profiler stages and the attempt)
@@ -2232,15 +2271,12 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
     weights, each run's launch counts set to 0 just before and read just
     after; then every artifact of the on run checked (module docstring,
     step 17). ``over`` replaces CLI keys (the CPU test's small sizes)."""
-    import contextlib
     import glob
-    import io
     import os
     import shutil
 
     import cv2  # noqa: F401  (the decode of the mp4; fail here without it)
 
-    from video_features_tpu_torch import cli
     from video_features_tpu_torch.kernels import corr_lookup as cl
     from video_features_tpu_torch.telemetry import (health, roofline, schema,
                                                     trace)
@@ -2263,16 +2299,7 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
             ("capture_off", TELEMETRY_ON, video),
             ("repeat", TELEMETRY_ON, f"[{video}, {again}]")):
         argv = telemetry_argv(f"{root}/{name}", paths, **over) + list(keys)
-        buf = io.StringIO()
-        reset_counts(cl)
-        synchronize()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli.main(argv)
-        synchronize()
-        runs[name] = dict(wall_s=time.perf_counter() - t,
-                          launches=read_counts(cl), stdout=buf.getvalue(),
-                          dir=f"{root}/{name}/out/i3d")
+        runs[name] = dict(run_cli(argv, cl), dir=f"{root}/{name}/out/i3d")
     on, off = runs["on"], runs["off"]
     for name, run in runs.items():
         n = 2 if name == "repeat" else 1
@@ -2394,6 +2421,9 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
         raise AssertionError(f"telemetry: heartbeat roofline "
                              f"{beat['roofline']}, parity {beat['parity']}, "
                              f"manifest roofline {manifest['roofline']}")
+    alert_plane = {name: check_alert_plane(runs[name]["dir"],
+                                           runs[name]["stdout"])
+                   for name in ("on", "capture_off", "repeat")}
     return dict(
         video=video, fps=TELEMETRY_FPS, stacks=stacks,
         wall_s={name: run["wall_s"] for name, run in runs.items()},
@@ -2411,7 +2441,295 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
         topology_device_name=topo.get("device_name"),
         roofline=rooflines, counting_pass_s=counting_pass_s,
         parity_seams=seams,
-        heartbeat_roofline=beat["roofline"], heartbeat_parity=beat["parity"])
+        heartbeat_roofline=beat["roofline"], heartbeat_parity=beat["parity"],
+        alert_plane=alert_plane)
+
+
+def check_alert_plane(out_dir: str, stdout: str) -> dict:
+    """The retained history and the alerting of one ``history=true
+    alerts=true`` run in ``out_dir``: one ``_history_*.jsonl`` of at least
+    two ``vft.history_sample/1`` samples, the last one the final
+    heartbeat's (its ``mfu`` equal to the heartbeat's roofline MFU where
+    the run counts it); the heartbeat's ``alerts`` section with no rule
+    failure; both hooks registered and none failed; no history write
+    failure in the manifest; no firing record but ``mfu_regression``'s,
+    which is returned as a finding of the run rather than failed (its
+    threshold is the JAX package's). Returns the sample count, the
+    journal's (rule, state) transitions and those findings."""
+    import glob
+    import os
+
+    from video_features_tpu_torch.telemetry import alerts, history, jsonl
+
+    files = glob.glob(f"{out_dir}/{history.HISTORY_GLOB}")
+    samples = history.read_history(out_dir)
+    beat = json.load(open(glob.glob(f"{out_dir}/_heartbeat_*.json")[0]))
+    series = samples.get(beat["host_id"], [])
+    manifest = json.load(open(f"{out_dir}/_run.json"))
+    if len(files) != 1 or len(series) < 2 or len(samples) != 1 or any(
+            s.get("schema") != history.SAMPLE_SCHEMA for s in series):
+        raise AssertionError(f"alerts: history {files}, {len(series)} "
+                             f"samples of {list(samples)}")
+    last = series[-1]
+    fams = (beat.get("roofline") or {}).get("families") or {}
+    if not last["final"] or last["videos"] != history.sample_from_heartbeat(
+            beat)["videos"] or any(
+            (last.get("mfu") or {}).get(f) != v.get("mfu")
+            for f, v in fams.items()):
+        raise AssertionError(f"alerts: the last sample {last} is not the "
+                             f"final heartbeat's (roofline {fams})")
+    section = beat.get("alerts")
+    write_failures = [s for s in manifest["metrics"]["series"]
+                      if s["name"] == "vft_telemetry_write_failures_total"]
+    if not isinstance(section, dict) or section.get("eval_errors") != 0 \
+            or "heartbeat hooks: 2 registered, 0 failed" not in stdout \
+            or write_failures:
+        raise AssertionError(f"alerts: heartbeat section {section}, write "
+                             f"failures {write_failures}, hooks "
+                             f"{[ln for ln in stdout.splitlines() if 'hook' in ln]}")
+    records = list(jsonl.read_jsonl(
+        os.path.join(out_dir, alerts.ALERTS_FILENAME)))
+    firing = [r for r in records if r["state"] == "firing"]
+    if any(alerts.validate_alert(r) for r in records) or any(
+            r["rule"] != "mfu_regression" for r in firing):
+        raise AssertionError(f"alerts: firing on a clean run: {firing}")
+    return dict(samples=len(series), last_mfu=last.get("mfu"),
+                samples_with_mfu=sum(
+                    any(v is not None for v in (s.get("mfu") or {}).values())
+                    for s in series),
+                transitions=[(r["rule"], r["state"]) for r in records],
+                mfu_regression=[{k: r[k] for k in (
+                    "scope", "value", "threshold", "summary")}
+                    for r in firing])
+
+
+#: the alerts phase: one 64-frame stack of the sample (4 fps: 72 frames),
+#: an ENOSPC injected at the first feature write, one attempt
+ALERTS_FPS = 4.0
+ALERTS_INJECT = "seed=0;sink.fsync=enospc@n1"
+ALERTS_ROOT = "output/chip_smoke/alerts"
+#: the heartbeat intervals of the cost turns (None: the YAML default, 30 s)
+ALERTS_INTERVALS = (0.3, None)
+#: evaluations timed on a clean run's tree
+EVAL_REPS = 20
+PROM_LINE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? -?[0-9.e+-]+$'
+
+
+def run_cli(argv, cl) -> dict:
+    """``cli.main(argv)`` with the launch counts set to 0 just before and
+    read just after: its wall, launches and stdout."""
+    import contextlib
+    import io
+
+    from video_features_tpu_torch import cli
+
+    buf = io.StringIO()
+    reset_counts(cl)
+    synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    synchronize()
+    return dict(wall_s=time.perf_counter() - t, launches=read_counts(cl),
+                stdout=buf.getvalue())
+
+
+def alerts_phase(video: str = SAMPLE_VIDEO, intervals=ALERTS_INTERVALS,
+                 **over) -> dict:
+    """The alerting on the main path (module docstring, step 18): the
+    telemetry phase's argv over one stack with :data:`ALERTS_INJECT`,
+    ``retry_attempts=1``, ``metrics_interval_s=0.3`` and ``telemetry trace
+    roofline history alerts`` fires one ``failure_spike`` with a bundle,
+    which a later one-shot evaluation resolves; then the cost turns; then
+    the rules' evaluation timed on a clean run's tree. ``over`` replaces
+    CLI keys (the CPU test's small sizes)."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.telemetry import alerts, history, jsonl
+
+    shutil.rmtree(ALERTS_ROOT, ignore_errors=True)
+    os.makedirs(ALERTS_ROOT)
+    stem = os.path.splitext(os.path.basename(video))[0]
+    iters = int(over.get("flow_iters") or ITERS)
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    card_name = torch.cuda.get_device_name(0) if on_card else None
+
+    # the fault run: its one stack runs through RAFT, then the write fails
+    argv = telemetry_argv(f"{ALERTS_ROOT}/fault", video, **{
+        "extraction_fps": ALERTS_FPS, **over}) + [
+        "telemetry=true", "trace=true", "roofline=true", *ALERT_KEYS,
+        "metrics_interval_s=0.3", f"inject={ALERTS_INJECT}"]
+    fault = run_cli(argv, cl)
+    out_dir = f"{ALERTS_ROOT}/fault/out/i3d"
+    proj_want = iters if on_card else 0
+    if "0 extracted" not in fault["stdout"] or "1 failed" not in \
+            fault["stdout"] or fault["launches"] != dict(
+            level=0, proj=proj_want, packed=0):
+        raise AssertionError(f"alerts: the fault run launched "
+                             f"{fault['launches']}, proj expected "
+                             f"{proj_want}: {fault['stdout'][-400:]}")
+    records = list(jsonl.read_jsonl(
+        f"{out_dir}/{alerts.ALERTS_FILENAME}"))
+    firing = [r for r in records if r["state"] == "firing"]
+    if any(alerts.validate_alert(r) for r in records) or \
+            [r["rule"] for r in firing] != ["failure_spike"] or \
+            not firing[0]["incident"]:
+        raise AssertionError(f"alerts: records {records}")
+    bundle = f"{out_dir}/{firing[0]['incident']}"
+    errs = alerts.verify_incident(bundle)
+    man = json.load(open(f"{bundle}/manifest.json"))
+    paths = [a["path"] for a in man["artifacts"]]
+    rf = (json.load(open(f"{bundle}/roofline.json"))
+          if "roofline.json" in paths else {})
+    beat = json.load(open(glob.glob(f"{out_dir}/_heartbeat_*.json")[0]))
+    samples = history.read_history(out_dir).get(beat["host_id"], [])
+    if errs or not (rf.get("device") or {}).get("device_kind") or (
+            on_card and rf["device"]["device_kind"] != card_name) or not any(
+            "_failures" in p for p in paths) or not samples or samples[-1][
+            "videos"]["error"] != 1 or beat["alerts"]["eval_errors"] != 0 \
+            or "heartbeat hooks: 2 registered, 0 failed" not in \
+            fault["stdout"]:
+        raise AssertionError(f"alerts: bundle {errs} {paths}, roofline "
+                             f"{rf.get('device')}, {len(samples)} samples, "
+                             f"heartbeat alerts {beat.get('alerts')}")
+    # the failure leaves a window shrunk below the time since: resolved
+    time.sleep(0.3)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = alerts.main([out_dir, "--window", "0.05"])
+    final = list(jsonl.read_jsonl(
+        f"{out_dir}/{alerts.ALERTS_FILENAME}"))
+    if rc != 0 or alerts.current_alerts(out_dir) or final[-1]["state"] != \
+            "resolved" or final[-1]["alert_id"] != firing[0]["alert_id"]:
+        raise AssertionError(f"alerts: not resolved: rc {rc}, "
+                             f"{final[-1]}: {buf.getvalue()[-300:]}")
+    fault_stats = dict(
+        wall_s=fault["wall_s"], proj_launches=fault["launches"]["proj"],
+        history_samples=len(samples),
+        transitions=[(r["rule"], r["state"]) for r in final],
+        bundle_artifacts=len(paths),
+        bundle_bytes=sum(a["bytes"] for a in man["artifacts"]),
+        bundle_paths=paths, bundle_roofline_device=rf["device"])
+
+    # the cost turns: the run plane without and with history and alerts,
+    # off on on off at each interval; each run's launches and features, its
+    # CLI wall and its video's span wall (the part the ticks run beside)
+    walls, planes, last_on = {}, {}, None
+    want = None
+    for interval in intervals:
+        key = str(interval or "default")
+        walls[key] = {"off": [], "on": [], "span_off": [], "span_on": []}
+        for turn, on in enumerate((False, True, True, False)):
+            name = f"{key}_{'on' if on else 'off'}{turn}"
+            argv = telemetry_argv(f"{ALERTS_ROOT}/{name}", video, **over) \
+                + list(RUN_PLANE) + list(ALERT_KEYS if on else ()) + (
+                    [f"metrics_interval_s={interval}"] if interval else [])
+            run = run_cli(argv, cl)
+            run_dir = f"{ALERTS_ROOT}/{name}/out/i3d"
+            outs = read_outputs(run_dir)
+            stacks = len(outs.get(f"{stem}_timestamps_ms.npy", []))
+            want = outs if want is None else want
+            if "1 extracted" not in run["stdout"] or sorted(outs) != sorted(
+                    want) or any(outs[k].tobytes() != want[k].tobytes()
+                                 for k in want) or run["launches"] != dict(
+                    level=0, packed=0, proj=stacks * proj_want):
+                raise AssertionError(f"alerts: turn {name} launched "
+                                     f"{run['launches']} for {stacks} "
+                                     f"stacks, or its features differ")
+            walls[key]["on" if on else "off"].append(run["wall_s"])
+            span, = jsonl.read_jsonl(f"{run_dir}/_telemetry.jsonl")
+            walls[key]["span_on" if on else "span_off"].append(
+                span["wall_s"])
+            if on:
+                planes[name] = check_alert_plane(run_dir, run["stdout"])
+                last_on = run_dir
+            elif glob.glob(f"{run_dir}/_history_*.jsonl") or os.path.exists(
+                    f"{run_dir}/{alerts.ALERTS_FILENAME}"):
+                raise AssertionError(f"alerts: turn {name} has history or "
+                                     "alerts with both keys off")
+
+    # what one tick's evaluation costs on a clean run's tree: the rules
+    # over observe_root, as the heartbeat thread runs them
+    eng = alerts.AlertEngine(last_on, capture_incidents=False)
+    eval_s, observe_s = [], []
+    for _ in range(EVAL_REPS):
+        t = time.perf_counter()
+        alerts.observe_root(last_on)
+        observe_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        if eng.evaluate():
+            raise AssertionError(f"alerts: a clean run's tree fires: "
+                                 f"{alerts.current_alerts(last_on)}")
+        eval_s.append(time.perf_counter() - t)
+    return dict(
+        fault=fault_stats, walls_s=walls, planes=planes,
+        eval_ms_per_tick=1e3 * float(np.median(eval_s)),
+        observe_root_ms=1e3 * float(np.median(observe_s)),
+        eval_tree=last_on, eval_errors=eng.eval_errors)
+
+
+def fleet_step(roots: dict, card_name=None) -> dict:
+    """The fleet report over each phase root (module docstring, step 19):
+    every current host ``FINISHED``, i3d throughput from the spans, the
+    roofline roll-up naming the card; the Prometheus textfile parses; one
+    stitched trace with a lane per host trace and their ``video_attempt``
+    and ``forward`` spans, the host spans the proj launches ran under; the
+    port's run report renders the alerts phase's fault run and its
+    ``--fail-on-alert`` gate passes after the resolve."""
+    import contextlib
+    import io
+    import re
+
+    from video_features_tpu_torch import fleet_report
+    from video_features_tpu_torch.telemetry import metrics, report
+
+    out = {}
+    line = re.compile(PROM_LINE)
+    for name, root in roots.items():
+        agg = fleet_report.aggregate(root)
+        hosts = [e for e in agg["hosts"] if not e["prior_run"]]
+        fam = agg["families"].get("i3d") or {}
+        rf = agg["roofline"] or {}
+        kind = (rf.get("device") or {}).get("device_kind")
+        if not hosts or {e["state"] for e in hosts} != {"FINISHED"} or \
+                not fam.get("done") or fam.get("s_per_video") is None or \
+                not kind or (card_name is not None and kind != card_name):
+            raise AssertionError(f"fleet {name}: hosts "
+                                 f"{[e['state'] for e in hosts]}, i3d "
+                                 f"{fam}, roofline device {kind}")
+        text = metrics.prometheus_text(fleet_report.build_prom_dump(agg))
+        body = [ln for ln in text.splitlines()
+                if ln.strip() and not ln.startswith("#")]
+        traces = fleet_report.find_trace_files(root)
+        path, merged = fleet_report.stitch(root)
+        names = {e["name"] for e in merged["traceEvents"]
+                 if e.get("ph") == "X"}
+        if not body or not all(line.match(ln) for ln in body) or \
+                path is None or len(merged["otherData"]["hosts"]) != \
+                len(traces) or not {"video_attempt", "forward"} <= names \
+                or not merged["otherData"]["aligned"]:
+            raise AssertionError(f"fleet {name}: prom {body[:3]}, stitch "
+                                 f"{path} of {len(traces)} traces, spans "
+                                 f"{sorted(names)}")
+        out[name] = dict(hosts=len(hosts), i3d=fam, roofline_device=kind,
+                         roofline_mfu=rf["families"].get("i3d", {}).get(
+                             "mfu"),
+                         prom_series=len(body), stitched_lanes=len(traces),
+                         stitched_events=len(merged["traceEvents"]))
+    fault_dir = f"{roots['alerts']}/fault/out/i3d"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = report.main([fault_dir, "--fail-on-alert"])
+    text = buf.getvalue()
+    if rc != 0 or "== heartbeats ==" not in text or "FATAL=1" not in text:
+        raise AssertionError(f"fleet: report rc {rc}: {text[-400:]}")
+    out["report_lines"] = len(text.splitlines())
+    return out
 
 
 def check_roofline(doc: dict, card_name, proj_want: int) -> dict:
@@ -2531,6 +2849,32 @@ def certify_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
     return out
 
 
+def alerts_plane_line(telemetry_stats: dict, alerts_stats: dict,
+                      card: str) -> dict:
+    """The numbers of the retained history and the alerting, each run's
+    beside the card's ``nvidia-smi`` name and power limit: history samples
+    per run, the fault run's transitions and bundle, one tick's
+    evaluation, and the main path's walls without and with ``history``
+    and ``alerts`` at each heartbeat interval."""
+    fault = alerts_stats["fault"]
+    samples = {f"telemetry_{k}": v["samples"]
+               for k, v in telemetry_stats["alert_plane"].items()}
+    samples.update({f"turn_{k}": v["samples"]
+                    for k, v in alerts_stats["planes"].items()})
+    samples["fault"] = fault["history_samples"]
+    findings = [f for p in list(telemetry_stats["alert_plane"].values())
+                + list(alerts_stats["planes"].values())
+                for f in p["mfu_regression"]]
+    return dict(card=card, history_samples=samples,
+                transitions=fault["transitions"],
+                bundle_artifacts=fault["bundle_artifacts"],
+                bundle_bytes=fault["bundle_bytes"],
+                eval_ms_per_tick=alerts_stats["eval_ms_per_tick"],
+                observe_root_ms=alerts_stats["observe_root_ms"],
+                walls_s=alerts_stats["walls_s"],
+                mfu_regression_on_clean_runs=findings)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2581,6 +2925,10 @@ def main() -> int:
     empty_cache()
     telemetry_stats = telemetry_phase()
     empty_cache()
+    alerts_stats = alerts_phase()
+    empty_cache()
+    fleet_stats = fleet_step({"telemetry": "output/chip_smoke/telemetry",
+                              "alerts": ALERTS_ROOT}, kind)
     certify_stats = certify_phase()
     empty_cache()
     # each kernel's launches on the path that runs it: the i3d slice for
@@ -2599,6 +2947,7 @@ def main() -> int:
     proj_row["launches_telemetry_off_on"] = [
         telemetry_stats["proj_launches"]["off"],
         telemetry_stats["proj_launches"]["on"]]
+    proj_row["launches_alerts_fault"] = alerts_stats["fault"]["proj_launches"]
     proj_row["launches_parallel_raft_per_replica"] = [
         t["proj"] for t in parallel_stats["raft"]["per_replica"]]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
@@ -2615,6 +2964,8 @@ def main() -> int:
     parallel_stats["card"] = card
     multi_stats["card"] = card
     telemetry_stats["card"] = card
+    alerts_stats["card"] = card
+    fleet_stats["card"] = card
     certify_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
@@ -2628,7 +2979,11 @@ def main() -> int:
     print(json.dumps({"parallel": parallel_stats}))
     print(json.dumps({"multi": multi_stats}))
     print(json.dumps({"telemetry": telemetry_stats}))
+    print(json.dumps({"alerts": alerts_stats}))
+    print(json.dumps({"fleet": fleet_stats}))
     print(json.dumps({"certify": certify_stats}))
+    print(json.dumps({"alerts_plane": alerts_plane_line(
+        telemetry_stats, alerts_stats, card)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -435,15 +435,34 @@ def test_check_trace_events_fails_a_missing_field_or_span():
             {k: v for k, v in ev.items() if k != "dur"}]}, required, [])
 
 
-def test_telemetry_phase_runs_on_the_cpu(tmp_path, monkeypatch,
-                                         sample_video):
+#: the telemetry test's small sizes: one 10-frame stack, 2 RAFT iterations
+SMALL = dict(device="cpu", stack_size=10, step_size=10, flow_iters=2,
+             extraction_fps=1)
+
+
+@pytest.fixture(scope="module")
+def run_plane_phases(tmp_path_factory, sample_video):
+    """The telemetry and alerts phases and the fleet step over both roots,
+    on the CPU at :data:`SMALL` in one working directory (the alerts
+    phase's cost turns at the 0.3 s interval only)."""
+    mp = pytest.MonkeyPatch()
+    mp.chdir(tmp_path_factory.mktemp("run_plane"))
+    try:
+        telemetry = cs.telemetry_phase(video=sample_video, **SMALL)
+        alerts = cs.alerts_phase(video=sample_video, intervals=(0.3,),
+                                 **SMALL)
+        fleet = cs.fleet_step({"telemetry": "output/chip_smoke/telemetry",
+                               "alerts": cs.ALERTS_ROOT})
+        yield dict(telemetry=telemetry, alerts=alerts, fleet=fleet)
+    finally:
+        mp.undo()
+
+
+def test_telemetry_phase_runs_on_the_cpu(run_plane_phases):
     """The telemetry phase on the CPU at a small size (one 10-frame stack,
     2 RAFT iterations): the run plane on and off give equal features, and
     every artifact checks; no lookup kernel runs on the CPU."""
-    monkeypatch.chdir(tmp_path)
-    stats = cs.telemetry_phase(
-        video=sample_video, device="cpu", stack_size=10, step_size=10,
-        flow_iters=2, extraction_fps=1)
+    stats = run_plane_phases["telemetry"]
     assert stats["max_abs_on_vs_off"] == 0.0 and stats["stacks"] == 1
     assert stats["proj_launches"] == {"off": 0, "on": 0, "capture_off": 0,
                                       "repeat": 0}
@@ -467,6 +486,55 @@ def test_telemetry_phase_runs_on_the_cpu(tmp_path, monkeypatch,
     assert stats["heartbeat_parity"]["records"] == sum(
         stats["parity_seams"].values())
     assert stats["heartbeat_roofline"]["families"]["i3d"]["dispatches"] == 1
+    # history and alerts on the on runs: at least the first and the final
+    # sample (a run slower than the 30 s interval adds a tick's), no alert;
+    # the last sample's MFU the heartbeat's (None on the CPU)
+    for run in ("on", "capture_off", "repeat"):
+        plane = stats["alert_plane"][run]
+        assert plane["samples"] >= 2 and plane["transitions"] == []
+        assert plane["last_mfu"] == {"i3d": None}
+
+
+def test_alerts_phase_and_fleet_step_run_on_the_cpu(run_plane_phases):
+    """The alerts phase at the small size: the fault run fires one
+    ``failure_spike`` with a verified bundle holding the live roofline
+    summary, then resolves; the cost turns keep their features and write
+    no history with the keys off; one tick's evaluation timed. The fleet
+    step over both roots; the printed line's keys. No proj launch on the
+    CPU."""
+    stats = run_plane_phases["alerts"]
+    fault = stats["fault"]
+    assert fault["proj_launches"] == 0
+    assert fault["transitions"] == [("failure_spike", "firing"),
+                                    ("failure_spike", "resolved")]
+    assert fault["history_samples"] >= 2
+    assert fault["bundle_roofline_device"]["device_kind"] == "cpu"
+    # the run's trace is written at its exit, after the alert fired
+    assert {"alert.json", "roofline.json"} <= set(fault["bundle_paths"])
+    assert "trace_window.json" not in fault["bundle_paths"]
+    assert fault["bundle_artifacts"] == len(fault["bundle_paths"])
+    assert fault["bundle_bytes"] > 0
+    assert set(stats["walls_s"]) == {"0.3"}
+    assert {k: len(v) for k, v in stats["walls_s"]["0.3"].items()} == {
+        "off": 2, "on": 2, "span_off": 2, "span_on": 2}
+    assert sorted(stats["planes"]) == ["0.3_on1", "0.3_on2"]
+    assert stats["eval_ms_per_tick"] > 0 and stats["eval_errors"] == 0
+    fleet = run_plane_phases["fleet"]
+    for root in ("telemetry", "alerts"):
+        assert fleet[root]["hosts"] >= 2 and fleet[root]["prom_series"]
+        assert fleet[root]["roofline_device"] == "cpu"
+        assert fleet[root]["stitched_lanes"] == fleet[root]["hosts"]
+    line = cs.alerts_plane_line(run_plane_phases["telemetry"], stats,
+                                "card, 700 W")
+    assert set(line) == {
+        "card", "history_samples", "transitions", "bundle_artifacts",
+        "bundle_bytes", "eval_ms_per_tick", "observe_root_ms", "walls_s",
+        "mfu_regression_on_clean_runs"}
+    assert line["mfu_regression_on_clean_runs"] == []
+    assert set(line["history_samples"]) == {
+        "telemetry_on", "telemetry_capture_off", "telemetry_repeat",
+        "turn_0.3_on1", "turn_0.3_on2", "fault"}
+    json.dumps(line)
 
 
 def test_check_roofline_and_parity_fail_bad_artifacts(tmp_path):

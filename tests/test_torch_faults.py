@@ -48,7 +48,6 @@ GATED_CASES = [
     ("compilation_cache_dir", "/c", 8), ("fleet", "queue", 8),
     ("fleet_lease_s", 30, 8), ("fleet_max_reclaims", 5, 8),
     ("fleet_canary", True, 8), ("serve_slo_s", 0.5, 8),
-    ("history", True, 9), ("alerts", True, 9),
     ("vision_attn", "blockwise", 10), ("config", "other.yml", None)]
 
 
@@ -78,10 +77,14 @@ def test_every_gated_key_is_tested_and_in_every_yaml():
 
 
 #: the run-plane keys, at values JAX accepts, with the artifact each
-#: makes appear (``metrics_interval_s`` with ``telemetry=true``)
+#: makes appear (``metrics_interval_s``, ``history`` and ``alerts`` with
+#: ``telemetry=true``)
 TELEMETRY_CASES = [
     ("telemetry", True), ("metrics_interval_s", 5), ("trace", True),
-    ("health", True), ("parity", True), ("roofline", True)]
+    ("health", True), ("parity", True), ("roofline", True),
+    ("history", True), ("alerts", True)]
+#: the keys that need ``telemetry=true``
+ON_TELEMETRY = ("metrics_interval_s", "history", "alerts")
 
 
 @pytest.mark.parametrize("key,value", TELEMETRY_CASES)
@@ -104,7 +107,7 @@ def test_telemetry_keys_run(key, value, tmp_path):
         with pytest.raises(ValueError, match=key):
             mod.sanity_check(cfg)
     extra = [f"{key}={value}"] + (["telemetry=true"]
-                                  if key == "metrics_interval_s" else [])
+                                  if key in ON_TELEMETRY else [])
     with contextlib.redirect_stdout(io.StringIO()):
         tmain(["feature_type=resnet", "model_name=resnet18", "device=cpu",
                "allow_random_weights=true", "extraction_total=2",
@@ -116,7 +119,9 @@ def test_telemetry_keys_run(key, value, tmp_path):
     made = {p.name for p in out.iterdir() if p.name.startswith("_")}
     want = {"telemetry": {"_telemetry.jsonl", "_run.json"},
             "trace": {"_trace.json"}, "health": {"_health.jsonl"},
-            "parity": {"_parity.jsonl"}, "roofline": {"_roofline.json"}}
+            "parity": {"_parity.jsonl"}, "roofline": {"_roofline.json"},
+            "history": {"_telemetry.jsonl", "_run.json"},
+            "alerts": {"_telemetry.jsonl", "_run.json"}}
     if key == "metrics_interval_s":
         hb = json.loads(next(out.glob("_heartbeat_*.json")).read_text())
         assert hb["interval_s"] == 5.0
@@ -125,6 +130,15 @@ def test_telemetry_keys_run(key, value, tmp_path):
         assert not ({"_trace.json", "_health.jsonl", "_run.json",
                      "_parity.jsonl", "_roofline.json"}
                     - want[key]) & made, made
+        # a sample for each of the first and the final heartbeat at least;
+        # the alerts section in the heartbeat, no transition on a clean run
+        history = list(out.glob("_history_*.jsonl"))
+        assert len(history) == (key in ("history", "alerts")), made
+        assert not {"_alerts.jsonl", "_incidents"} & made, made
+        if key in ON_TELEMETRY:
+            assert len(history[0].read_text().splitlines()) >= 2
+            hb = json.loads(next(out.glob("_heartbeat_*.json")).read_text())
+            assert ("alerts" in hb) is (key == "alerts")
 
 
 #: the keys of batching and data parallelism, at values JAX accepts

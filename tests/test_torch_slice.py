@@ -261,7 +261,7 @@ def test_sinks_write_and_skip(tmp_path, sink):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("compile_cache", True), ("history", True), ("fps_mode", "reencode"),
+    ("compile_cache", True), ("fleet", "queue"), ("fps_mode", "reencode"),
     ("show_pred", True)])
 def test_unported_keys_raise(tmp_path, key, value):
     cfg = tconfig.load_config("i3d", dict(_overrides(tmp_path), **{key: value}))

@@ -6,9 +6,10 @@ stacks, ``extraction_fps=1``: one stack), both reading one set of seeded
 weights: checkpoints in the reference's layout written by the port's seeded
 init (``weights/bridge.py seeded_init_``) and read by both through their
 weights paths. Both run with ``telemetry=true trace=true health=true
-profile=true``; the port also with ``profile_trace_dir`` (a
-``torch.profiler`` trace), and once more with every one of these keys off.
-The checkpoints are removed when the fixture tears down.
+profile=true history=true alerts=true``; the port also with
+``profile_trace_dir`` (a ``torch.profiler`` trace), and once more with
+every one of these keys off. The checkpoints are removed when the fixture
+tears down.
 
 Held, with the tolerances stated where there are any:
   - the field tuples, the span vocabulary and the metric registry equal the
@@ -27,7 +28,15 @@ Held, with the tolerances stated where there are any:
   - with every key on, the port's features equal its features with them
     off bit for bit, and JAX's within the value tier (atol 1e-2);
   - ``profile=true`` prints the stage summary; ``profile_trace_dir`` holds a
-    Chrome trace that parses.
+    Chrome trace that parses;
+  - ``history`` and ``alerts``: the JAX package's readers (``aggregate``,
+    ``read_history``, ``observe_root``, ``current_alerts``) agree with the
+    port's on the port's tree; each package's report renders both runs;
+    the keys are out of ``config.GATED_KEYS`` and a bad value, or either
+    without ``telemetry=true``, raises as JAX's does; a resnet18 run with
+    an injected ``sink.fsync`` ENOSPC fires one ``failure_spike`` with a
+    bundle both packages verify, and resolves (JAX's
+    ``tests/test_alerts.py`` acceptance test, ported).
 """
 import contextlib
 import io
@@ -62,7 +71,8 @@ REPO = Path(__file__).resolve().parents[1]
 SAMPLE = REPO / "tests" / "assets" / "v_synth_sample.mp4"
 STEM = SAMPLE.stem
 KEYS = ("rgb", "flow", "fps", "timestamps_ms")
-ON = ["telemetry=true", "trace=true", "health=true", "profile=true"]
+ON = ["telemetry=true", "trace=true", "health=true", "profile=true",
+      "history=true", "alerts=true"]
 
 
 def _cli(main, argv):
@@ -651,3 +661,147 @@ def test_fault_counters_equal_jax(tmp_path):
     assert {s["name"] for s in dumps[0]["series"]} == {
         "vft_failures_total", "vft_deadline_expirations_total"}
     assert records[0]["request_id"] == records[1]["request_id"] == "acme-r1"
+
+
+# -- history and alerts -----------------------------------------------------
+
+def test_jax_readers_agree_with_the_ports_on_its_tree(runs):
+    """The port's i3d tree with ``history=true alerts=true``: the JAX
+    package's fleet, history and alert readers give what the port's give;
+    a sample of the first and of the final heartbeat at least (a run
+    slower than the 30 s interval adds a tick's), the last one the final
+    heartbeat's; no alert on the clean run; the heartbeat's
+    ``alerts`` section and the CLI's exit lines."""
+    from video_features_tpu import fleet_report as jfleet
+    from video_features_tpu.telemetry import alerts as jalerts
+    from video_features_tpu.telemetry import history as jhistory
+    from video_features_tpu_torch import fleet_report as tfleet
+    from video_features_tpu_torch.telemetry import alerts as talerts
+    from video_features_tpu_torch.telemetry import history as thistory
+
+    root = str(runs["port"]["dir"])
+    now = 2e9
+    assert tfleet.aggregate(root, now=now) == jfleet.aggregate(root,
+                                                                now=now)
+    assert talerts.observe_root(root, now=now) == \
+        jalerts.observe_root(root, now=now)
+    series = thistory.read_history(root)
+    assert series == jhistory.read_history(root)
+    (host, samples), = series.items()
+    hb = json.loads(next(runs["port"]["dir"].glob(
+        "_heartbeat_*.json")).read_text())
+    assert host == hb["host_id"] and len(samples) >= 2
+    assert samples[-1] == jhistory.sample_from_heartbeat(
+        hb, nonfinite_total=0)
+    assert talerts.current_alerts(root) == jalerts.current_alerts(root) \
+        == []
+    assert hb["alerts"] == {"firing": 0, "pending": 0, "names": [],
+                            "eval_errors": 0}
+    out = runs["port"]["stdout"]
+    assert "heartbeat hooks: 2 registered, 0 failed" in out
+    assert "alerts: 0 firing / 0 pending at exit" in out
+    assert "scripts/" not in out
+
+
+@pytest.mark.parametrize("run", ["port", "jax"])
+def test_port_report_renders_both_packages_runs(runs, run):
+    """``python -m video_features_tpu_torch.telemetry.report`` on each run:
+    exit 0 with every gate, the manifest header naming torch and the
+    device, the one finished host and the one done span."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "video_features_tpu_torch.telemetry.report",
+         str(runs[run]["dir"]), "--fail-on-failures", "--fail-on-slo",
+         "--fail-on-alert"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = proc.stdout
+    assert "== heartbeats ==" in out and ": FINISHED" in out
+    assert "status: done=1" in out and "== alerts ==" not in out
+    if run == "port":
+        assert "torch=" in out and "device=None" in out
+
+
+@pytest.mark.parametrize("key,value,telemetry", [
+    ("history", "yes", True), ("alerts", 1, True), ("history", True, False),
+    ("alerts", True, False)])
+def test_history_and_alerts_config_errors_equal_jax(tmp_path, key, value,
+                                                    telemetry):
+    """Neither key is gated; a bad value, or either key without
+    ``telemetry=true``, raises JAX's error (its message up to the pointer
+    at the package's own docs or tools)."""
+    from video_features_tpu import config as jconfig
+    from video_features_tpu_torch import config as tconfig
+
+    assert key not in tconfig.GATED_KEYS
+    errors = []
+    for mod in (tconfig, jconfig):
+        cfg = mod.load_config("resnet", {
+            key: value, "telemetry": telemetry, "device": "cpu",
+            "output_path": str(tmp_path / "o"),
+            "tmp_path": str(tmp_path / "t"), "video_paths": "a.mp4"})
+        with pytest.raises(ValueError) as e:
+            mod.sanity_check(cfg)
+        errors.append(str(e.value).split(" (")[0])
+    assert errors[0] == errors[1]
+    ok = tconfig.load_config("resnet", {
+        key: True, "telemetry": True, "device": "cpu",
+        "output_path": str(tmp_path / "o"), "tmp_path": str(tmp_path / "t"),
+        "video_paths": "a.mp4"})
+    tconfig.sanity_check(ok)
+
+
+def test_injected_fault_fires_bundles_and_resolves(tmp_path):
+    """JAX's acceptance loop on the port's CLI: resnet18 with an injected
+    ENOSPC at the first ``sink.fsync`` and one attempt fires exactly one
+    ``failure_spike`` with a valid record and a bundle that holds the
+    failure journal and the heartbeats and that both packages' verifiers
+    accept; the retained history carries the failure; a later one-shot
+    evaluation over a shrunken window resolves it, and then no package's
+    reader sees an alert; the record keeps pointing at the bundle."""
+    import time
+
+    from video_features_tpu.telemetry import alerts as jalerts
+    from video_features_tpu.telemetry import history as jhistory
+    from video_features_tpu_torch.cli import main as tmain
+    from video_features_tpu_torch.telemetry import alerts as talerts
+    from video_features_tpu_torch.telemetry import history as thistory
+
+    out = _cli(tmain, [
+        "feature_type=resnet", "model_name=resnet18", "device=cpu",
+        "allow_random_weights=true", "extraction_total=4",
+        "on_extraction=save_numpy", f"output_path={tmp_path / 'o'}",
+        f"tmp_path={tmp_path / 't'}", f"video_paths={SAMPLE}",
+        "telemetry=true", "alerts=true", "history=true",
+        "metrics_interval_s=0.3", "retry_attempts=1",
+        "inject=seed=0;sink.fsync=enospc@n1"])
+    assert "1 failed" in out and "alerts: 1 firing / 0 pending" in out
+    root = tmp_path / "o" / "resnet" / "resnet18"
+    recs = list(tjsonl.read_jsonl(root / "_alerts.jsonl"))
+    assert recs and all(talerts.validate_alert(r) == [] ==
+                        jalerts.validate_alert(r) for r in recs)
+    firing = [r for r in recs if r["state"] == "firing"]
+    assert [r["rule"] for r in firing] == ["failure_spike"]
+    assert firing[0]["run_id"] is not None
+    bundle = root / firing[0]["incident"]
+    assert talerts.verify_incident(bundle) == [] == \
+        jalerts.verify_incident(bundle)
+    paths = [a["path"] for a in json.loads(
+        (bundle / "manifest.json").read_text())["artifacts"]]
+    assert any("_failures" in p for p in paths)
+    assert any(p.startswith("heartbeats/") for p in paths)
+    series = thistory.read_history(str(root))
+    assert series == jhistory.read_history(str(root))
+    (host, samples), = series.items()
+    assert samples[-1]["videos"]["error"] == 1
+    assert talerts.current_alerts(root) == jalerts.current_alerts(root)
+    time.sleep(0.3)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert talerts.main([str(root), "--window", "0.05"]) == 0
+    final = {(r["rule"], r["scope"]): r
+             for r in tjsonl.read_jsonl(root / "_alerts.jsonl")}
+    assert final[("failure_spike", host)]["state"] == "resolved"
+    assert final[("failure_spike", host)]["incident"] == \
+        firing[0]["incident"]
+    assert talerts.current_alerts(root) == [] == \
+        jalerts.current_alerts(root)

@@ -45,6 +45,16 @@ into DIR (``utils/profiling.py``). ``roofline=true`` writes the MFU
 accounting ``_roofline.json`` under the run's output root at exit
 (``telemetry/roofline.py``); ``parity=true`` appends per-seam numerics
 digests to ``_parity.jsonl`` there (``telemetry/parity.py``).
+``history=true`` appends a sample of every heartbeat to
+``_history_{host_id}.jsonl`` (``telemetry/history.py``); ``alerts=true``
+(which implies ``history``) evaluates the alert rules on every heartbeat,
+journals their transitions to ``_alerts.jsonl`` and captures an incident
+bundle under ``_incidents/`` when one fires (``telemetry/alerts.py``); both
+need ``telemetry=true``. The run's report is ``python -m
+video_features_tpu_torch.telemetry.report OUT``, a fleet's ``python -m
+video_features_tpu_torch.fleet_report ROOT`` (``--stitch`` merges the
+hosts' traces) and the alert evaluator's ``python -m
+video_features_tpu_torch.telemetry.alerts ROOT``.
 
 ``python -m video_features_tpu_torch parity <run_dir>`` summarizes a run's
 ``_parity.jsonl``; ``python -m video_features_tpu_torch parity certify
@@ -105,7 +115,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"inject: armed plan {plan.spec!r} (seed={plan.seed}; replay "
               "by re-running with this exact inject= string)")
     run_label = ",".join(families)
-    recorder = tracer = rf_observer = parity_observer = None
+    recorder = tracer = rf_observer = parity_observer = alert_engine = None
     tally = _new_tally()
     failures: List[dict] = []
     n_paths = 0
@@ -120,7 +130,18 @@ def main(argv: Optional[List[str]] = None) -> None:
         # the profiler is process-global: an in-process rerun starts afresh
         profiler.enabled = bool(args.get("profile"))
         profiler.reset()
-        recorder = _start_recorder(args, per_family, out_root, run_label)
+        recorder = _new_recorder(args, per_family, out_root, run_label)
+        if recorder is not None:
+            # both hooks before start(): the first heartbeat seeds the
+            # windows the rules diff, which short runs need to alert at all
+            if args.get("history") or args.get("alerts"):
+                from .telemetry.history import HistoryWriter
+                HistoryWriter(out_root, recorder.host_id).attach(recorder)
+            if args.get("alerts"):
+                from .telemetry.alerts import AlertEngine
+                alert_engine = AlertEngine(
+                    out_root, run_id=recorder.run_id).attach(recorder)
+            recorder.start()
         if args.get("trace"):
             from .telemetry.trace import TraceRecorder
             tracer = TraceRecorder(out_root).start()
@@ -174,11 +195,22 @@ def main(argv: Optional[List[str]] = None) -> None:
         profiler.enabled = False
     if recorder is not None:
         print(f"telemetry: {recorder.manifest_path} + {recorder.spans_path} "
-              f"(render with scripts/telemetry_report.py {out_root})")
+              f"(render with python -m "
+              f"video_features_tpu_torch.telemetry.report {out_root})")
+        if recorder.tick_hooks:
+            print(f"heartbeat hooks: {len(recorder.tick_hooks)} registered, "
+                  f"{recorder.tick_hook_errors} failed")
+    if alert_engine is not None:
+        s = alert_engine.heartbeat_section()
+        print(f"alerts: {s.get('firing', 0)} firing / "
+              f"{s.get('pending', 0)} pending at exit — journal in "
+              f"{out_root}/_alerts.jsonl, incident bundles in "
+              f"{out_root}/_incidents/ (render with python -m "
+              f"video_features_tpu_torch.telemetry.alerts {out_root})")
     if tracer is not None:
-        print(f"trace: {tracer.trace_path} (render with "
-              f"scripts/trace_report.py {out_root}, or open in "
-              "https://ui.perfetto.dev)")
+        print(f"trace: {tracer.trace_path} (stitch the hosts' traces with "
+              f"python -m video_features_tpu_torch.fleet_report --stitch "
+              f"{out_root}, or open in https://ui.perfetto.dev)")
     if rf_observer is not None:
         print(f"roofline: {rf_observer.path} (render with python -m "
               f"video_features_tpu_torch.telemetry.roofline {out_root})")
@@ -202,10 +234,11 @@ def _new_tally() -> dict:
     return {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
 
 
-def _start_recorder(args, per_family, out_root: str, run_label: str):
-    """``telemetry=true``: a started ``TelemetryRecorder`` over
-    ``out_root``, with this process's ``p{rank}-{host}`` id (the JAX CLI's
-    ``p{process_index}-{host}``); else None."""
+def _new_recorder(args, per_family, out_root: str, run_label: str):
+    """``telemetry=true``: a ``TelemetryRecorder`` over ``out_root``, not yet
+    started (the caller attaches its hooks first), with this process's
+    ``p{rank}-{host}`` id (the JAX CLI's ``p{process_index}-{host}``); else
+    None."""
     if not args.get("telemetry"):
         return None
     from .telemetry.recorder import TelemetryRecorder
@@ -215,7 +248,7 @@ def _start_recorder(args, per_family, out_root: str, run_label: str):
     return TelemetryRecorder(
         out_root, run_config=run_config, feature_type=run_label,
         interval_s=float(args.get("metrics_interval_s") or 30.0),
-        host_id=f"p{_rank_and_world()[0]}-{socket.gethostname()}").start()
+        host_id=f"p{_rank_and_world()[0]}-{socket.gethostname()}")
 
 
 def _maybe_init_distributed(args) -> None:

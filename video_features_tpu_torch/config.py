@@ -35,9 +35,6 @@ GATED_KEYS = {
     "fleet_max_reclaims": ((None, 3), 8),
     "fleet_canary": ((None, False), 8),
     "serve_slo_s": ((None,), 8),
-    # the rest of the telemetry (#9): retained history and alerting
-    "history": ((None, False), 9),
-    "alerts": ((None, False), 9),
     # CLIP's blockwise vision attention, parallel/sequence.py (#10)
     "vision_attn": ((None, "dense"), 10),
     "config": ((None,), None),
@@ -256,9 +253,10 @@ def check_ported(args: Config) -> None:
 
 
 def _check_telemetry(args: Config) -> None:
-    """``telemetry``, ``trace``, ``health``, ``parity`` and ``roofline``
-    (true or false) and ``metrics_interval_s`` (> 0), as the JAX package
-    checks them."""
+    """``telemetry``, ``trace``, ``health``, ``parity``, ``roofline``,
+    ``history`` and ``alerts`` (true or false; ``history`` and ``alerts``
+    need ``telemetry=true``) and ``metrics_interval_s`` (> 0), as the JAX
+    package checks them."""
     for key, what in (("telemetry", "writes {output_path}/_telemetry.jsonl, "
                        "_run.json and heartbeats, telemetry/"),
                       ("trace", "writes {output_path}/_trace.json, "
@@ -269,11 +267,23 @@ def _check_telemetry(args: Config) -> None:
                       ("parity", "per-seam numerics digests into "
                        "{output_path}/_parity.jsonl, telemetry/parity.py"),
                       ("roofline", "MFU accounting into {output_path}/"
-                       "_roofline.json, telemetry/roofline.py")):
+                       "_roofline.json, telemetry/roofline.py"),
+                      ("history", "retained heartbeat samples in "
+                       "{output_path}/_history_{host_id}.jsonl, "
+                       "telemetry/history.py"),
+                      ("alerts", "alert rules on the heartbeat cadence into "
+                       "{output_path}/_alerts.jsonl + _incidents/ bundles, "
+                       "telemetry/alerts.py — render with python -m "
+                       "video_features_tpu_torch.telemetry.alerts")):
         value = args.get(key, False)
         if not isinstance(value, bool):
             raise ValueError(f"{key}={value!r}: expected true or false "
                              f"({what})")
+    if (args.get("history", False) or args.get("alerts", False)) \
+            and not args.get("telemetry", False):
+        raise ValueError(
+            "history=true / alerts=true need telemetry=true: samples and "
+            "rule evaluation ride the heartbeat cadence")
     mi = args.get("metrics_interval_s")
     if mi is not None and float(mi) <= 0:
         raise ValueError(f"metrics_interval_s={mi!r}: need a float > 0 "
@@ -375,7 +385,8 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     ``show_pred`` runs as in the JAX package, ``mesh_devices``,
     ``model_parallel``, ``distributed``, ``cross_video_batching``), the
     cache keys (``cache``, ``cache_dir``, ``cache_scope``), the telemetry
-    keys (``telemetry``, ``metrics_interval_s``, ``trace``, ``health``),
+    keys (``telemetry``, ``metrics_interval_s``, ``trace``, ``health``,
+    ``parity``, ``roofline``, ``history``, ``alerts``),
     the unported keys, the device (``args.device`` becomes ``cpu``,
     ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
     namespacing of ``output_path``/``tmp_path``."""

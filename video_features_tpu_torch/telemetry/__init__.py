@@ -22,6 +22,11 @@ output health and the pipeline trace (port of
                                    ``parity.schema.json``)
   ``_parity_verdict.json``         a ``parity certify`` A/B verdict
                                    (``parity_verdict.schema.json``)
+  ``_history_{host_id}.jsonl``     a downsampled sample of every heartbeat
+                                   (history.py, ``history=true``)
+  ``_alerts.jsonl``                alert transitions (alerts.py,
+                                   ``alerts=true``; ``alert.schema.json``)
+  ``_incidents/{alert_id}/``       a firing alert's bundle (alerts.py)
   metrics registry                 counters, gauges, fixed-bucket
                                    histograms (metrics.py), dumped into the
                                    manifest; Prometheus text export
@@ -32,8 +37,9 @@ output health and the pipeline trace (port of
 ``utils/sinks.py``, ``utils/faults.py``, ``utils/io.py``, ``cache.py``,
 ``parallel/`` and ``extractors/`` call the helpers below, which cost one
 global (or thread-local) read when telemetry is off. The device trace is
-``utils/profiling.py TraceCapture`` (``profile_trace_dir``). Not ported yet
-(ROADMAP.md Queue 1 #9): ``history`` and ``alerts``.
+``utils/profiling.py TraceCapture`` (``profile_trace_dir``). The readers:
+``report.py`` (one run), ``alerts.py`` (the rules over a root) and
+``fleet_report.py`` (a fleet's shared root).
 """
 from __future__ import annotations
 

@@ -3,10 +3,11 @@
 
 Each worker writes ``{output_path}/_heartbeat_{host_id}.json`` every
 ``metrics_interval_s`` seconds (atomic replace, ``telemetry/jsonl.py``), so
-an operator (or ``scripts/telemetry_report.py``) can tell a slow host from
-a dead one without logging in: a heartbeat older than about three
-intervals means the worker stalled or died, and its ``last_video`` names
-the suspect input. Hosts never talk to each other (the work list is split
+an operator (``python -m video_features_tpu_torch.telemetry.report``, or
+``python -m video_features_tpu_torch.fleet_report`` over a fleet's shared
+root) can tell a slow host from a dead one without logging in: a heartbeat
+older than :data:`STALL_INTERVALS` intervals means the worker stalled or
+died, and its ``last_video`` names the suspect input. Hosts never talk to each other (the work list is split
 by ``parallel/mesh.py local_shard_of_list``); they only share an output
 directory.
 
@@ -23,6 +24,10 @@ import threading
 from typing import Callable, Optional
 
 HEARTBEAT_PREFIX = "_heartbeat_"
+HEARTBEAT_GLOB = HEARTBEAT_PREFIX + "*.json"
+
+#: a heartbeat older than this many intervals marks the host STALLED
+STALL_INTERVALS = 3.0
 
 
 def heartbeat_filename(host_id: str) -> str:
@@ -30,6 +35,29 @@ def heartbeat_filename(host_id: str) -> str:
     filesystem (host ids embed hostnames)."""
     safe = re.sub(r"[^A-Za-z0-9._-]+", "-", str(host_id))
     return f"{HEARTBEAT_PREFIX}{safe}.json"
+
+
+def matches_run(heartbeat: dict, run_id: Optional[str],
+                started_time: Optional[float] = None) -> bool:
+    """False iff this heartbeat demonstrably belongs to a run older than
+    ``run_id`` (the manifest's): output dirs are reused, and a worker that
+    died without a final heartbeat leaves its file behind, which the
+    report tools must not count as a worker of the current run.
+
+    Each host mints its own run id, so a fleet sharing one dir shows
+    several; a mismatched id marks staleness only when the heartbeat also
+    predates the manifest's ``started_time``. A missing id on either side
+    matches (an unprovable mismatch stays visible)."""
+    hb_run = heartbeat.get("run_id")
+    if run_id is None or hb_run is None or str(hb_run) == str(run_id):
+        return True
+    if started_time is None:
+        return False
+    hb_time = heartbeat.get("time")
+    try:
+        return hb_time is not None and float(hb_time) >= float(started_time)
+    except (TypeError, ValueError):
+        return False
 
 
 class HeartbeatThread:

@@ -13,7 +13,15 @@ One recorder per CLI run (``cli.py`` builds it when ``telemetry=true``):
   - runs the heartbeat thread (``telemetry/heartbeat.py``) and writes this
     host's ``_heartbeat_{host_id}.json``, with the per-interval stage delta
     taken by ``StageProfiler.drain()`` (snapshot and reset under one lock);
-  - writes the run manifest (``telemetry/manifest.py``) at :meth:`close`.
+  - writes the run manifest (``telemetry/manifest.py``) at :meth:`close`;
+  - runs two hook points, registered before :meth:`start` so the first
+    heartbeat is observed too: :attr:`extra_sections` (heartbeat sections
+    rendered by callbacks, such as ``telemetry/alerts.py``'s ``alerts``) and
+    :attr:`tick_hooks` (called with each heartbeat just written:
+    ``telemetry/history.py`` appends its sample, ``telemetry/alerts.py``
+    evaluates its rules). A failing hook is counted
+    (:attr:`tick_hook_errors`) and the first failure printed; the heartbeat
+    goes on.
 
 The JAX recorder also counts XLA compile-cache events through a
 ``jax.monitoring`` listener. The port has no compile cache until ROADMAP.md
@@ -35,7 +43,7 @@ import socket
 import threading
 import time
 import uuid
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from ..utils.profiling import StageProfiler, profiler
 from . import jsonl, manifest
@@ -84,6 +92,13 @@ class TelemetryRecorder:
         self._t0 = time.perf_counter()
         self._start_time = time.time()
         self._closed = False
+        # {section name: zero-argument callable -> JSON-safe value}, each
+        # rendered into every heartbeat; a failed callback renders
+        # {"error": ...}
+        self.extra_sections: Dict[str, Callable[[], dict]] = {}
+        # called with each heartbeat just written (history, alerts)
+        self.tick_hooks: List[Callable[[dict], None]] = []
+        self.tick_hook_errors = 0
         # a failed _telemetry.jsonl append (ENOSPC) turns the span channel
         # off for the rest of the run
         self._spans_disabled = False
@@ -242,6 +257,11 @@ class TelemetryRecorder:
             # per-seam record tallies, live; {} when parity=false
             "parity": self.parity_snapshot(),
         }
+        for name, fn in list(self.extra_sections.items()):
+            try:
+                hb[name] = fn()
+            except Exception:
+                hb[name] = {"error": "section callback failed"}
         return hb
 
     def roofline_snapshot(self) -> dict:
@@ -299,8 +319,18 @@ class TelemetryRecorder:
             lambda s: round(float(s.get("value", 0.0)), 3))
 
     def write_heartbeat(self, final: bool = False) -> None:
-        jsonl.write_json_atomic(self.heartbeat_path,
-                                self.build_heartbeat(final=final))
+        hb = self.build_heartbeat(final=final)
+        jsonl.write_json_atomic(self.heartbeat_path, hb)
+        for fn in list(self.tick_hooks):
+            try:
+                fn(hb)
+            except Exception as e:
+                # a hook observes: it never breaks liveness, but a silently
+                # dead retention or alerting channel is its own incident
+                self.tick_hook_errors += 1
+                if self.tick_hook_errors == 1:
+                    print(f"telemetry: heartbeat hook failed: "
+                          f"{type(e).__name__}: {e}")
 
     # -- manifest ------------------------------------------------------------
     def build_manifest(self, *, tally: Optional[Dict[str, int]] = None,

@@ -19,8 +19,11 @@ absent, never torn.
 ``trace=true`` turns it on (``cli.py`` owns the recorder), with or without
 ``telemetry=true``. The event vocabulary and the required fields of each
 phase are the JAX package's (:data:`REQUIRED_X_FIELDS`,
-:data:`KNOWN_SPAN_NAMES`), so ``scripts/trace_report.py`` reads the port's
-traces; the ``fleet.*`` names belong to planes the port does not run yet.
+:data:`KNOWN_SPAN_NAMES`), so the JAX package's trace tools read the port's
+traces as they read their own, and ``python -m
+video_features_tpu_torch.fleet_report --stitch`` merges the hosts' traces of
+a shared root into one timeline; the ``fleet.*`` names belong to planes the
+port does not run yet.
 """
 from __future__ import annotations
 
@@ -34,6 +37,10 @@ from ..utils.profiling import profiler
 from . import jsonl
 
 TRACE_FILENAME = "_trace.json"
+
+#: stitched outputs share the ``_trace`` prefix but are never inputs: the
+#: fleet stitcher (``fleet_report.py find_trace_files``) skips them
+TRACE_OUTPUT_NAMES = ("_trace_fleet.json", "_trace_merged.json")
 
 #: trace format identifier stamped into ``otherData``
 TRACE_SCHEMA = "vft.trace/1"
