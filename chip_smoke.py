@@ -243,10 +243,42 @@ that goes wrong:
    ``backbone`` and ``head`` to its band's cosine and 1.5 times its max
    abs (:data:`DRAW_SPREAD`); the verdict, its first drifted seam and the
    per-seam ``max_abs`` and ``cos`` printed;
-21. prints one JSON line each of the i3d slice's, the raft family's, the
+21. serves the main path through the gateway (:func:`serve_phase`): an
+   in-process ``ServeLoop`` on the step-17 slice (i3d two-stream RAFT, 20
+   iterations, float32, seeded weights, the sample at 7.3 fps) with
+   ``cache=true`` behind a ``GatewayServer`` on ``127.0.0.1`` at an
+   ephemeral port, answering three HTTP requests, counts set to 0 just
+   before each and read just after: the sample (proj 20 launches per
+   stack), a byte-identical copy (a feature-cache hit: no frame decoded,
+   no launch, bit-equal outputs) and one whose ``timeout_s`` has passed
+   (an ``expired/`` record, never a ``done/`` one). The final ``serve``
+   heartbeat ``exited`` with 2 done and the expiry counted once (by the
+   server or the gateway); request 1's features bit-equal to ``cli.main``'s
+   on the sample. Each request's queue wait, service and round trip;
+22. holds the kernel compile cache across processes
+   (:func:`compile_cache_phase`): from a fresh store, ``python -m
+   video_features_tpu_torch warmup`` of the slice's config builds the
+   library once and seals the entry (library and ptxas report); a CLI run
+   of the slice on the store joins warm (manifest ``compile_cache``: hits
+   >= 1, misses 0, the library untouched); after a byte of the sealed
+   library is flipped, the next run drops it (sha mismatch), rebuilds it
+   (one miss) and re-seals it, never loading the corrupt one, with the
+   features bit-equal to the warm run's. The warmup's and both joins'
+   walls;
+23. drains the fleet queue (:func:`fleet_queue_phase`): three copies of the
+   sample through the slice's CLI with ``telemetry=true health=true``: a
+   static single-host run, one ``fleet=queue`` worker, then two concurrent
+   ``fleet=queue`` processes on one root (each video done exactly once, 0
+   quarantined, outputs bit-equal to the single-host run's, a ``fleet``
+   section in both heartbeats) and a third host joining with
+   ``fleet_canary=true``, which passes its canary on the digest band; then
+   ``fleet_report.aggregate`` and ``telemetry/alerts.observe_root`` over
+   the queue root and step 21's spool (the ``fleet``, ``compile_cache``
+   and ``serve`` sections). Both makespans;
+24. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
-   vggish, parallel, multi, telemetry, alerts, fleet and certify phases'
-   numbers, one of the alerting's numbers beside the card
+   vggish, parallel, multi, telemetry, alerts, fleet, certify, serve,
+   compile-cache and fleet-queue phases' numbers, one of the alerting's numbers beside the card
    (:func:`alerts_plane_line`: history samples, transitions, the bundle's
    artifacts and bytes, one tick's evaluation, the walls), one of the
    kernels' numbers, and last ``{"ok": true, "device": {...}}``.
@@ -254,9 +286,12 @@ that goes wrong:
 It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
 synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
-transforms and the I420 encoder are numpy. The multi, telemetry, alerts and
-certify phases decode a video, with cv2, and fail without it; the
-telemetry, alerts and certify phases read the family YAML with yaml. PIL is needed by the
+transforms and the I420 encoder are numpy. The multi, telemetry, alerts,
+certify and serving phases decode a video, with cv2, and fail without it;
+the telemetry, alerts, certify and serving phases read the family YAML with
+yaml. The serving phases start ``python -m video_features_tpu_torch``
+subprocesses with this checkout on ``PYTHONPATH`` and wait for each (none
+outlives its phase), and the gateway binds ``127.0.0.1`` only. PIL is needed by the
 frame-wise phases' ``resize=host`` runs; scipy by the vggish phase's
 resampling.
 """
@@ -2239,8 +2274,8 @@ def telemetry_argv(root: str, video: str, **over) -> list:
                extraction_fps=TELEMETRY_FPS, device="cuda",
                precision="float32", allow_random_weights=True,
                on_extraction="save_numpy", retry_attempts=1,
-               output_path=f"{root}/out", tmp_path=f"{root}/tmp",
-               video_paths=video)
+               compile_cache=False, output_path=f"{root}/out",
+               tmp_path=f"{root}/tmp", video_paths=video)
     cfg.update(over)
     return [f"{k}={'null' if v is None else v}" for k, v in cfg.items()]
 
@@ -2875,6 +2910,418 @@ def alerts_plane_line(telemetry_stats: dict, alerts_stats: dict,
                 mfu_regression_on_clean_runs=findings)
 
 
+# -- the serving plane (steps 21-23) ------------------------------------------
+
+SERVE_ROOT = "output/chip_smoke/serve"
+COMPILE_ROOT = "output/chip_smoke/compile_cache"
+FLEET_ROOT = "output/chip_smoke/fleet_queue"
+#: copies of the sample the fleet phase's queue drains
+FLEET_VIDEOS = 3
+#: seconds one request, CLI run or subprocess of the serving phases may
+#: take before the phase fails
+SERVING_TIMEOUT_S = 600
+
+
+def http_json(base: str, method: str, path: str, body=None):
+    """One HTTP call to the gateway: ``(status, JSON body)``."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def wait_terminal(base: str, rid: str) -> dict:
+    """Poll ``GET /v1/requests/{rid}`` until the terminal record."""
+    deadline = time.monotonic() + SERVING_TIMEOUT_S
+    while True:
+        code, body = http_json(base, "GET", f"/v1/requests/{rid}")
+        if code == 200:
+            return body
+        if code != 202 or time.monotonic() > deadline:
+            raise AssertionError(f"serve: request {rid} -> {code} {body}")
+        time.sleep(0.02)
+
+
+def check_bit_equal(got: dict, want: dict, what: str) -> None:
+    if not want or sorted(got) != sorted(want) or any(
+            got[k].tobytes() != want[k].tobytes()
+            or got[k].shape != want[k].shape for k in want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} differ from "
+                             f"{sorted(want)}")
+
+
+def stem_outputs(outs: dict, stem: str) -> dict:
+    """The outputs of one video (``{stem}_{key}.npy``) under ``key``."""
+    return {k[len(stem) + 1:]: v for k, v in outs.items()
+            if k.startswith(f"{stem}_") and not k[len(stem) + 1:].startswith(
+                ("copy_", "again_"))}
+
+
+def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
+    """Warm serving through the gateway (module docstring, step 21): an
+    in-process ``ServeLoop`` on the telemetry phase's i3d RAFT slice with
+    ``cache=true`` behind a ``GatewayServer`` on ``127.0.0.1`` at an
+    ephemeral port; three HTTP requests (the sample, a byte-identical copy,
+    one whose ``timeout_s`` has passed), counts set to 0 just before each
+    and read just after; then ``cli.main`` on the sample."""
+    import os
+    import shutil
+    import threading
+
+    from video_features_tpu_torch import gateway, serve
+    from video_features_tpu_torch.config import (load_config, parse_dotlist,
+                                                 sanity_check)
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils.io import decoded_frames
+
+    root = SERVE_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    video = os.path.abspath(video)
+    stem = os.path.splitext(os.path.basename(video))[0]
+    copy = os.path.abspath(f"{root}/{stem}_copy.mp4")
+    shutil.copyfile(video, copy)
+    spool = f"{root}/spool"
+    argv = telemetry_argv(f"{root}/served", video, **over) + [
+        "cache=true", f"cache_dir={root}/cache", f"spool_dir={spool}",
+        "serve_poll_interval_s=0.02", "metrics_interval_s=0.5",
+        "serve_max_requests=3", f"serve_idle_exit_s={SERVING_TIMEOUT_S}"]
+    cfg = load_config("i3d", parse_dotlist(argv))
+    sanity_check(cfg, require_videos=False)
+    t0 = time.perf_counter()
+    loop = serve.ServeLoop(cfg, out_root=str(cfg.output_path))
+    warm_s = time.perf_counter() - t0
+    rcs = []
+    thread = threading.Thread(target=lambda: rcs.append(loop.run()),
+                              name="chip-smoke-serve", daemon=True)
+    thread.start()
+    gw = gateway.GatewayServer({
+        "spool_dir": spool, "gateway_host": "127.0.0.1", "gateway_port": 0,
+        "gateway_poll_interval_s": 0.02, "metrics_interval_s": 0.5}).start()
+    base = f"http://127.0.0.1:{gw.port}"
+    requests = {}
+    try:
+        deadline = time.monotonic() + SERVING_TIMEOUT_S
+        while serve.server_state(spool).get("state") != "ready":
+            if time.monotonic() > deadline or not thread.is_alive():
+                raise AssertionError(f"serve: not ready: "
+                                     f"{serve.server_state(spool)}")
+            time.sleep(0.02)
+        for name, path, timeout_s in (("first", video, None),
+                                      ("copy", copy, None),
+                                      ("expired", video, 1e-3)):
+            body = {"video_paths": [path]}
+            if timeout_s is not None:
+                body["timeout_s"] = timeout_s
+            synchronize()
+            reset_counts(cl)
+            frames0 = decoded_frames()
+            t = time.perf_counter()
+            code, accepted = http_json(base, "POST", "/v1/extract", body)
+            if code != 202:
+                raise AssertionError(f"serve: {name} -> {code} {accepted}")
+            term = wait_terminal(base, accepted["id"])
+            synchronize()
+            requests[name] = dict(
+                id=accepted["id"], status=term["status"],
+                launches=read_counts(cl),
+                frames_decoded=decoded_frames() - frames0,
+                round_trip_s=time.perf_counter() - t,
+                queue_wait_s=term.get("wait_s"),
+                service_s=term.get("latency_s"),
+                compile_cache=term.get("compile_cache"),
+                expired_at=term.get("expired_at"))
+    finally:
+        loop.stop()
+        thread.join(timeout=SERVING_TIMEOUT_S)
+        gw_section = gw._gateway_section()
+        gw.stop()
+    if thread.is_alive() or rcs not in ([0], [143]):
+        raise AssertionError(f"serve: the loop did not exit ({rcs})")
+
+    served = read_outputs(str(cfg.output_path))
+    want = stem_outputs(served, stem)
+    stacks = len(want.get("timestamps_ms.npy", []))
+    iters = int(over.get("flow_iters") or ITERS)
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    proj_want = iters * stacks if on_card else 0
+    first, again, late = (requests[k] for k in ("first", "copy", "expired"))
+    none = dict(level=0, proj=0, packed=0)
+    if first["status"] != "done" or first["launches"] != dict(
+            none, proj=proj_want) or not stacks:
+        raise AssertionError(f"serve: request 1 {first}, {stacks} stacks, "
+                             f"proj {proj_want} expected")
+    # the copy: a feature-cache hit that decodes nothing and launches none
+    if again["status"] != "done" or again["launches"] != none or \
+            again["frames_decoded"] != 0:
+        raise AssertionError(f"serve: request 2 (the copy) {again}")
+    check_bit_equal(stem_outputs(served, f"{stem}_copy"), want,
+                    "serve: the copy")
+    expired_path = f"{spool}/{serve.EXPIRED_DIR}/{late['id']}.json"
+    if late["status"] != "deadline_exceeded" or \
+            serve.read_response(spool, late["id"]) is not None or \
+            not os.path.exists(expired_path) or late["launches"] != none:
+        raise AssertionError(f"serve: request 3 {late}")
+    state = serve.server_state(spool)
+    tallies = state.get("requests") or {}
+    edge = gw_section["tenants"].get("anon", {})
+    if state.get("state") != "exited" or tallies.get("done") != 2 or any(
+            tallies.get(k) for k in ("partial", "failed", "rejected")) or \
+            tallies.get("deadline_exceeded", 0) + edge.get("expired", 0) \
+            != 1 or edge.get("accepted") != 3 or \
+            edge.get("responded") != 2:
+        raise AssertionError(f"serve: final heartbeat {state}, gateway "
+                             f"{edge}")
+
+    # request 1's features against cli.main's on the same video
+    cli_run = run_cli(telemetry_argv(f"{root}/cli", video, **over), cl)
+    check_bit_equal(stem_outputs(read_outputs(f"{root}/cli/out/i3d"),
+                                 stem), want, "serve: cli.main")
+    if cli_run["launches"] != dict(none, proj=proj_want):
+        raise AssertionError(f"serve: cli.main launched "
+                             f"{cli_run['launches']}")
+    return dict(
+        video=video, stacks=stacks, warm_construction_s=warm_s,
+        requests=requests, server=state, gateway=edge,
+        cli_wall_s=cli_run["wall_s"], loop_rc=rcs[0])
+
+
+def module_env(**env) -> dict:
+    """The environment of a ``python -m video_features_tpu_torch``
+    subprocess: this one, the checkout on ``PYTHONPATH``, ``env`` over."""
+    import os
+    from pathlib import Path
+    out = dict(os.environ)
+    repo = str(Path(__file__).resolve().parent)
+    out["PYTHONPATH"] = repo + (os.pathsep + out["PYTHONPATH"]
+                                if out.get("PYTHONPATH") else "")
+    out.update(env)
+    return out
+
+
+def start_module(args, env=None) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "video_features_tpu_torch", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=module_env(**(env or {})))
+
+
+def finish_module(proc: subprocess.Popen, what: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=SERVING_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: timed out") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}: "
+                             f"{(out + err)[-1500:]}")
+    return dict(stdout=out, stderr=err)
+
+
+def run_module(args, what: str, env=None) -> dict:
+    """``python -m video_features_tpu_torch ARGS`` in a subprocess: its
+    wall and its output; fails on a non-zero exit."""
+    t = time.perf_counter()
+    res = finish_module(start_module(args, env), what)
+    return dict(res, wall_s=time.perf_counter() - t)
+
+
+def compile_cache_phase(video: str = SAMPLE_VIDEO, env=None,
+                        **over) -> dict:
+    """The kernel compile cache across processes (module docstring, step
+    22): from a fresh store, ``warmup`` of the slice's config, a warm
+    join, and a join after the sealed library's bytes were flipped.
+    ``env`` goes to every subprocess (the CPU test's stand-in ``nvcc``)."""
+    import glob
+    import hashlib
+    import os
+    import shutil
+
+    from video_features_tpu_torch.kernels import build
+
+    root = COMPILE_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store = os.path.abspath(f"{root}/store")
+
+    def keys(name):
+        return telemetry_argv(f"{root}/{name}", video, **over) + [
+            "telemetry=true", "compile_cache=true",
+            f"compile_cache_dir={store}"]
+
+    warm = run_module(["warmup", *keys("warmup")], "compile: warmup", env)
+    entries = glob.glob(f"{store}/i3d/*/*/_entry.json")
+    if len(entries) != 1 or "built 1 library" not in warm["stdout"]:
+        raise AssertionError(f"compile: warmup entries {entries}: "
+                             f"{warm['stdout'][-500:]}")
+    entry_dir = os.path.dirname(entries[0])
+    lib = os.path.join(entry_dir, build.library_name())
+
+    def sealed() -> dict:
+        with open(os.path.join(entry_dir, "_sums.json")) as f:
+            return json.load(f)["files"]
+
+    def sha(path) -> str:
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    manifest = json.load(open(entries[0]))
+    if not manifest["kernels"] or manifest["files"] != 2 or \
+            sealed().get(build.library_name(), {}).get("sha256") != sha(lib):
+        raise AssertionError(f"compile: the warmup entry {manifest}")
+
+    def section(name) -> dict:
+        return json.load(open(f"{root}/{name}/out/i3d/_run.json"))[
+            "compile_cache"]
+
+    before = (os.stat(lib).st_mtime_ns, sha(lib))
+    hit = run_module(keys("warm"), "compile: warm join", env)
+    warm_cc = section("warm")
+    if warm_cc.get("misses") != 0 or warm_cc.get("hits", 0) < 1 or \
+            not warm_cc.get("warm_at_attach") or warm_cc.get("dropped") or \
+            (os.stat(lib).st_mtime_ns, sha(lib)) != before:
+        raise AssertionError(f"compile: the warm join {warm_cc}")
+
+    good = open(lib, "rb").read()
+    flipped = bytearray(good)
+    flipped[len(flipped) // 2] ^= 0xFF
+    with open(lib, "wb") as f:
+        f.write(bytes(flipped))
+    flipped_sha = sha(lib)
+    cold = run_module(keys("corrupt"), "compile: corrupt join", env)
+    cold_cc = section("corrupt")
+    # one nvcc run; on the card one hit after it (the kernel library's
+    # load resolves the rebuilt file)
+    if cold_cc.get("misses") != 1 or cold_cc.get("hits", 0) > 1 or \
+            cold_cc.get("dropped", 0) < 1 or cold_cc.get("warm_at_attach") \
+            or "sha mismatch" not in cold["stderr"] or \
+            sha(lib) == flipped_sha or \
+            sealed()[build.library_name()]["sha256"] != sha(lib):
+        raise AssertionError(f"compile: the corrupt join {cold_cc}: "
+                             f"{cold['stderr'][-500:]}")
+    check_bit_equal(read_outputs(f"{root}/corrupt/out/i3d"),
+                    read_outputs(f"{root}/warm/out/i3d"),
+                    "compile: the rebuilt library's run")
+    return dict(
+        warmup_wall_s=warm["wall_s"], warm_join_wall_s=hit["wall_s"],
+        cold_join_wall_s=cold["wall_s"], warm_join=warm_cc,
+        cold_join=cold_cc, entry=manifest["env"], library_bytes=len(good),
+        rebuilt_identical=open(lib, "rb").read() == good)
+
+
+def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
+                      **over) -> dict:
+    """The work-stealing queue (module docstring, step 23): a static
+    single-host run over copies of the sample, one ``fleet=queue`` worker,
+    two concurrent workers on one root, a third host joining with
+    ``fleet_canary=true``; then the fleet report and the alert
+    observation over that queue root and the serve phase's spool."""
+    import glob
+    import os
+    import shutil
+
+    from video_features_tpu_torch import fleet_report
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.parallel.queue import QUEUE_DIRNAME
+    from video_features_tpu_torch.telemetry import alerts
+
+    root = FLEET_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stem = os.path.splitext(os.path.basename(video))[0]
+    copies = []
+    for i in range(n_videos):
+        copies.append(os.path.abspath(f"{root}/{stem}_fleet{i}.mp4"))
+        shutil.copyfile(video, copies[-1])
+    paths = "[" + ",".join(copies) + "]"
+
+    def keys(name, **kw):
+        # compile_cache=false: the joiner's canary keeps the cold-build
+        # timing band (the compile-cache phase holds the warm join)
+        return telemetry_argv(f"{root}/{name}", paths, **over, **kw) + [
+            "telemetry=true", "health=true", "metrics_interval_s=0.5",
+            "compile_cache=false"]
+
+    single = run_cli(keys("single", fleet="static"), cl)
+    want = read_outputs(f"{root}/single/out/i3d")
+    one = run_module(keys("one", fleet="queue"), "fleet: one worker")
+    t = time.perf_counter()
+    workers = [start_module(keys("two", fleet="queue")) for _ in range(2)]
+    outs = [finish_module(p, f"fleet: worker {i}")
+            for i, p in enumerate(workers)]
+    makespan_2 = time.perf_counter() - t
+    qroot = f"{root}/two/out/i3d"
+    done = [json.load(open(p)) for p in sorted(
+        glob.glob(f"{qroot}/{QUEUE_DIRNAME}/done/*.json"))]
+    counts = {d: len(os.listdir(f"{qroot}/{QUEUE_DIRNAME}/{d}"))
+              for d in ("pending", "quarantined")}
+    if sorted(d["video"] for d in done) != sorted(copies) or \
+            any(counts.values()) or {d["status"] for d in done} != {"done"}:
+        raise AssertionError(f"fleet: done {[d['video'] for d in done]}, "
+                             f"{counts}")
+    by_host = {}
+    for d in done:
+        by_host[d["by"]] = by_host.get(d["by"], 0) + 1
+    for name in ("one", "two"):
+        check_bit_equal(read_outputs(f"{root}/{name}/out/i3d"), want,
+                        f"fleet: the {name}-worker queue")
+    beats = [json.load(open(p))
+             for p in glob.glob(f"{qroot}/_heartbeat_*.json")]
+    fleets = [b.get("fleet") or {} for b in beats]
+    if len(beats) != 2 or any(f.get("mode") != "queue" for f in fleets) or \
+            sum(f.get("done", 0) for f in fleets) != n_videos:
+        raise AssertionError(f"fleet: heartbeat fleet sections {fleets}")
+
+    canary = run_module(keys("two", fleet="queue", fleet_canary="true"),
+                        "fleet: the canary host")
+    verdicts = [json.load(open(p)) for p in glob.glob(
+        f"{qroot}/{QUEUE_DIRNAME}/canary/*.json")]
+    digest_lines = [ln for v in verdicts for ln in v["lines"]
+                    if "digest(s) compared" in ln]
+    if len(verdicts) != 1 or not verdicts[0]["ok"] or not digest_lines or \
+            not digest_lines[0].endswith("PASS") or \
+            "0 extracted" not in canary["stdout"]:
+        raise AssertionError(f"fleet: canary {verdicts}: "
+                             f"{canary['stdout'][-500:]}")
+
+    # the fleet report and the alert observation over both roots
+    agg_q = fleet_report.aggregate(qroot)
+    agg_s = fleet_report.aggregate(f"{SERVE_ROOT}/spool")
+    obs_q = alerts.observe_root(qroot)
+    obs_s = alerts.observe_root(f"{SERVE_ROOT}/spool")
+    serve_hosts = [e for e in obs_s["hosts"]
+                   if (e.get("hb") or {}).get("serve")]
+    # the workers' kernel build: a hit on the card (the library this
+    # process built), none on the CPU
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    if (agg_q["queue"] or {}).get("done") != n_videos or \
+            (obs_q["queue"] or {}).get("done") != n_videos or \
+            (agg_q["compile_cache"]["hits"] < 1) == on_card or \
+            agg_q["compile_cache"]["misses"] or \
+            agg_s["serve"]["totals"]["requests"] < 2 or not serve_hosts or \
+            "hits" not in (serve_hosts[0]["hb"].get("compile_cache") or {}):
+        raise AssertionError(f"fleet: report queue {agg_q['queue']}, "
+                             f"compile cache {agg_q['compile_cache']}, "
+                             f"serve {agg_s['serve']['totals']}")
+    return dict(
+        videos=n_videos, single_wall_s=single["wall_s"],
+        single_proj_launches=single["launches"]["proj"],
+        makespan_one_worker_s=one["wall_s"], makespan_two_workers_s=
+        makespan_2, done_by_host=sorted(by_host.values()),
+        canary_lines=verdicts[0]["lines"],
+        report_queue=agg_q["queue"], report_compile_cache=agg_q[
+            "compile_cache"], report_serve=agg_s["serve"]["totals"],
+        observe_hosts={"queue": len(obs_q["hosts"]),
+                       "spool": len(obs_s["hosts"])},
+        worker_stdout_tail=[o["stdout"].splitlines()[-1:] for o in outs])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2931,6 +3378,11 @@ def main() -> int:
                               "alerts": ALERTS_ROOT}, kind)
     certify_stats = certify_phase()
     empty_cache()
+    serve_stats = serve_phase()
+    empty_cache()
+    compile_stats = compile_cache_phase()
+    fleet_queue_stats = fleet_queue_phase()
+    empty_cache()
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -2950,6 +3402,9 @@ def main() -> int:
     proj_row["launches_alerts_fault"] = alerts_stats["fault"]["proj_launches"]
     proj_row["launches_parallel_raft_per_replica"] = [
         t["proj"] for t in parallel_stats["raft"]["per_replica"]]
+    proj_row["launches_serve_first_copy"] = [
+        serve_stats["requests"][k]["launches"]["proj"]
+        for k in ("first", "copy")]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -2967,6 +3422,9 @@ def main() -> int:
     alerts_stats["card"] = card
     fleet_stats["card"] = card
     certify_stats["card"] = card
+    serve_stats["card"] = card
+    compile_stats["card"] = card
+    fleet_queue_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -2982,6 +3440,9 @@ def main() -> int:
     print(json.dumps({"alerts": alerts_stats}))
     print(json.dumps({"fleet": fleet_stats}))
     print(json.dumps({"certify": certify_stats}))
+    print(json.dumps({"serve": serve_stats}))
+    print(json.dumps({"compile_cache": compile_stats}))
+    print(json.dumps({"fleet_queue": fleet_queue_stats}))
     print(json.dumps({"alerts_plane": alerts_plane_line(
         telemetry_stats, alerts_stats, card)}))
     print(json.dumps({"kernels": kernels}))

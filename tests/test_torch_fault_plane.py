@@ -403,20 +403,48 @@ def test_plan_parses_and_fires_like_jax(seed):
     assert plans["port"].summary() == plans["jax"].summary()
 
 
-@pytest.mark.parametrize("site,item", [
-    ("queue.claim", 8),
-    ("queue.steal_staging", 8), ("spool.claim", 8), ("spool.respond", 8),
-    ("gateway.read", 8), ("gateway.spool_submit", 8), ("gc.evict", 8),
-    ("gc.sweep", 8)])
+@pytest.mark.parametrize("site,item", [("gc.evict", 8), ("gc.sweep", 8)])
 def test_unported_sites_raise(site, item):
     spec = f"seed=1;{site}=eio@n1"
     jinject.parse_plan(spec)  # the JAX package hosts it
     with pytest.raises(NotImplementedError, match=f"Queue 1 #{item}"):
         tinject.parse_plan(spec)
-    assert set(tinject.UNPORTED_SITES) | {
+    assert set(tinject.UNPORTED_SITES) | set(SERVING_SITES) | {
         "decode.read", "sink.tmp_write", "sink.fsync", "sink.rename",
         "worker.kill", "cache.store", "cache.lookup", "heartbeat.tick"} == \
         set(tinject.SITES) == set(jinject.SITES)
+
+
+#: the serving plane's sites, each with a fault that applies there
+SERVING_SITES = {"queue.claim": "skew", "queue.steal_staging": "drop",
+                 "spool.claim": "eio", "spool.respond": "drop",
+                 "gateway.read": "torn", "gateway.spool_submit": "drop"}
+
+
+@pytest.mark.parametrize("site", sorted(SERVING_SITES))
+def test_serving_sites_parse_and_fire_like_jax(site):
+    """Each serving-plane site parses in both packages and, armed with the
+    same seeded plan, fires at the same hits with the same fault (the
+    sites' effects are in tests/test_torch_fleet.py, test_torch_serve.py
+    and test_torch_gateway.py)."""
+    spec = f"seed=4;{site}={SERVING_SITES[site]}@p0.3"
+    fired = {}
+    for name, inj in (("port", tinject), ("jax", jinject)):
+        inj.arm_for_run(spec)
+        try:
+            hits = []
+            for i in range(40):
+                try:
+                    fault = inj.fire(site, item=f"i{i}")
+                    hits.append(None if fault is None else fault.kind)
+                except OSError as e:  # a raise-kind fault
+                    hits.append(f"errno{e.errno}")
+        finally:
+            inj.disarm()
+        fired[name] = hits
+    assert fired["port"] == fired["jax"]
+    kinds = set(fired["port"]) - {None}
+    assert len(kinds) == 1 and None in fired["port"]
 
 
 @pytest.mark.parametrize("rule", ["freeze@n2", "eio@n3"])

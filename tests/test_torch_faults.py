@@ -2,7 +2,10 @@
 
 - Every key of the JAX YAMLs whose plane the port does not run raises
   ``NotImplementedError`` naming its ROADMAP.md Queue 1 item when set away
-  from its default, in every ported family; at the default it passes.
+  from its default, in every ported family; at the default it passes. The
+  serving plane's keys (the compile cache, the fleet queue, ``serve_slo_s``)
+  are ported: each runs away from its default and is rejected at a bad
+  value as JAX rejects it.
   The keys of batching and data parallelism (``distributed``,
   ``mesh_devices``, ``video_workers``, ``cross_video_batching``,
   ``model_parallel``) and of the feature cache (``cache``, ``cache_dir``,
@@ -44,11 +47,20 @@ CLIP_ONLY_KEYS = {"vision_attn"}
 
 
 GATED_CASES = [
-    ("compile_cache", True, 8), ("compile_cache_dir", "/c", 8),
-    ("compilation_cache_dir", "/c", 8), ("fleet", "queue", 8),
-    ("fleet_lease_s", 30, 8), ("fleet_max_reclaims", 5, 8),
-    ("fleet_canary", True, 8), ("serve_slo_s", 0.5, 8),
     ("vision_attn", "blockwise", 10), ("config", "other.yml", None)]
+
+#: the serving plane's keys (compile cache, fleet queue, serve SLO), ported:
+#: a value away from the default, one the JAX package rejects, and the
+#: artifact or section each makes appear on a small CLI run
+SERVING_CASES = [
+    ("compile_cache", True, "sometimes", "compile_cache"),
+    ("compile_cache_dir", "CC", 5, "compile_cache"),
+    ("compilation_cache_dir", "BUILD", 7, "build_dir"),
+    ("fleet", "queue", "dynamic", "_queue"),
+    ("fleet_lease_s", 30, 0, "fleet"),
+    ("fleet_max_reclaims", 5, 0, "fleet"),
+    ("fleet_canary", True, "yes", "canary"),
+    ("serve_slo_s", 0.5, -1, "config")]
 
 
 @pytest.mark.parametrize("key,value,item", GATED_CASES)
@@ -63,11 +75,89 @@ def test_gated_keys_raise_naming_their_item(key, value, item):
                 {key: value})))
 
 
+@pytest.mark.parametrize("key,value,bad,shows", SERVING_CASES)
+def test_serving_keys_run(key, value, bad, shows, tmp_path):
+    """Each serving-plane key passes the port's checks in every family, is
+    rejected at a bad value as the JAX package rejects it, and runs on a
+    small resnet18 CLI run on the CPU (``fleet=queue`` with its
+    ``telemetry=true``): the compile cache attaches an entry, the build
+    directory is taken, the queue drains, the canary gates."""
+    from video_features_tpu import config as jconfig
+    from video_features_tpu_torch import compile_cache
+    from video_features_tpu_torch.cli import main as tmain
+    from video_features_tpu_torch.kernels import build
+
+    value = {"CC": str(tmp_path / "cc"),
+             "BUILD": str(tmp_path / "build")}.get(value, value)
+    for family in FAMILIES:
+        tconfig.check_ported(tconfig.merge(tconfig.load_config(family),
+                                           tconfig.Config({key: value})))
+    queue_keys = {"fleet": "queue", "telemetry": True,
+                  "on_extraction": "save_numpy"}
+    # JAX hands compilation_cache_dir to jax.config unchecked; the port
+    # checks it is a path, as it checks compile_cache_dir
+    for mod in ((tconfig,) if key == "compilation_cache_dir"
+                else (tconfig, jconfig)):
+        cfg = mod.load_config("resnet", dict(
+            queue_keys, **{key: bad, "device": "cpu",
+                           "output_path": str(tmp_path / "o"),
+                           "tmp_path": str(tmp_path / "t"),
+                           "video_paths": "a.mp4"}))
+        if key == "fleet":
+            cfg.fleet = bad
+        with pytest.raises(ValueError, match=key):
+            mod.sanity_check(cfg)
+    extra = [f"{key}={value}"]
+    if shows == "config":
+        extra.append("telemetry=true")
+    if key.startswith("fleet"):
+        extra += [f"{k}={str(v).lower()}" for k, v in queue_keys.items()
+                  if k != "on_extraction"]
+    compile_cache.detach_for_tests()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            tmain(["feature_type=resnet", "model_name=resnet18",
+                   "device=cpu", "allow_random_weights=true",
+                   "extraction_total=2", "on_extraction=save_numpy",
+                   f"output_path={tmp_path / 'o'}",
+                   f"tmp_path={tmp_path / 't'}",
+                   f"video_paths={REPO / 'tests/assets/v_synth_sample.mp4'}"]
+                  + extra)
+        entry = compile_cache.active()
+        build_dir = build.library_dir()
+    finally:
+        compile_cache.detach_for_tests()
+        build.set_build_dir(None)
+    out = tmp_path / "o" / "resnet" / "resnet18"
+    assert "1 extracted" in buf.getvalue()
+    if shows == "compile_cache":
+        # resnet runs no kernel: an entry with a manifest and no files
+        assert entry is not None and not entry.kernels
+        assert entry.manifest()["files"] == 0 and entry.is_warm()
+    elif shows == "build_dir":
+        assert entry is None and build_dir == tmp_path / "build"
+    elif shows == "config":
+        # the objective rides the run's config (the server reads it)
+        manifest = json.loads((out / "_run.json").read_text())
+        assert manifest["config"][key] == value and entry is None
+    else:
+        hb = json.loads(next(out.glob("_heartbeat_*.json")).read_text())
+        assert hb["fleet"]["mode"] == "queue" and hb["fleet"]["done"] == 1
+        if key == "fleet_lease_s":
+            assert hb["fleet"]["lease_s"] == 30.0
+        if shows == "canary":
+            assert "fleet canary: founding member" in buf.getvalue()
+
+
 def test_every_gated_key_is_tested_and_in_every_yaml():
     """``vision_attn`` is in CLIP's YAML alone (as in the JAX YAMLs); every
     other gated key is in every port YAML. None of the parallel keys is
     gated."""
     assert {k for k, _, _ in GATED_CASES} == set(tconfig.GATED_KEYS)
+    for family in FAMILIES:
+        assert {k for k, *_ in SERVING_CASES} <= set(
+            tconfig.load_config(family)), family
     assert not {k for k, _ in PARALLEL_CASES + CACHE_CASES
                 + TELEMETRY_CASES} & set(tconfig.GATED_KEYS)
     for family in FAMILIES:

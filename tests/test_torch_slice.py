@@ -261,12 +261,52 @@ def test_sinks_write_and_skip(tmp_path, sink):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("compile_cache", True), ("fleet", "queue"), ("fps_mode", "reencode"),
-    ("show_pred", True)])
+    ("fps_mode", "reencode"), ("show_pred", True)])
 def test_unported_keys_raise(tmp_path, key, value):
     cfg = tconfig.load_config("i3d", dict(_overrides(tmp_path), **{key: value}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.sanity_check(cfg)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("compile_cache", True), ("fleet", "queue")])
+def test_serving_keys_run_on_the_slice(tmp_path, key, value):
+    """The slice's config with the serving plane's keys passes (``fleet=
+    queue`` with a file sink and ``telemetry=true``), and the key takes
+    effect: the compile cache attaches the slice's entry, which runs the
+    RAFT kernels (the build into it is a miss through a stand-in
+    ``nvcc``); the queue seeds the slice's video."""
+    from video_features_tpu_torch import compile_cache
+    from video_features_tpu_torch.kernels import build
+    from video_features_tpu_torch.parallel.queue import WorkQueue
+    over = dict(_overrides(tmp_path), **{key: value})
+    over.update(on_extraction="save_numpy", telemetry=True,
+                compile_cache_dir=str(tmp_path / "cc"))
+    cfg = tconfig.load_config("i3d", over)
+    tconfig.sanity_check(cfg)
+    if key == "fleet":
+        q = WorkQueue(str(cfg.output_path), host_id="h")
+        assert q.seed([cfg.video_paths]) == 1
+        assert q.claim_next()["video"] == "synthetic.mp4"
+        return
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "a = sys.argv[1:]\n"
+                    "open(a[a.index('-o') + 1], 'wb').write(b'lib')\n")
+    nvcc.chmod(0o755)
+    compile_cache.detach_for_tests()
+    real = build.nvcc_path
+    build.nvcc_path = lambda: str(nvcc)
+    try:
+        before = compile_cache.snapshot()
+        entry = compile_cache.attach_for_args("i3d", cfg)
+        assert entry.kernels and entry.family == "i3d"
+        assert compile_cache.summary(before)["misses"] == 1
+        assert entry.seal() == 2 and entry.is_warm()
+    finally:
+        build.nvcc_path = real
+        compile_cache.detach_for_tests()
 
 
 @pytest.mark.parametrize("key", ["telemetry", "trace", "health", "parity",
@@ -413,8 +453,10 @@ def test_cli_rejects_unported_families():
 
 
 def test_port_imports_no_jax_and_no_lazy_host_deps():
-    """Every module of the port, and tests/test_torch_cuda.py, imports under
-    a finder that refuses jax, flax and video_features_tpu; importing the
+    """Every module of the port (the serving plane's ``compile_cache``,
+    ``serve``, ``gateway``, ``parallel/queue`` and the CLI among them), and
+    tests/test_torch_cuda.py, imports under a finder that refuses jax, flax
+    and video_features_tpu; importing the
     i3d, raft, pwc, r21d, s3d, resnet and clip extractors and the card-only
     tests pulls in neither cv2 nor PIL nor yaml (nor regex)."""
     code = textwrap.dedent("""
@@ -442,6 +484,9 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
         import video_features_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(
             pkg.__path__, pkg.__name__ + ".")]
+        serving = {"video_features_tpu_torch." + m for m in (
+            "compile_cache", "serve", "gateway", "parallel.queue", "cli")}
+        assert serving <= set(names), serving - set(names)
         for name in names:
             importlib.import_module(name)
         print(len(names))
@@ -450,7 +495,7 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stdout + run.stderr
-    assert int(run.stdout.split()[-1]) >= 35
+    assert int(run.stdout.split()[-1]) >= 39
 
 
 def test_chip_smoke_imports_no_jax():

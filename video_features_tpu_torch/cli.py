@@ -56,11 +56,26 @@ video_features_tpu_torch.fleet_report ROOT`` (``--stitch`` merges the
 hosts' traces) and the alert evaluator's ``python -m
 video_features_tpu_torch.telemetry.alerts ROOT``.
 
-``python -m video_features_tpu_torch parity <run_dir>`` summarizes a run's
-``_parity.jsonl``; ``python -m video_features_tpu_torch parity certify
---family raft --flip dtype=bf16 device=cuda`` A/B-certifies a numerics
-flip into ``_parity_verdict.json`` (``--out``, default the working
-directory).
+The serving plane, as in the JAX CLI: the compile cache
+(``compile_cache.py``) is attached before the extractor is built, so the
+kernel library comes from the fleet-shared store or is built into it, and
+the entry is sealed at exit; ``compilation_cache_dir`` names the
+per-machine build directory. ``fleet=queue`` (with ``telemetry=true``)
+drains the shared work-stealing queue under ``{output root}/_queue/``
+(``parallel/queue.py``) instead of keeping a static shard: every host seeds
+the full list, claims one video at a time, renews its leases from the
+heartbeat (its ``fleet`` section) and steals expired ones;
+``fleet_canary=true`` gates a joining host on a re-extracted slice of done
+work.
+
+Subcommands: ``python -m video_features_tpu_torch serve feature_type=...
+spool_dir=...`` runs the warm server over a file spool (``serve.py``);
+``... gateway spool_dir=...`` the HTTP front door (``gateway.py``);
+``... warmup <family> [key=value ...]`` builds and seals a compile-cache
+entry ahead of time; ``... parity <run_dir>`` summarizes a run's
+``_parity.jsonl``, and ``... parity certify --family raft --flip dtype=bf16
+device=cuda`` A/B-certifies a numerics flip into ``_parity_verdict.json``
+(``--out``, default the working directory).
 """
 from __future__ import annotations
 
@@ -70,10 +85,12 @@ import socket
 import sys
 import threading
 import time
+import uuid
 from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Callable, List, Optional
 
-from .config import (load_config, load_multi_config, parse_dotlist,
+from . import compile_cache
+from .config import (Config, load_config, load_multi_config, parse_dotlist,
                      sanity_check, sanity_check_multi, video_list)
 from .parallel.mesh import _rank_and_world, local_shard_of_list
 from .registry import get_extractor_cls, parse_feature_types
@@ -89,6 +106,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     if argv and argv[0] == "parity":
         from .telemetry.parity import main as parity_main
         raise SystemExit(parity_main(argv[1:]))
+    if argv and argv[0] == "serve":
+        from .serve import serve_main
+        return serve_main(argv[1:])
+    if argv and argv[0] == "gateway":
+        from .gateway import gateway_main
+        return gateway_main(argv[1:])
+    if argv and argv[0] == "warmup":
+        return compile_cache.warmup_main(argv[1:])
     overrides = parse_dotlist(argv)
     feature_type = overrides.get("feature_type")
     if not feature_type:
@@ -115,6 +140,21 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"inject: armed plan {plan.spec!r} (seed={plan.seed}; replay "
               "by re-running with this exact inject= string)")
     run_label = ",".join(families)
+    # the compile cache, before the extractor exists: its kernel library
+    # comes from the entry (verified on attach) or is built into it
+    compile_cache.configure_build_dir(args)
+    cc_baseline = compile_cache.snapshot()
+    cc_entry = (compile_cache.attach_for_multi_args(per_family)
+                if per_family is not None
+                else compile_cache.attach_for_args(families[0], args))
+    if cc_entry is not None:
+        print(f"compile cache: entry {cc_entry.key[:12]} "
+              f"({'warm' if cc_entry.warm_at_attach else 'cold'}, "
+              f"{cc_entry.verified} verified"
+              + (f", {cc_entry.dropped} dropped" if cc_entry.dropped else "")
+              + f") at {cc_entry.dir}")
+    fleet_host = (recorder_host_id(args)
+                  if _fleet_mode(args) == "queue" else None)
     recorder = tracer = rf_observer = parity_observer = alert_engine = None
     tally = _new_tally()
     failures: List[dict] = []
@@ -130,7 +170,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         # the profiler is process-global: an in-process rerun starts afresh
         profiler.enabled = bool(args.get("profile"))
         profiler.reset()
-        recorder = _new_recorder(args, per_family, out_root, run_label)
+        recorder = _new_recorder(args, per_family, out_root, run_label,
+                                 host_id=fleet_host,
+                                 cc_baseline=cc_baseline)
         if recorder is not None:
             # both hooks before start(): the first heartbeat seeds the
             # windows the rules diff, which short runs need to alert at all
@@ -142,19 +184,22 @@ def main(argv: Optional[List[str]] = None) -> None:
                 alert_engine = AlertEngine(
                     out_root, run_id=recorder.run_id).attach(recorder)
             recorder.start()
+        # fleet=queue workers co-own out_root: each writes its own
+        # _trace_/_roofline_/_parity_{host_id} file
         if args.get("trace"):
             from .telemetry.trace import TraceRecorder
-            tracer = TraceRecorder(out_root).start()
+            tracer = TraceRecorder(out_root, host_id=fleet_host).start()
         # after the recorder: the observer chains onto its stage hook
         if args.get("roofline"):
             from .telemetry.roofline import RooflineObserver
             rf_observer = RooflineObserver(
                 out_root, default_family=run_label,
                 run_id=(recorder.run_id if recorder is not None
-                        else None)).start()
+                        else None), host_id=fleet_host).start()
         if args.get("parity"):
             from .telemetry import parity
-            parity_observer = parity.ParityObserver(out_root)
+            parity_observer = parity.ParityObserver(out_root,
+                                                    host_id=fleet_host)
             parity._set_active(parity_observer)
         with TraceCapture(args.get("profile_trace_dir")) as capture:
             n_paths = run(extractor, args, recorder, tally, failures)
@@ -193,6 +238,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(plan.summary())
         inject.disarm()  # in-process callers must not inherit the plan
         profiler.enabled = False
+        # sealed even on an aborted run: a library nvcc finished is
+        # complete (its write is a rename), and sealing it saves the next
+        # host the build
+        compile_cache.seal_active()
     if recorder is not None:
         print(f"telemetry: {recorder.manifest_path} + {recorder.spans_path} "
               f"(render with python -m "
@@ -234,11 +283,28 @@ def _new_tally() -> dict:
     return {"done": 0, "skipped": 0, "error": 0, "quarantined": 0}
 
 
-def _new_recorder(args, per_family, out_root: str, run_label: str):
+def _fleet_mode(args) -> str:
+    return str(args.get("fleet", "static") or "static")
+
+
+def recorder_host_id(args) -> str:
+    """This process's ``p{rank}-{host}`` id (the JAX CLI's
+    ``p{process_index}-{host}``); with ``fleet=queue`` qualified by the pid
+    and a nonce, as in JAX, since queue workers may share one machine and
+    each needs its own claims dir and heartbeat file."""
+    host_id = f"p{_rank_and_world()[0]}-{socket.gethostname()}"
+    if _fleet_mode(args) == "queue":
+        host_id = f"{host_id}-{os.getpid()}-{uuid.uuid4().hex[:4]}"
+    return host_id
+
+
+def _new_recorder(args, per_family, out_root: str, run_label: str,
+                  host_id: Optional[str] = None,
+                  cc_baseline: Optional[dict] = None):
     """``telemetry=true``: a ``TelemetryRecorder`` over ``out_root``, not yet
-    started (the caller attaches its hooks first), with this process's
-    ``p{rank}-{host}`` id (the JAX CLI's ``p{process_index}-{host}``); else
-    None."""
+    started (the caller attaches its hooks first), with ``host_id`` (else
+    :func:`recorder_host_id`) and the kernel build's counts before the
+    compile-cache attach (``cc_baseline``); else None."""
     if not args.get("telemetry"):
         return None
     from .telemetry.recorder import TelemetryRecorder
@@ -248,7 +314,8 @@ def _new_recorder(args, per_family, out_root: str, run_label: str):
     return TelemetryRecorder(
         out_root, run_config=run_config, feature_type=run_label,
         interval_s=float(args.get("metrics_interval_s") or 30.0),
-        host_id=f"p{_rank_and_world()[0]}-{socket.gethostname()}")
+        host_id=host_id or recorder_host_id(args),
+        compile_cache_baseline=cc_baseline)
 
 
 def _maybe_init_distributed(args) -> None:
@@ -272,13 +339,17 @@ def _video_workers(value) -> int:
     return int(value or 1)
 
 
-def _drive(args, paths: List[str], run_one: Callable[[str], None],
-           stop: threading.Event) -> None:
+def _drive(args, paths: List[str], run_one: Callable[[str], str],
+           stop: threading.Event, work_queue=None,
+           canary_extract: Optional[Callable] = None) -> None:
     """``run_one`` over ``paths``: in order, or on ``video_workers``
     threads (the host side of several videos feeding the mesh; each video
-    keeps its own stream order and fault isolation). SIGTERM sets ``stop``:
-    the videos in flight finish, the rest are dropped (atomic writes and
-    the skip of finished outputs make a restarted run resume)."""
+    keeps its own stream order and fault isolation); with ``work_queue``
+    (``fleet=queue``) over the items this host claims from the shared queue
+    instead (:func:`_drain_queue`). SIGTERM sets ``stop``: the videos in
+    flight finish, the rest are dropped (atomic writes and the skip of
+    finished outputs make a restarted run resume; a queue hands its
+    claims back)."""
     workers = _video_workers(args.get("video_workers"))
     in_main = threading.current_thread() is threading.main_thread()
     prev_handler = None
@@ -288,7 +359,10 @@ def _drive(args, paths: List[str], run_one: Callable[[str], None],
             stop.set()
         prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
     try:
-        if workers <= 1:
+        if work_queue is not None:
+            _drain_queue(work_queue, args, run_one, stop, workers,
+                         canary_extract)
+        elif workers <= 1:
             for path in paths:
                 if stop.is_set():
                     break
@@ -310,9 +384,65 @@ def _drive(args, paths: List[str], run_one: Callable[[str], None],
 
 
 def _work_list(args) -> List[str]:
-    return local_shard_of_list(video_list(
-        args.get("video_paths"), args.get("file_with_video_paths"),
-        shuffle=True))
+    """The shuffled video list; this host's static shard of it, or with
+    ``fleet=queue`` all of it (every host seeds the full list)."""
+    paths = video_list(args.get("video_paths"),
+                       args.get("file_with_video_paths"), shuffle=True)
+    return paths if _fleet_mode(args) == "queue" else \
+        local_shard_of_list(paths)
+
+
+def _open_queue(args, recorder, journal, paths: List[str]):
+    """``fleet=queue``: this host's ``WorkQueue`` on the run's output root
+    (``{out_root}/_queue/``), its ``fleet`` heartbeat section (which renews
+    the leases on every tick) installed on ``recorder``, the canary's warm
+    fast path taken from the attached compile-cache entry, and ``paths``
+    seeded; else None."""
+    if _fleet_mode(args) != "queue":
+        return None
+    if recorder is None:  # library callers can bypass sanity_check
+        raise ValueError("fleet=queue needs telemetry=true: the heartbeat "
+                         "thread renews the work-item leases")
+    from .parallel.queue import WorkQueue
+    work_queue = WorkQueue(
+        recorder.output_path, host_id=recorder.host_id,
+        run_id=recorder.run_id,
+        lease_s=float(args.get("fleet_lease_s") or 60.0),
+        max_reclaims=int(args.get("fleet_max_reclaims") or 3),
+        journal=journal)
+    recorder.extra_sections["fleet"] = work_queue.heartbeat_section
+    entry = compile_cache.active()
+    work_queue.canary_warm = bool(entry is not None and entry.warm_at_attach)
+    seeded = work_queue.seed(paths)
+    print(f"fleet: queue mode — seeded {seeded} new item(s) into "
+          f"{work_queue.root} as {work_queue.host_id}")
+    return work_queue
+
+
+def _drain_queue(work_queue, args, run_one: Callable[[str], str],
+                 stop: threading.Event, workers: int,
+                 canary_extract: Optional[Callable] = None) -> None:
+    """Claim, extract, complete until the queue is drained fleet-wide, on
+    ``workers`` threads; with ``fleet_canary=true`` the canary gate first
+    (``canary_extract`` None: a multi-family run, which is not gated, as in
+    JAX). Every claim still held at the end (an escaped exception,
+    SIGTERM) goes back unbumped."""
+    if args.get("fleet_canary"):
+        if canary_extract is None:
+            print("fleet canary: multi-family runs are not canary-gated "
+                  "yet — claims open (per-family health gates still apply)")
+        else:
+            ok, lines = work_queue.canary_gate(canary_extract)
+            print("\n".join(lines))
+            if not ok:
+                raise SystemExit(
+                    "fleet canary: FAILED — this host is gated out of the "
+                    "queue (digest or timing drift; verdict in "
+                    f"{work_queue.root}/canary/)")
+    try:
+        work_queue.drain(run_one, workers=workers, stop=stop)
+    finally:
+        work_queue.release_all()
 
 
 def _run(extractor, args, recorder=None, tally: Optional[dict] = None,
@@ -334,9 +464,11 @@ def _run(extractor, args, recorder=None, tally: Optional[dict] = None,
         with lock:
             failures.append(record)
 
-    def run_one(path: str) -> None:
+    def run_one(path: str) -> str:
+        """One video; its status feeds the fleet queue's done marker
+        ('dropped': preempted before it started, the claim is released)."""
         if stop.is_set():
-            return
+            return "dropped"
         span_cm = (recorder.video_span(path) if recorder is not None
                    else NOOP_SPAN)
         with span_cm as span:
@@ -347,9 +479,27 @@ def _run(extractor, args, recorder=None, tally: Optional[dict] = None,
             span.annotate(status=status)
         with lock:
             tally[status] += 1
+        return status
 
+    def canary_extract(video_path: str, canary_dir: str):
+        """The fleet canary's re-extraction of one completed video into a
+        throwaway dir with a fresh extractor: cache off (the gate must
+        recompute, not re-serve), health on (the digest bands need
+        digests)."""
+        from .cache import _plain
+        c_args = Config(_plain(args))
+        c_args.output_path = canary_dir
+        c_args.cache = False
+        c_args.health = True
+        c_ext = get_extractor_cls(args.feature_type)(c_args)
+        t_c = time.perf_counter()
+        status = safe_extract(c_ext._extract, video_path, policy=policy,
+                              journal=None, decode_mode=c_ext.video_decode)
+        return status, time.perf_counter() - t_c
+
+    work_queue = _open_queue(args, recorder, journal, paths)
     t0 = time.perf_counter()
-    _drive(args, paths, run_one, stop)
+    _drive(args, paths, run_one, stop, work_queue, canary_extract)
     summary = (f"{sum(tally.values())}/{len(paths)} videos in "
                f"{time.perf_counter() - t0:.1f}s: {tally['done']} extracted, "
                f"{tally['skipped']} already done, {tally['error']} failed")
@@ -380,9 +530,9 @@ def _run_multi(multi, args, recorder=None, tally: Optional[dict] = None,
     lock = threading.Lock()
     stop = threading.Event()
 
-    def run_one(path: str) -> None:
+    def run_one(path: str) -> str:
         if stop.is_set():
-            return
+            return "dropped"
         with lock:
             videos_run[0] += 1
         statuses = multi.run_video(path, recorder=recorder,
@@ -391,9 +541,15 @@ def _run_multi(multi, args, recorder=None, tally: Optional[dict] = None,
             for fam, status in statuses.items():
                 tally[status] += 1
                 fam_tally[fam][status] += 1
+        # one done marker per video: the worst per-family verdict
+        for agg in ("error", "quarantined", "done"):
+            if agg in statuses.values():
+                return agg
+        return "skipped"
 
+    work_queue = _open_queue(args, recorder, None, paths)
     t0 = time.perf_counter()
-    _drive(args, paths, run_one, stop)
+    _drive(args, paths, run_one, stop, work_queue)
     elapsed = time.perf_counter() - t0
     summary = (f"{videos_run[0]}/{len(paths)} videos x "
                f"{len(multi.families)} families in {elapsed:.1f}s: "

@@ -26,15 +26,6 @@ _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 #: ports the key's plane; None for ``config``, which the JAX package reads
 #: at no value either)
 GATED_KEYS = {
-    # warm serving, compile caches and the fleet (#8)
-    "compile_cache": ((None, "auto", False), 8),
-    "compile_cache_dir": ((None,), 8),
-    "compilation_cache_dir": ((None, "auto"), 8),
-    "fleet": ((None, "static"), 8),
-    "fleet_lease_s": ((None, 60), 8),
-    "fleet_max_reclaims": ((None, 3), 8),
-    "fleet_canary": ((None, False), 8),
-    "serve_slo_s": ((None,), 8),
     # CLIP's blockwise vision attention, parallel/sequence.py (#10)
     "vision_attn": ((None, "dense"), 10),
     "config": ((None,), None),
@@ -323,6 +314,67 @@ def _check_cache(args: Config) -> None:
                          "tenant salts the key)")
 
 
+def _check_serving(args: Config) -> None:
+    """The keys of the serving plane, as the JAX package checks them: the
+    ``gateway_*`` keys (``gateway.py validate_gateway_args``), the compile
+    cache (``compile_cache`` true, false or ``auto``; ``compile_cache_dir``
+    and ``compilation_cache_dir`` paths or null), the fleet queue
+    (``fleet`` ``static`` or ``queue``, which needs ``telemetry=true`` and a
+    file sink; ``fleet_lease_s`` > 0; ``fleet_max_reclaims`` >= 1;
+    ``fleet_canary`` a boolean) and ``serve_slo_s`` (> 0 or null)."""
+    if any(str(k).startswith("gateway_") for k in args):
+        from .gateway import validate_gateway_args
+        validate_gateway_args(args)
+    cc = args.get("compile_cache", "auto")
+    if cc not in (True, False, "auto", None):
+        raise ValueError(f"compile_cache={cc!r}: expected true, false or "
+                         "'auto' ('auto' = on for cuda runs; CPU runs need "
+                         "an explicit compile_cache_dir)")
+    for key in ("compile_cache_dir", "compilation_cache_dir"):
+        d = args.get(key)
+        if d is not None and not isinstance(d, str):
+            raise ValueError(f"{key}={d!r}: expected a directory path or "
+                             "null")
+    fl = args.get("fleet", "static") or "static"
+    if fl not in ("static", "queue"):
+        raise ValueError(f"fleet={fl!r}: expected 'static' (md5 hash "
+                         "sharding fixed at launch) or 'queue' (the "
+                         "work-stealing lease queue, parallel/queue.py)")
+    if fl == "queue":
+        if not args.get("telemetry", False):
+            raise ValueError(
+                "fleet=queue needs telemetry=true: the heartbeat thread "
+                "renews work-item leases and heartbeats are the fleet "
+                "membership and liveness signal")
+        if args.get("on_extraction", "print") == "print":
+            raise ValueError(
+                "fleet=queue needs a file sink (on_extraction=save_numpy "
+                "or save_pickle): stolen work relies on the idempotent "
+                "skip-if-exists output contract, which print lacks")
+    fls = args.get("fleet_lease_s")
+    if fls is not None and float(fls) <= 0:
+        raise ValueError(f"fleet_lease_s={fls!r}: need a float > 0 (the "
+                         "work-item lease period; renewed every heartbeat)")
+    fmr = args.get("fleet_max_reclaims")
+    if fmr is not None and int(fmr) < 1:
+        raise ValueError(f"fleet_max_reclaims={fmr!r}: need an int >= 1 "
+                         "(reclaims before an item is quarantined)")
+    fca = args.get("fleet_canary", False)
+    if not isinstance(fca, bool):
+        raise ValueError(f"fleet_canary={fca!r}: expected true or false "
+                         "(gate joining hosts on a re-extracted slice)")
+    slo = args.get("serve_slo_s")
+    if slo is not None:
+        try:
+            slo_f = float(slo)
+        except (TypeError, ValueError):
+            slo_f = 0.0
+        if slo_f <= 0:
+            raise ValueError(f"serve_slo_s={slo!r}: need a float > 0 in "
+                             "seconds, or null to disable violation "
+                             "counting")
+
+
 def _check_parallel(args: Config) -> None:
     """``video_workers`` (an int >= 1 or ``auto``; forced to 1, with the
     JAX package's warning, where concurrent videos would interleave their
@@ -386,7 +438,8 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     ``model_parallel``, ``distributed``, ``cross_video_batching``), the
     cache keys (``cache``, ``cache_dir``, ``cache_scope``), the telemetry
     keys (``telemetry``, ``metrics_interval_s``, ``trace``, ``health``,
-    ``parity``, ``roofline``, ``history``, ``alerts``),
+    ``parity``, ``roofline``, ``history``, ``alerts``), the serving keys
+    (the compile cache, the fleet queue, ``serve_slo_s``, ``gateway_*``),
     the unported keys, the device (``args.device`` becomes ``cpu``,
     ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
     namespacing of ``output_path``/``tmp_path``."""
@@ -434,6 +487,7 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     _check_parallel(args)
     _check_cache(args)
     _check_telemetry(args)
+    _check_serving(args)
 
     if require_videos:
         if not (args.get("file_with_video_paths") or args.get("video_paths")):

@@ -33,8 +33,12 @@ failure-journal entry, trace span, spool file and queue claim that carries
 one request id (``telemetry/context.py``), wherever it ran.
 
 The capacity planner, the serving, tenant, queue, compile-cache and storage
-sections read what the JAX package's planes write; the port writes them
-once it runs those planes (ROADMAP.md Queue 1 #8).
+sections read the JAX package's layout, which the port's planes write too:
+the spool and the ``serve`` section (``serve.py``), the gateway's journal
+(``gateway.py``), ``_queue/`` and the ``fleet`` section
+(``parallel/queue.py``) and the ``compile_cache`` section
+(``compile_cache.py``). The port writes no ``gc`` section until it runs the
+storage plane (ROADMAP.md Queue 1 #8).
 """
 from __future__ import annotations
 

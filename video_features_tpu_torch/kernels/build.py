@@ -3,9 +3,14 @@
 ``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library with
 a plain C interface; nothing includes PyTorch's headers, so a build takes
 seconds, not the minutes a ``torch.utils.cpp_extension`` build of the same
-source takes. The library lands in ``kernels/_build/`` (git-ignored), named
-by a digest of its sources and flags, so an edited source is rebuilt and a
-stale library is never loaded. Each C entry point returns the launch's
+source takes. The library is named by a digest of its sources and flags,
+so an edited source is rebuilt and a stale library is never loaded. It
+lands in the attached compile-cache entry (``compile_cache.py``), which
+verified it on attach and seals it at exit, or, with none attached, in the
+per-machine build directory: ``compilation_cache_dir``, by default the
+git-ignored ``kernels/_build/``. Each :func:`build` counts a hit (the
+library was there: no ``nvcc``) or a miss (``nvcc`` ran), read by
+:func:`build_counts`. Each C entry point returns the launch's
 ``cudaError_t``; the wrappers raise when it is not 0. ``-Xptxas -v`` makes
 the compiler report each kernel's registers, shared memory and spills; the
 report is kept beside the library (``<library>.ptxas.txt``) and
@@ -24,8 +29,10 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -64,13 +71,46 @@ def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
+#: the per-machine build directory when no compile-cache entry is attached
+#: (``compilation_cache_dir``); None is :data:`BUILD_DIR`
+_build_dir: Optional[Path] = None
+_counts_lock = threading.Lock()
+_counts = {"hits": 0, "misses": 0, "nvcc_s": 0.0}
+
+
+def set_build_dir(path: Optional[str]) -> None:
+    """Point the build at ``path`` (None: :data:`BUILD_DIR`)."""
+    global _build_dir
+    _build_dir = None if path is None else Path(path)
+
+
+def build_counts() -> Dict[str, float]:
+    """This process's build hits, misses and seconds in ``nvcc``."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+def library_name() -> str:
     digest = hashlib.sha256()
     for src in sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libvft_kernels_{digest.hexdigest()[:16]}.so"
+    return f"libvft_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def library_dir() -> Path:
+    """The attached compile-cache entry's directory, else the build
+    directory."""
+    from .. import compile_cache
+    entry = compile_cache.active()
+    if entry is not None:
+        return Path(entry.dir)
+    return _build_dir if _build_dir is not None else BUILD_DIR
+
+
+def library_path() -> Path:
+    return library_dir() / library_name()
 
 
 def report_path(lib: Path) -> Path:
@@ -79,16 +119,20 @@ def report_path(lib: Path) -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    Writes to a temporary name and renames, so a cut build never leaves a
-    library that looks complete; the ptxas report is written first."""
+    """Compile the kernels unless the library for these sources exists
+    (a hit), else run ``nvcc`` (a miss). Writes to a temporary name and
+    renames, so a cut build never leaves a library that looks complete;
+    the ptxas report is written first."""
     lib = library_path()
     if lib.exists():
+        with _counts_lock:
+            _counts["hits"] += 1
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=lib.parent, suffix=".so.tmp")
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -99,6 +143,9 @@ def build() -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        with _counts_lock:
+            _counts["misses"] += 1
+            _counts["nvcc_s"] += time.perf_counter() - t0
     return lib
 
 

@@ -30,10 +30,11 @@ The run plane records; this module evaluates, in three steps:
 ``telemetry=true`` run; ``alerts=false`` leaves the artifacts as they were
 without it. The rules that read the fleet queue, serving, tenants, the
 compile cache and storage read the JAX package's on-disk layout (the
-``_queue`` directories, the heartbeat's ``fleet``, ``serve`` and ``gc``
-sections): the port writes none of these until it runs those planes
-(ROADMAP.md Queue 1 #8), so on its own runs they stay quiet. Rule failures
-are counted (:attr:`AlertEngine.eval_errors`) and published in the
+``_queue`` directories, the heartbeat's ``fleet``, ``serve``,
+``compile_cache`` and ``gc`` sections), which the port's queue, server and
+compile cache write; only the ``gc`` section waits for the storage plane
+(ROADMAP.md Queue 1 #8), so its rules stay quiet on the port's runs. Rule
+failures are counted (:attr:`AlertEngine.eval_errors`) and published in the
 heartbeat's ``alerts`` section; the run goes on.
 """
 from __future__ import annotations

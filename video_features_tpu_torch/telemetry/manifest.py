@@ -8,9 +8,9 @@ mesh_topology`` and the card's name), and what it did (tally, per-stage
 totals, the metrics dump, the health roll-up, and with ``roofline=true``
 the final per-family MFU summary of ``telemetry/roofline.py``). Written by
 atomic replace (``telemetry/jsonl.py``), so a preempted exit never leaves a
-torn document. The ``compile_cache`` field keeps the JAX manifest's shape
-and stays ``{}``: the port has no compile cache yet (ROADMAP.md Queue 1
-#8).
+torn document. The ``compile_cache`` field carries the kernel build's
+hits and misses and the attached compile-cache entry, in the JAX
+manifest's shape (``compile_cache.py section``).
 """
 from __future__ import annotations
 
@@ -90,6 +90,7 @@ def build_manifest(*,
                    metrics_dump: Optional[dict] = None,
                    health: Optional[Dict[str, Dict[str, int]]] = None,
                    roofline: Optional[dict] = None,
+                   compile_cache: Optional[dict] = None,
                    ) -> dict:
     done = (tally or {}).get("done", 0)
     return {
@@ -110,7 +111,7 @@ def build_manifest(*,
         "tally": dict(tally or {}),
         "failure_tallies": dict(failure_tallies or {}),
         "stage_totals": dict(stage_totals or {}),
-        "compile_cache": {},
+        "compile_cache": dict(compile_cache or {}),
         # output-health roll-up (telemetry/health.py): per-family records
         # and NaN/Inf totals; {} when health=false
         "health": dict(health or {}),

@@ -185,6 +185,42 @@ class MetricsRegistry:
         return {"series": out}
 
 
+def histogram_quantile(snapshot: dict, q: float) -> Optional[float]:
+    """Estimate the ``q``-quantile (0..1) of a :meth:`Histogram.snapshot`,
+    Prometheus ``histogram_quantile`` style: walk the buckets until the
+    cumulative count crosses the rank, then interpolate linearly inside
+    that bucket. None for an empty histogram; observations past the last
+    finite bucket clamp to it (300 s with :data:`LATENCY_BUCKETS`)."""
+    total = int(snapshot.get("count", 0))
+    buckets = snapshot.get("buckets") or []
+    if total <= 0 or not buckets:
+        return None
+    rank = max(0.0, min(1.0, float(q))) * total
+    cum = 0.0
+    prev_le = 0.0
+    for b in buckets:
+        c = float(b.get("count", 0))
+        le = float(b.get("le", 0.0))
+        if c > 0 and cum + c >= rank:
+            frac = (rank - cum) / c
+            return prev_le + (le - prev_le) * frac
+        cum += c
+        prev_le = le
+    return float(buckets[-1]["le"])
+
+
+def histogram_quantiles(snapshot: dict,
+                        qs: Sequence[float] = (0.5, 0.95, 0.99)
+                        ) -> Dict[str, Optional[float]]:
+    """``{"p50": ..., "p95": ..., "p99": ...}`` off one snapshot: the shape
+    the heartbeat's ``serve`` section carries."""
+    out: Dict[str, Optional[float]] = {}
+    for q in qs:
+        v = histogram_quantile(snapshot, q)
+        out[f"p{q * 100:g}"] = None if v is None else round(v, 4)
+    return out
+
+
 def _fmt_labels(labels: dict, extra: Optional[dict] = None) -> str:
     items = dict(labels)
     if extra:

@@ -23,10 +23,12 @@ One recorder per CLI run (``cli.py`` builds it when ``telemetry=true``):
     (:attr:`tick_hook_errors`) and the first failure printed; the heartbeat
     goes on.
 
-The JAX recorder also counts XLA compile-cache events through a
-``jax.monitoring`` listener. The port has no compile cache until ROADMAP.md
-Queue 1 #8 brings torch.compile's, so that counter is left out here, and
-the heartbeat's and manifest's ``compile_cache`` sections stay ``{}``. The
+The heartbeat's and the manifest's ``compile_cache`` sections count the
+kernel build's hits (the library came from the store: no ``nvcc``) and
+misses (``nvcc`` ran) since the recorder was made, with the attached
+compile-cache entry's key and warmth (``compile_cache.py section``), where
+the JAX recorder counts XLA's compile-cache events; the port uses no
+``torch.compile``, so the ``nvcc`` build is all there is to count. The
 heartbeat's ``roofline`` and ``parity`` sections are the active observers'
 live snapshots (``telemetry/roofline.py``, ``telemetry/parity.py``), ``{}``
 when they are off; the manifest carries the run's final roofline summary
@@ -62,7 +64,8 @@ class TelemetryRecorder:
                  run_config: Optional[dict] = None,
                  feature_type: Optional[str] = None,
                  interval_s: float = 30.0,
-                 host_id: Optional[str] = None) -> None:
+                 host_id: Optional[str] = None,
+                 compile_cache_baseline: Optional[dict] = None) -> None:
         self.output_path = str(output_path)
         self.run_config = run_config
         self.feature_type = feature_type
@@ -92,6 +95,13 @@ class TelemetryRecorder:
         self._t0 = time.perf_counter()
         self._start_time = time.time()
         self._closed = False
+        # the kernel build's counts at the start of the run (the caller's,
+        # taken before its compile-cache attach built the kernels): the
+        # sections report the delta
+        from .. import compile_cache
+        self._cc_baseline = (dict(compile_cache_baseline)
+                             if compile_cache_baseline is not None
+                             else compile_cache.snapshot())
         # {section name: zero-argument callable -> JSON-safe value}, each
         # rendered into every heartbeat; a failed callback renders
         # {"error": ...}
@@ -249,9 +259,9 @@ class TelemetryRecorder:
             # feature-cache effectiveness (cache.py): per-family hit, miss
             # and bypass totals and the hit rate
             "cache": self.cache_snapshot(),
-            # the JAX heartbeat's section of a plane the port does not run
-            # yet, empty as on the JAX package's off path
-            "compile_cache": {},
+            # the kernel build's hits and misses this run, and the attached
+            # compile-cache entry's key and warmth (compile_cache.py)
+            "compile_cache": self.compile_cache_snapshot(),
             # per-family MFU and verdict, live; {} when roofline=false
             "roofline": self.roofline_snapshot(),
             # per-seam record tallies, live; {} when parity=false
@@ -263,6 +273,16 @@ class TelemetryRecorder:
             except Exception:
                 hb[name] = {"error": "section callback failed"}
         return hb
+
+    def compile_cache_snapshot(self) -> dict:
+        """The kernel build's hits and misses since the run started, and
+        the attached entry's identity and verify verdicts: ``hits > 0,
+        misses == 0`` is the warm-join shape. Never raises."""
+        try:
+            from .. import compile_cache
+            return compile_cache.section(self._cc_baseline)
+        except Exception:
+            return {}
 
     def roofline_snapshot(self) -> dict:
         """The active roofline observer's light per-family summary, ``{}``
@@ -354,4 +374,5 @@ class TelemetryRecorder:
             failure_tallies=failure_tallies,
             stage_totals=stage_totals,
             metrics_dump=self.registry.to_dict(),
-            roofline=roofline)
+            roofline=roofline,
+            compile_cache=self.compile_cache_snapshot())

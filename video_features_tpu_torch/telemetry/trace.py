@@ -22,12 +22,14 @@ phase are the JAX package's (:data:`REQUIRED_X_FIELDS`,
 :data:`KNOWN_SPAN_NAMES`), so the JAX package's trace tools read the port's
 traces as they read their own, and ``python -m
 video_features_tpu_torch.fleet_report --stitch`` merges the hosts' traces of
-a shared root into one timeline; the ``fleet.*`` names belong to planes the
-port does not run yet.
+a shared root into one timeline; the ``fleet.*`` names are the fleet
+queue's (``parallel/queue.py``). ``fleet=queue`` workers and servers on one
+spool each write ``_trace_{host_id}.json`` (:func:`trace_filename`).
 """
 from __future__ import annotations
 
 import os
+import re
 import socket
 import threading
 import time
@@ -89,6 +91,17 @@ STALL_MIN_S = 0.001
 
 #: per-thread event cap: first N kept, overflow counted in ``otherData``
 MAX_EVENTS_PER_THREAD = 500_000
+
+def trace_filename(host_id: Optional[str] = None) -> str:
+    """``_trace.json`` for a single-writer output dir,
+    ``_trace_{host_id}.json`` when several hosts co-own one dir
+    (``fleet=queue`` workers, servers sharing a spool), so no host's close
+    overwrites another's timeline (the JAX package's names)."""
+    if host_id is None:
+        return TRACE_FILENAME
+    safe = re.sub(r"[^A-Za-z0-9._-]+", "-", str(host_id))
+    return f"_trace_{safe}.json"
+
 
 #: the active run's TraceRecorder, or None (tracing disabled)
 _active: Optional["TraceRecorder"] = None
@@ -192,9 +205,12 @@ class TraceRecorder:
     """
 
     def __init__(self, output_path: str, *,
+                 host_id: Optional[str] = None,
                  max_events_per_thread: int = MAX_EVENTS_PER_THREAD) -> None:
         self.output_path = str(output_path)
-        self.trace_path = os.path.join(self.output_path, TRACE_FILENAME)
+        self.host_id = host_id
+        self.trace_path = os.path.join(self.output_path,
+                                       trace_filename(host_id))
         self.pid = os.getpid()
         self.max_events_per_thread = int(max_events_per_thread)
         self._t0 = time.perf_counter()
@@ -315,6 +331,7 @@ class TraceRecorder:
             "otherData": {
                 "schema": TRACE_SCHEMA,
                 "host": socket.gethostname(),
+                "host_id": self.host_id,
                 "pid": self.pid,
                 # the wall-clock anchor: event time = start_unix + ts/1e6.
                 # trace_report --merge and vft-fleet --stitch align

@@ -24,14 +24,19 @@ The grammar names every site of the JAX package (:data:`SITES`). The port
 hosts ``decode.read`` (``utils/io.py _FrameStream.read``, every decode
 source, spawned decode workers included), ``sink.tmp_write`` /
 ``sink.fsync`` / ``sink.rename`` (``utils/sinks.py _write_bytes_atomic``),
-``worker.kill`` (``utils/sinks.py safe_extract``, once per attempt) and
+``worker.kill`` (``utils/sinks.py safe_extract``, once per attempt),
 ``cache.lookup`` (``torn``: the entry is truncated before it is read) /
-``cache.store`` (``cache.py FeatureCache``) and ``heartbeat.tick``
+``cache.store`` (``cache.py FeatureCache``), ``heartbeat.tick``
 (``telemetry/heartbeat.py``, each tick of a ``telemetry=true`` run;
-``freeze`` skips the tick, a raise-kind fault is counted as a tick error). A
-plan naming a site whose plane is not ported (:data:`UNPORTED_SITES`) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` Queue 1 item, so no rule
-is ever left silently dead.
+``freeze`` skips the tick, a raise-kind fault is counted as a tick error),
+``queue.claim`` (``eio`` fails the claim like a lost race, ``skew`` stamps
+an expired lease) and ``queue.steal_staging`` (``drop`` abandons the item in
+``.staging/``) in ``parallel/queue.py``, ``spool.claim`` and
+``spool.respond`` (``drop`` loses the response write) in ``serve.py``, and
+``gateway.read`` (``torn``, ``stall``) and ``gateway.spool_submit``
+(``drop``) in ``gateway.py``. A plan naming a site whose plane is not ported
+(:data:`UNPORTED_SITES`) raises ``NotImplementedError`` naming its
+``ROADMAP.md`` Queue 1 item, so no rule is ever left silently dead.
 
 Arming: the CLI arms the ``inject=`` plan at run start and disarms it in its
 ``finally``; ``VFT_INJECT`` overrides the key and also arms a spawned decode
@@ -58,11 +63,7 @@ SITES = (
 
 #: sites whose plane the port does not run yet -> the ROADMAP.md Queue 1
 #: item that ports it
-UNPORTED_SITES = {
-    "queue.claim": 8, "queue.steal_staging": 8, "spool.claim": 8,
-    "spool.respond": 8, "gateway.read": 8, "gateway.spool_submit": 8,
-    "gc.evict": 8, "gc.sweep": 8,
-}
+UNPORTED_SITES = {"gc.evict": 8, "gc.sweep": 8}
 
 #: raise-kind faults -> the errno they raise with (None = RuntimeError)
 _RAISE_ERRNO = {
