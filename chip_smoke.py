@@ -275,23 +275,53 @@ that goes wrong:
    ``fleet_report.aggregate`` and ``telemetry/alerts.observe_root`` over
    the queue root and step 21's spool (the ``fleet``, ``compile_cache``
    and ``serve`` sections). Both makespans;
-24. prints one JSON line each of the i3d slice's, the raft family's, the
+24. runs the storage lifecycle over those trees (:func:`storage_phase`,
+   :data:`STORAGE_TREES`): ``python -m video_features_tpu_torch gc ROOT
+   --dry-run --json`` over the serve spool with its cache, the compile
+   store, the fleet queue's root, the telemetry and alerts runs and the
+   multi phase's cache, all at once: every plane the phase wrote holds
+   bytes, no file changes; a ``usage()`` walk of each timed. Then
+   ``cli.main`` on the slice with ``telemetry history alerts gc=true`` and
+   a ``gc_quota_gb`` twice the accounted stores' use: a heartbeat ``gc``
+   section, the ``vft_gc_used_bytes`` gauge in the manifest's metrics, the
+   last history sample's ``gc.used_bytes`` the heartbeat's, features
+   bit-equal to step 17's off run, proj 20 launches per stack. Then
+   eviction as a recoverable miss: a ``cache=true`` fill and a hit (no
+   frame decoded, no launch), a sweep under a one-byte quota journals
+   every entry to ``_gc_{host}.jsonl`` and deletes it, and the refill
+   decodes and launches proj 20 per stack again, bit-equal to the fill.
+   Then the refill's entry and two cold ones, and the ``gc`` command
+   SIGKILLed by ``gc.evict=kill@n2``: the port's audit passes on the
+   remains with a ``gc-journaled`` note, an un-faulted rerun empties the
+   store and the audit passes without it. Then a copy of the compile
+   store's entry under a foreign fingerprint, 1,000 s idle: a sweep with
+   ``gc_compile_retention_s=60`` in a process attached to the card's
+   entry prunes the copy and keeps the entry, and a warm join of the slice
+   from the store hits (misses 0; the attach and the kernels' load) with
+   features bit-equal. Last ``python -m video_features_tpu_torch audit
+   --expect-complete`` over every tree and this phase's own: 0 violations
+   each;
+25. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
    vggish, parallel, multi, telemetry, alerts, fleet, certify, serve,
-   compile-cache and fleet-queue phases' numbers, one of the alerting's numbers beside the card
-   (:func:`alerts_plane_line`: history samples, transitions, the bundle's
-   artifacts and bytes, one tick's evaluation, the walls), one of the
+   compile-cache and fleet-queue phases' numbers, one of the alerting's
+   numbers beside the card (:func:`alerts_plane_line`: history samples,
+   transitions, the bundle's artifacts and bytes, one tick's evaluation,
+   the walls), one of the storage phase's (deletions planned and done and
+   their bytes by plane, the walls of a ``usage()`` walk and of a sweep,
+   the refill's and the hit's walls, the audit verdicts), one of the
    kernels' numbers, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
 synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
 transforms and the I420 encoder are numpy. The multi, telemetry, alerts,
-certify and serving phases decode a video, with cv2, and fail without it;
-the telemetry, alerts, certify and serving phases read the family YAML with
-yaml. The serving phases start ``python -m video_features_tpu_torch``
-subprocesses with this checkout on ``PYTHONPATH`` and wait for each (none
-outlives its phase), and the gateway binds ``127.0.0.1`` only. PIL is needed by the
+certify, serving and storage phases decode a video, with cv2, and fail
+without it; the telemetry, alerts, certify, serving and storage phases read
+the family YAML with yaml. The serving and storage phases start ``python -m
+video_features_tpu_torch`` subprocesses with this checkout on
+``PYTHONPATH`` and wait for each (none outlives its phase), and the gateway
+binds ``127.0.0.1`` only. PIL is needed by the
 frame-wise phases' ``resize=host`` runs; scipy by the vggish phase's
 resampling.
 """
@@ -2219,7 +2249,9 @@ def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
                     turns["singles_by_family"].append(each)
         fresh()
         profile = profile_call(lambda: multi.run_video(video))
-        fresh()
+        # the profiled run's store stays: the storage phase accounts and
+        # audits it
+        fresh(cache=False)
     finally:
         vggish_mod.extract_wav_from_mp4 = real_rip
     n = len(MULTI_FAMILIES)
@@ -3322,6 +3354,377 @@ def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
         worker_stdout_tail=[o["stdout"].splitlines()[-1:] for o in outs])
 
 
+# -- the storage lifecycle plane (step 24) -------------------------------------
+
+STORAGE_ROOT = "output/chip_smoke/storage"
+#: the earlier phases' trees: each one's ``gc`` root, the stores accounted
+#: with it, the planes that phase wrote (each must hold bytes), and the
+#: root its audit runs over (``--expect-complete``: every phase drained)
+#: with the store that audit re-verifies
+STORAGE_TREES = {
+    "serve": dict(root=f"{SERVE_ROOT}/spool", cache_dir=f"{SERVE_ROOT}/cache",
+                  planes=("cache", "spool", "journals"), audit=SERVE_ROOT),
+    "compile_cache": dict(root=COMPILE_ROOT,
+                          compile_dir=f"{COMPILE_ROOT}/store",
+                          planes=("compile",), audit=COMPILE_ROOT),
+    "fleet_queue": dict(root=f"{FLEET_ROOT}/two/out/i3d",
+                        planes=("journals",), audit=FLEET_ROOT),
+    "telemetry": dict(root="output/chip_smoke/telemetry/on/out/i3d",
+                      planes=("journals",),
+                      audit="output/chip_smoke/telemetry"),
+    "alerts": dict(root=f"{ALERTS_ROOT}/fault/out/i3d",
+                   planes=("incidents", "journals"), audit=ALERTS_ROOT),
+    "multi": dict(root="output/chip_smoke/mcache",
+                  cache_dir="output/chip_smoke/mcache", planes=("cache",),
+                  audit="output/chip_smoke/mcache",
+                  audit_cache_dir="output/chip_smoke/mcache"),
+}
+#: a quota below any store (one byte; a quota must be > 0): every cache
+#: entry is over it
+EVICT_ALL_QUOTA_GB = 1e-9
+#: a SIGKILL between the sweep's second journal append and that unlink
+GC_KILL_INJECT = "seed=7;gc.evict=kill@n2"
+#: the compile store's retention in the pruning sweep, and the planted
+#: foreign entry's idle age
+COMPILE_RETENTION_S = 60
+FOREIGN_AGE_S = 1000
+
+
+def tree_listing(*dirs) -> dict:
+    """``{path: (bytes, mtime_ns)}`` of every file under ``dirs``."""
+    import os
+    out = {}
+    for d in dirs:
+        for dirpath, _dirs, files in os.walk(d):
+            for fn in files:
+                p = os.path.join(dirpath, fn)
+                st = os.stat(p)
+                out[p] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def audit_trees(trees: dict) -> dict:
+    """``python -m video_features_tpu_torch audit`` over each tree's audit
+    root with ``--expect-complete`` (and its store re-verified), all at
+    once; fails unless each passes with 0 violations. Returns each one's
+    verdict and counts."""
+    import re
+    procs = {}
+    for name, tree in trees.items():
+        args = ["audit", tree["audit"], "--expect-complete"]
+        if tree.get("audit_cache_dir"):
+            args += ["--cache-dir", tree["audit_cache_dir"]]
+        procs[name] = start_module(args)
+    verdicts = {}
+    for name, proc in procs.items():
+        out = finish_module(proc, f"storage: audit {name}")["stdout"]
+        m = re.search(r"AUDIT: (PASS|FAIL) \((\d+) violation\(s\), (\d+) "
+                      r"note\(s\)\)", out)
+        if m is None or m.group(1) != "PASS" or m.group(2) != "0":
+            raise AssertionError(f"storage: audit {name}: {out[-1500:]}")
+        verdicts[name] = dict(verdict=m.group(1), violations=0,
+                              notes=int(m.group(3)))
+    return verdicts
+
+
+def last_json(stdout: str) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def storage_phase(video: str = SAMPLE_VIDEO, trees=None, reference=None,
+                  env=None, **over) -> dict:
+    """The storage lifecycle over the earlier phases' trees (module
+    docstring, step 24): the ``gc`` command's dry-run accounting of each
+    tree, the monitor on the main path (``gc=true``), eviction as a
+    recoverable miss, a SIGKILLed sweep that audits clean and converges,
+    the compile store's pruning with a warm join after it, and the audit
+    of every tree. ``trees`` defaults to :data:`STORAGE_TREES`;
+    ``reference`` is the outputs directory of a plain run of the slice
+    (step 17's off run by default); ``env`` goes to the warm join's
+    subprocess (the CPU test's stand-in ``nvcc``); ``over`` replaces CLI
+    keys (the CPU test's small sizes)."""
+    import glob
+    import hashlib
+    import os
+    import shutil
+    import signal
+
+    from video_features_tpu_torch import compile_cache
+    from video_features_tpu_torch import gc as vgc
+    from video_features_tpu_torch.audit import audit_run
+    from video_features_tpu_torch.config import (load_config, parse_dotlist,
+                                                 sanity_check)
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.telemetry import history, jsonl
+    from video_features_tpu_torch.utils.io import decoded_frames
+
+    t_phase = time.perf_counter()
+    trees = STORAGE_TREES if trees is None else trees
+    reference = reference or "output/chip_smoke/telemetry/off/out/i3d"
+    root = STORAGE_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    none_dir = os.path.abspath(f"{root}/none")  # a store no tree names
+    os.makedirs(none_dir)
+    stem = os.path.splitext(os.path.basename(video))[0]
+    want = stem_outputs(read_outputs(reference), stem)
+    stacks = len(want.get("timestamps_ms.npy", []))
+    iters = int(over.get("flow_iters") or ITERS)
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    proj_want = iters * stacks if on_card else 0
+    none = dict(level=0, proj=0, packed=0)
+    if not stacks:
+        raise AssertionError(f"storage: no outputs in {reference}")
+
+    def stores(tree: dict) -> dict:
+        return dict(cache_dir=tree.get("cache_dir", none_dir),
+                    compile_dir=tree.get("compile_dir", none_dir))
+
+    # 1. accounting: a dry run of the gc command over each tree, all at
+    # once; every plane that phase wrote holds bytes, nothing is deleted
+    dirs = [d for t in trees.values() for d in (t["root"], *stores(
+        t).values())]
+    before = tree_listing(*dirs)
+    procs = {name: start_module(
+        ["gc", t["root"], "--cache-dir", stores(t)["cache_dir"],
+         "--compile-dir", stores(t)["compile_dir"], "--dry-run", "--json"])
+        for name, t in trees.items()}
+    accounting, usage_walk_s = {}, {}
+    for name, proc in procs.items():
+        res = last_json(finish_module(proc, f"storage: gc {name}")["stdout"])
+        planes = {p: v["bytes"] for p, v in res["usage"]["planes"].items()}
+        if not res["dry_run"] or res["executed"] or any(
+                not planes.get(p) for p in trees[name]["planes"]):
+            raise AssertionError(f"storage: gc {name}: planes {planes}, "
+                                 f"{trees[name]['planes']} wanted")
+        accounting[name] = dict(planes=planes, planned=res["planned"],
+                                total_bytes=res["usage"]["total_bytes"])
+        t = time.perf_counter()
+        vgc.usage(trees[name]["root"], **stores(trees[name]))
+        usage_walk_s[name] = time.perf_counter() - t
+    if tree_listing(*dirs) != before:
+        raise AssertionError("storage: a dry run changed a tree")
+
+    # 2. the monitor on the main path (gc=true), accounting the serve
+    # phase's cache and the compile store as the stores' default
+    # locations (where the JAX CLI's monitor walks), the quota twice their
+    # measured use
+    env_stores = {
+        "VFT_CACHE_DIR": stores(trees.get("serve", {}))["cache_dir"],
+        "VFT_COMPILE_CACHE_DIR":
+            stores(trees.get("compile_cache", {}))["compile_dir"]}
+    env_stores = {k: os.path.abspath(v) for k, v in env_stores.items()}
+    mdir = f"{root}/monitor/out/i3d"
+    measured = vgc.usage(mdir, cache_dir=env_stores["VFT_CACHE_DIR"],
+                         compile_dir=env_stores["VFT_COMPILE_CACHE_DIR"])[
+        "total_bytes"]
+    quota_gb = 2.0 * measured / 1e9
+    saved = {k: os.environ.get(k) for k in env_stores}
+    os.environ.update(env_stores)
+    try:
+        monitor = run_cli(telemetry_argv(f"{root}/monitor", video, **over) + [
+            "telemetry=true", "history=true", "alerts=true", "gc=true",
+            f"gc_quota_gb={quota_gb!r}", "metrics_interval_s=0.5"], cl)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    beat = json.load(open(glob.glob(f"{mdir}/_heartbeat_*.json")[0]))
+    gauge = [s.get("value") for s in json.load(open(f"{mdir}/_run.json"))[
+        "metrics"]["series"] if s["name"] == "vft_gc_used_bytes"]
+    samples = history.read_history(mdir).get(beat["host_id"], [])
+    sec = beat.get("gc") or {}
+    check_bit_equal(stem_outputs(read_outputs(mdir), stem), want,
+                    "storage: the gc=true run")
+    if monitor["launches"] != dict(none, proj=proj_want) or not measured \
+            or not sec.get("used_bytes") or sec.get("quota_bytes") != int(
+            quota_gb * 1e9) or not (sec.get("planes") or {}).get("cache") \
+            or not (sec.get("planes") or {}).get("compile") or not gauge \
+            or not gauge[0] or not samples or samples[-1].get(
+            "gc", {}).get("used_bytes") != sec["used_bytes"] or \
+            "heartbeat hooks: 2 registered, 0 failed" not in \
+            monitor["stdout"] or beat["alerts"]["eval_errors"]:
+        raise AssertionError(f"storage: the monitor run launched "
+                             f"{monitor['launches']}, gc section {sec}, "
+                             f"gauge {gauge}, {len(samples)} samples: "
+                             f"{monitor['stdout'][-400:]}")
+    disk_alerts = [r["state"] for r in jsonl.read_jsonl(
+        f"{mdir}/_alerts.jsonl") if r["rule"] == "disk_pressure"]
+
+    # 3. eviction is a recoverable miss: fill a cache, hit it, evict every
+    # entry (each journaled before its unlink), run the video again
+    cache = os.path.abspath(f"{root}/cache")
+    gcroot = os.path.abspath(f"{root}/gcroot")
+    os.makedirs(gcroot)
+
+    def cached(name: str) -> dict:
+        frames0 = decoded_frames()
+        run = run_cli(telemetry_argv(f"{root}/{name}", video, **over) + [
+            "cache=true", f"cache_dir={cache}"], cl)
+        return dict(run, frames=decoded_frames() - frames0, outs=stem_outputs(
+            read_outputs(f"{root}/{name}/out/i3d"), stem))
+
+    def pkls() -> list:
+        return sorted(glob.glob(f"{cache}/**/*.pkl", recursive=True))
+
+    fill, hit = cached("fill"), cached("hit")
+    entries = pkls()
+    if fill["launches"] != dict(none, proj=proj_want) or \
+            hit["launches"] != none or hit["frames"] or not entries:
+        raise AssertionError(f"storage: fill {fill['launches']}, hit "
+                             f"{hit['launches']} ({hit['frames']} frames), "
+                             f"{len(entries)} entries")
+    check_bit_equal(fill["outs"], want, "storage: the cache fill")
+    check_bit_equal(hit["outs"], want, "storage: the cache hit")
+    t = time.perf_counter()
+    evict = vgc.sweep(gcroot, vgc.GcConfig.from_args(
+        {"gc_quota_gb": EVICT_ALL_QUOTA_GB}), cache_dir=cache,
+        compile_dir=none_dir)
+    sweep_s = time.perf_counter() - t
+    journal = [r for jp in glob.glob(f"{gcroot}/{vgc.GC_JOURNAL_GLOB}")
+               for r in jsonl.read_jsonl(jp)]
+    if pkls() or sorted(r["path"] for r in journal
+                        if r["plane"] == "cache") != entries or \
+            evict["executed"].get("cache", {}).get("deleted") != \
+            len(entries):
+        raise AssertionError(f"storage: eviction {evict['executed']}, "
+                             f"journal {journal}")
+    refill = cached("refill")
+    if refill["launches"] != dict(none, proj=proj_want) or \
+            not refill["frames"]:
+        raise AssertionError(f"storage: the refill launched "
+                             f"{refill['launches']} and decoded "
+                             f"{refill['frames']} frames")
+    check_bit_equal(refill["outs"], fill["outs"], "storage: the refill")
+
+    # 4. crash-safe deletion: the refill's entry and two cold entries (the
+    # planner reads only their mtimes), then the gc command SIGKILLed
+    # between its second journal append and that unlink; the remains audit
+    # clean with the journaled remnant as a note; a rerun converges
+    old = time.time() - 3600.0
+    for i in range(2):
+        fake = f"{cache}/ff/ff{i:02d}dead.pkl"
+        os.makedirs(os.path.dirname(fake), exist_ok=True)
+        with open(fake, "wb") as f:
+            f.write(b"x" * 2048)
+        os.utime(fake, (old, old))
+    n_entries = len(pkls())
+    flags = [gcroot, "--cache-dir", cache, "--compile-dir", none_dir,
+             "--quota-gb", repr(EVICT_ALL_QUOTA_GB)]
+    proc = start_module(["gc", *flags], {"VFT_INJECT": GC_KILL_INJECT})
+    try:
+        _out, err = proc.communicate(timeout=SERVING_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("storage: the killed sweep timed out") \
+            from None
+    killed_audit = audit_run(gcroot)
+    if proc.returncode != -signal.SIGKILL or len(pkls()) != n_entries - 1 \
+            or not killed_audit[0] or not any(
+            "gc-journaled" in n for n in killed_audit[2]):
+        raise AssertionError(f"storage: the killed sweep exited "
+                             f"{proc.returncode} with {len(pkls())} of "
+                             f"{n_entries} entries, audit {killed_audit}: "
+                             f"{err[-800:]}")
+    rerun = last_json(run_module(["gc", *flags, "--json"],
+                                 "storage: the gc rerun")["stdout"])
+    converged_audit = audit_run(gcroot)
+    if pkls() or not converged_audit[0] or any(
+            "gc-journaled" in n for n in converged_audit[2]):
+        raise AssertionError(f"storage: the rerun left {pkls()}, audit "
+                             f"{converged_audit}")
+
+    # 5. the compile store: a copy of the card's sealed entry under a
+    # foreign fingerprint, idle FOREIGN_AGE_S, is pruned past
+    # COMPILE_RETENTION_S by a sweep in a process attached to the card's
+    # entry, which stays; then a warm join of the slice hits
+    store = os.path.abspath(stores(trees.get("compile_cache", {}))[
+        "compile_dir"])
+    sealed = glob.glob(f"{store}/i3d/*/*/{compile_cache.MANIFEST_NAME}")
+    if len(sealed) != 1:
+        raise AssertionError(f"storage: compile store entries {sealed}")
+    card_entry = os.path.dirname(sealed[0])
+    foreign_key = hashlib.sha256(b"a foreign environment").hexdigest()
+    foreign = f"{store}/i3d/{foreign_key[:2]}/{foreign_key}"
+    shutil.copytree(card_entry, foreign)
+    man_path = f"{foreign}/{compile_cache.MANIFEST_NAME}"
+    man = json.load(open(man_path))
+    man["env_fp"] = hashlib.sha256(b"another toolkit").hexdigest()
+    with open(man_path, "w") as f:
+        json.dump(man, f)
+    os.utime(foreign, (time.time() - FOREIGN_AGE_S,) * 2)
+
+    def join_keys(name: str) -> list:
+        return telemetry_argv(f"{root}/{name}", video, **over) + [
+            "telemetry=true", "compile_cache=true",
+            f"compile_cache_dir={store}"]
+
+    cfg = load_config("i3d", parse_dotlist(join_keys("attached")))
+    sanity_check(cfg)
+    attached_here = compile_cache.active() is None
+    entry = compile_cache.attach_for_args("i3d", cfg)
+    try:
+        t = time.perf_counter()
+        prune = vgc.sweep(os.path.abspath(f"{root}/compile_gc"),
+                          vgc.GcConfig(compile_retention_s=COMPILE_RETENTION_S),
+                          cache_dir=none_dir, compile_dir=store)
+        prune_s = time.perf_counter() - t
+    finally:
+        if attached_here:
+            compile_cache.detach_for_tests()
+    if entry is None or entry.dir != card_entry or os.path.exists(
+            foreign) or not os.path.isdir(card_entry) or \
+            prune["executed"].get("compile", {}).get("deleted") != 1 or \
+            prune["planned"] != 1:
+        raise AssertionError(f"storage: the compile sweep {prune['executed']}"
+                             f", attached {entry and entry.dir}, card entry "
+                             f"{card_entry}")
+    join = run_module(join_keys("join"), "storage: the warm join", env)
+    join_cc = json.load(open(f"{root}/join/out/i3d/_run.json"))[
+        "compile_cache"]
+    # on the card the attach and the kernels' load each count a hit
+    if join_cc.get("misses") != 0 or join_cc.get("hits", 0) < (
+            2 if on_card else 1) or not join_cc.get("warm_at_attach"):
+        raise AssertionError(f"storage: the warm join {join_cc}")
+    check_bit_equal(stem_outputs(read_outputs(f"{root}/join/out/i3d"), stem),
+                    want, "storage: the warm join")
+
+    # 6. every tree audits clean, this phase's own among them
+    audits = audit_trees(dict(trees, storage=dict(audit=root)))
+    audits.update(
+        gc_killed=dict(verdict="PASS", violations=0,
+                       notes=len(killed_audit[2])),
+        gc_converged=dict(verdict="PASS", violations=0,
+                          notes=len(converged_audit[2])))
+
+    def tally(res: dict) -> dict:
+        return dict(planned=res["planned"],
+                    planned_bytes=res["planned_bytes"],
+                    executed=res["executed"])
+
+    return dict(
+        accounting=accounting, usage_walk_s=usage_walk_s,
+        monitor=dict(wall_s=monitor["wall_s"], quota_bytes=int(
+            quota_gb * 1e9), used_bytes=sec["used_bytes"],
+            planes=sec["planes"], history_samples=len(samples),
+            disk_pressure=disk_alerts,
+            proj_launches=monitor["launches"]["proj"]),
+        eviction=dict(tally(evict), entries=len(entries), sweep_s=sweep_s,
+                      journal_records=len(journal)),
+        fill_wall_s=fill["wall_s"], hit_wall_s=hit["wall_s"],
+        refill_wall_s=refill["wall_s"],
+        refill_proj_launches=refill["launches"]["proj"],
+        killed_sweep=dict(exit=proc.returncode, entries=n_entries,
+                          survivors=n_entries - 1, rerun=tally(rerun)),
+        compile_prune=dict(tally(prune), sweep_s=prune_s,
+                           kept=os.path.basename(card_entry)[:12],
+                           pinned=entry.key[:12]),
+        warm_join=dict(wall_s=join["wall_s"], compile_cache=join_cc),
+        audits=audits, wall_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3383,6 +3786,8 @@ def main() -> int:
     compile_stats = compile_cache_phase()
     fleet_queue_stats = fleet_queue_phase()
     empty_cache()
+    storage_stats = storage_phase()
+    empty_cache()
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -3405,6 +3810,8 @@ def main() -> int:
     proj_row["launches_serve_first_copy"] = [
         serve_stats["requests"][k]["launches"]["proj"]
         for k in ("first", "copy")]
+    proj_row["launches_storage_refill"] = storage_stats[
+        "refill_proj_launches"]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -3425,6 +3832,7 @@ def main() -> int:
     serve_stats["card"] = card
     compile_stats["card"] = card
     fleet_queue_stats["card"] = card
+    storage_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -3445,6 +3853,7 @@ def main() -> int:
     print(json.dumps({"fleet_queue": fleet_queue_stats}))
     print(json.dumps({"alerts_plane": alerts_plane_line(
         telemetry_stats, alerts_stats, card)}))
+    print(json.dumps({"storage": storage_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

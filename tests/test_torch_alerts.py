@@ -628,11 +628,21 @@ def test_render_and_prom_series_equal_jax(tmp_path):
     assert talerts.current_alerts(root, started_time=NOW + 1) == []
 
 
-def test_alert_cli_resolves_like_jax(tmp_path, capsys):
+def test_alert_cli_resolves_like_jax(tmp_path, capsys, monkeypatch):
     """``main`` of each package on a copy of one tree: firing on the first
     pass, every episode resolved once the stalled host's heartbeat is fresh
     and the spike has left a shrunken window; the same output but for the
-    bundle ids, and ``--fail-on-firing`` exits 1 while firing."""
+    bundle ids, and ``--fail-on-firing`` exits 1 while firing. Both
+    packages read one frozen clock (the engines' too, whose default was
+    bound at import): the stalled host's silence is printed in whole
+    seconds, which two evaluations a moment apart can round
+    differently."""
+    import functools
+    frozen = time.time()
+    monkeypatch.setattr(time, "time", lambda: frozen)
+    for mod, _ in PACKAGES.values():
+        monkeypatch.setattr(mod, "AlertEngine", functools.partial(
+            mod.AlertEngine, clock=lambda: frozen))
     root = _tree(tmp_path / "tree")
     write_json_atomic(root / "i3d" / "_parity_verdict.json", _verdict())
     outs = {}

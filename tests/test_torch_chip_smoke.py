@@ -399,6 +399,12 @@ def test_multi_phase_runs_on_the_cpu(tmp_path, monkeypatch, sample_video):
     assert stats["cache"]["entries"] == 5 and stats["cache"]["bytes"] > 0
     assert "not measured" in stats["shared_profile"]["device_time"]
     assert not (tmp_path / "output" / "chip_smoke" / "multi").exists()
+    # the profiled run's store stays for the storage phase, and audits
+    # clean
+    assert len(list((tmp_path / "output" / "chip_smoke" / "mcache").rglob(
+        "*.pkl"))) == len(cs.MULTI_FAMILIES)
+    assert cs.audit_trees({"multi": cs.STORAGE_TREES["multi"]}) == {
+        "multi": {"verdict": "PASS", "violations": 0, "notes": 0}}
 
 
 def test_telemetry_argv_is_the_slice_through_the_cli():
@@ -537,6 +543,20 @@ def test_alerts_phase_and_fleet_step_run_on_the_cpu(run_plane_phases):
     json.dumps(line)
 
 
+def test_storage_audits_the_run_plane_trees(run_plane_phases):
+    """The storage phase's audit over the telemetry and alerts phases'
+    trees: the port's ``audit --expect-complete`` passes each with 0
+    violations, as the JAX audit does."""
+    from video_features_tpu.audit import audit_run
+    verdicts = cs.audit_trees({k: cs.STORAGE_TREES[k]
+                               for k in ("telemetry", "alerts")})
+    assert {v["verdict"] for v in verdicts.values()} == {"PASS"}
+    for name in ("telemetry", "alerts"):
+        ok, _, notes = audit_run(cs.STORAGE_TREES[name]["audit"],
+                                 expect_complete=True)
+        assert ok and len(notes) == verdicts[name]["notes"], name
+
+
 def test_check_roofline_and_parity_fail_bad_artifacts(tmp_path):
     from video_features_tpu_torch.telemetry import roofline
 
@@ -644,7 +664,17 @@ def serving_phases(tmp_path_factory, sample_video):
             video=sample_video, env={"CUDA_HOME": str(work / "cuda")},
             **SMALL)
         fleet = cs.fleet_queue_phase(video=sample_video, **SMALL)
-        yield dict(serve=serve, compile_cache=compile_cache, fleet=fleet)
+        # the storage phase's in-process attach fingerprints the stand-in
+        # toolkit as the compile phase's subprocesses did
+        mp.setenv("CUDA_HOME", str(work / "cuda"))
+        storage = cs.storage_phase(
+            video=sample_video,
+            trees={k: cs.STORAGE_TREES[k]
+                   for k in ("serve", "compile_cache", "fleet_queue")},
+            reference=f"{cs.SERVE_ROOT}/cli/out/i3d",
+            env={"CUDA_HOME": str(work / "cuda")}, **SMALL)
+        yield dict(serve=serve, compile_cache=compile_cache, fleet=fleet,
+                   storage=storage)
     finally:
         mp.undo()
 
@@ -697,4 +727,41 @@ def test_fleet_queue_phase_runs_on_the_cpu(serving_phases):
     assert stats["report_queue"]["done"] == 3
     assert stats["report_serve"]["requests"] >= 2
     assert stats["observe_hosts"]["queue"] >= 2
+    json.dumps(stats)
+
+
+def test_storage_phase_runs_on_the_cpu(serving_phases):
+    """The storage phase over the serving phases' trees: the dry-run
+    accounting finds each plane they wrote; the gc=true run publishes its
+    section; eviction journals every entry and the refill recomputes it;
+    the SIGKILLed sweep audits clean and converges; the foreign compile
+    entry is pruned and the warm join hits; every tree audits PASS."""
+    stats = serving_phases["storage"]
+    acc = stats["accounting"]
+    assert acc["serve"]["planes"]["spool"] > 0
+    assert acc["serve"]["planes"]["cache"] > 0
+    assert acc["compile_cache"]["planes"]["compile"] > 0
+    assert acc["fleet_queue"]["planes"]["journals"] > 0
+    assert all(v["planned"] == 0 for v in acc.values())
+    assert min(stats["usage_walk_s"].values()) > 0
+    mon = stats["monitor"]
+    assert mon["proj_launches"] == 0 and mon["history_samples"] >= 1
+    assert 0 < mon["used_bytes"] and mon["quota_bytes"] > 0
+    ev = stats["eviction"]
+    assert ev["entries"] >= 1 and ev["journal_records"] == ev["entries"]
+    assert ev["executed"]["cache"]["deleted"] == ev["entries"]
+    assert stats["refill_proj_launches"] == 0
+    assert stats["refill_wall_s"] > 0 and stats["hit_wall_s"] > 0
+    kill = stats["killed_sweep"]
+    assert kill["exit"] == -9 and kill["survivors"] == kill["entries"] - 1
+    assert kill["rerun"]["executed"]["cache"]["deleted"] == \
+        kill["survivors"]
+    assert stats["compile_prune"]["executed"]["compile"]["deleted"] == 1
+    assert stats["compile_prune"]["kept"] == stats["compile_prune"]["pinned"]
+    assert stats["warm_join"]["compile_cache"]["misses"] == 0
+    audits = stats["audits"]
+    assert set(audits) == {"serve", "compile_cache", "fleet_queue",
+                           "storage", "gc_killed", "gc_converged"}
+    assert {a["verdict"] for a in audits.values()} == {"PASS"}
+    assert audits["gc_killed"]["notes"] >= 1
     json.dumps(stats)

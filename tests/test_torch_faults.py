@@ -12,7 +12,9 @@
   ``cache_scope``) are ported: each runs at the values JAX accepts. So are
   the run-plane keys (``telemetry``, ``metrics_interval_s``, ``trace``,
   ``health``): each writes its artifact and is rejected at a bad value as
-  JAX rejects it.
+  JAX rejects it. The storage keys (``gc``, ``gc_*``) are accepted and
+  rejected exactly where JAX's ``validate_gc_args`` accepts and rejects
+  them, in single- and multi-family runs.
   Every family dispatches (``vggish`` too).
 - ``RetryPolicy`` and ``classify`` agree with the JAX ones (defaults,
   backoff delays under one seeded rng, the category of each exception).
@@ -369,15 +371,69 @@ def test_cache_keys_run(key, value, sample_video, tmp_path, monkeypatch):
 
 
 def test_show_pred_is_ported_for_the_clip_stack_families_only():
-    """And for the frame-wise families, since they were ported."""
+    """And for the frame-wise families, since they were ported; i3d, raft
+    and pwc raise naming the item that ports theirs, Queue 1 #13."""
     for family in FAMILIES:
         cfg = tconfig.merge(tconfig.load_config(family),
                             tconfig.Config({"show_pred": True}))
         if family in ("r21d", "s3d", "resnet", "clip"):
             tconfig.check_ported(cfg)
         else:
-            with pytest.raises(NotImplementedError, match="show_pred"):
+            with pytest.raises(NotImplementedError,
+                               match=r"show_pred.*ROADMAP\.md Queue 1 #13\)"):
                 tconfig.check_ported(cfg)
+
+
+#: JAX tests/test_gc.py: the surface its validate_gc_args accepts, the
+#: values it rejects, and two more (a negative quota, a cadence that is not
+#: a number)
+GC_CASES = [
+    {"gc": True, "gc_quota_gb": 50, "gc_cache_retention_s": 3600,
+     "gc_spool_retention_s": "86400", "gc_interval_s": 60},
+    {},
+    {"gc": "yes"},
+    {"gc_quota_gb": 0},
+    {"gc_quota_gb": -1},
+    {"gc_quota_gb": "plenty"},
+    {"gc_cache_retention_s": 0},
+    {"gc_inbox_retention_s": "forever"},
+    {"gc_interval_s": -5},
+    {"gc_interval_s": "abc"},
+    {"gc": True, "gc_staging_retention_s": 30, "gc_compile_retention_s":
+     1e-3, "gc_incident_retention_s": 7 * 86400},
+]
+
+
+@pytest.mark.parametrize("case", GC_CASES,
+                         ids=lambda c: ",".join(f"{k}={v}" for k, v in
+                                                c.items()) or "none")
+def test_gc_keys_validate_as_jax(case, tmp_path):
+    """The port's ``sanity_check`` (single- and multi-family) and its
+    ``validate_gc_args`` accept a ``gc``/``gc_*`` value exactly where JAX's
+    ``validate_gc_args`` does, and raise ``ValueError`` where it raises,
+    whether or not ``gc=true``."""
+    from video_features_tpu.gc import validate_gc_args as jvalidate
+    from video_features_tpu_torch.gc import validate_gc_args as tvalidate
+
+    def raises(fn) -> bool:
+        try:
+            fn()
+        except ValueError:
+            return True
+        return False
+
+    jax_raises = raises(lambda: jvalidate(dict(case)))
+    assert raises(lambda: tvalidate(dict(case))) == jax_raises
+    paths = {"device": "cpu", "video_paths": "a.mp4",
+             "output_path": str(tmp_path / "o"),
+             "tmp_path": str(tmp_path / "t")}
+    for family in ("i3d", "resnet"):
+        cfg = tconfig.load_config(family, dict(case, **paths))
+        assert raises(lambda: tconfig.sanity_check(cfg)) == jax_raises, \
+            family
+    per = tconfig.load_multi_config(
+        ["resnet", "clip"], dict(case, on_extraction="save_numpy", **paths))
+    assert raises(lambda: tconfig.sanity_check_multi(per)) == jax_raises
 
 
 def test_vggish_is_not_ported():

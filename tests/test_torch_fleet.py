@@ -16,8 +16,10 @@
 - the CLI (resnet18 on the CPU): two ``fleet=queue`` runs over one root do
   each video once, bit-equal to a static run, with the ``fleet`` heartbeat
   section; a third host joins with ``fleet_canary=true`` and passes; the
-  JAX ``audit.audit_run`` finds no violation in the queue tree; the JAX CLI
-  drains its own queue to the same features within the value tier.
+  JAX ``audit.audit_run`` finds no violation in the queue tree, and the
+  port's ``audit_run`` agrees word for word; the JAX CLI drains its own
+  queue to the same features within the value tier; the CLI hands
+  ``gc_staging_retention_s`` to the queue as the JAX CLI does.
 """
 import contextlib
 import importlib.util
@@ -685,10 +687,14 @@ def test_cli_canary_join_passes_end_to_end(fleet_tree):
 
 
 def test_jax_audit_finds_no_violation_in_the_queue_tree(fleet_tree):
+    """And the port's audit gives the same verdict, violations and notes."""
     from video_features_tpu import audit
+    from video_features_tpu_torch import audit as taudit
     ok, violations, notes = audit.audit_run(str(fleet_tree["root"]),
                                             expect_complete=True)
     assert ok, violations
+    assert taudit.audit_run(str(fleet_tree["root"]),
+                            expect_complete=True) == (ok, violations, notes)
 
 
 def test_fleet_report_reads_the_queue_tree(fleet_tree):
@@ -720,3 +726,57 @@ def test_fleet_queue_features_match_jax_value_tier(fleet_tree, tmp_path):
         port = np.load(fleet_tree["root"] / f"{stem}_{key}.npy")
         jax = np.load(jroot / f"{stem}_{key}.npy")
         np.testing.assert_allclose(port, jax, atol=1e-2, rtol=0, err_msg=key)
+
+
+def test_cli_passes_gc_staging_retention_to_the_queue(tmp_path, monkeypatch):
+    """``fleet=queue`` with ``gc_staging_retention_s=30``: the port's CLI
+    builds its ``WorkQueue`` with ``staging_retention_s`` 30.0, as the JAX
+    CLI does (both runs with a stand-in extractor and a drain that claims
+    nothing), and a ``.staging/`` orphan 31 s old goes back to pending on
+    the next recovery sweep (the lease heuristic alone waits 4 leases of
+    the test's 10 s)."""
+    import video_features_tpu.cli as jcli
+    from video_features_tpu.parallel import queue as jq
+    from video_features_tpu_torch import cli as tcli
+
+    built = {}
+
+    class Stub:
+        video_decode = "inline"
+
+        def __init__(self, args):
+            pass
+
+    def recording(mod, name):
+        class Recording(mod.WorkQueue):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                built[name] = self
+
+            def drain(self, *a, **kw):
+                return None
+        return Recording
+
+    monkeypatch.setattr(tcli, "get_extractor_cls", lambda ft: Stub)
+    monkeypatch.setattr(fq, "WorkQueue", recording(fq, "port"))
+    monkeypatch.setattr(jcli, "get_extractor_cls", lambda ft: Stub)
+    monkeypatch.setattr(jq, "WorkQueue", recording(jq, "jax"))
+    video = str(REPO / "tests" / "assets" / "v_synth_sample.mp4")
+    for name, main in (("port", tcli.main), ("jax", jcli.main)):
+        argv = _argv(tmp_path, [video], out=name,
+                     gc_staging_retention_s=30, health="false")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(buf):
+            main(argv)
+    assert built["port"].staging_retention_s == 30.0 == \
+        built["jax"].staging_retention_s
+    wq = built["port"]
+    now = time.time()
+    staging = Path(wq.root) / ".staging" / "dead.it-31.json"
+    staging.write_text(json.dumps(
+        {"schema": fq.ITEM_SCHEMA, "id": "it-31", "video": "/data/v.mp4",
+         "reclaims": 0}))
+    os.utime(staging, (now - 31.0, now - 31.0))
+    assert wq.reclaim_expired() == 1
+    assert (Path(wq.root) / "pending" / "it-31.json").exists()

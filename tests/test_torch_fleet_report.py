@@ -42,7 +42,8 @@ TOOLS = {
     "table)": "(vft-roofline for the full table)",
     "(python -m video_features_tpu_torch parity for the full table)":
         "(vft-parity for the full table)",
-    "(the gc report: ROADMAP.md Queue 1 #8)": "(vft-gc for the full report)",
+    "(python -m video_features_tpu_torch gc for the full report)":
+        "(vft-gc for the full report)",
 }
 PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? -?[0-9.e+-]+$')
 

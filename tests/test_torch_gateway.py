@@ -12,7 +12,8 @@
   (partial results, an ``expired/`` record and never a ``done/`` one), and
   duration-relative deadlines;
 - the gateway's own sweep expires a spooled request nobody serves, and
-  JAX's ``audit.audit_run`` passes the tree; SIGTERM's drain flushes
+  JAX's ``audit.audit_run`` passes the tree, as the port's does, word for
+  word; SIGTERM's drain flushes
   accepted requests into the spool;
 - the ``gateway.read`` and ``gateway.spool_submit`` sites.
 """
@@ -409,8 +410,12 @@ def test_gateway_expires_spooled_request_and_audits_clean(tmp_path):
     assert st == 200 and polled["status"] == "deadline_exceeded"
     assert not list((tmp_path / "spool" / "requests").glob("*.json"))
     g.stop()
-    ok, violations, _ = audit_run(str(tmp_path), expect_complete=True)
+    ok, violations, notes = audit_run(str(tmp_path), expect_complete=True)
     assert ok, "\n".join(violations)
+    # the port's audit: the same verdict, violations and notes
+    from video_features_tpu_torch.audit import audit_run as taudit_run
+    assert taudit_run(str(tmp_path), expect_complete=True) == (
+        ok, violations, notes)
     events = [json.loads(ln)["event"]
               for ln in Path(g.journal_path).read_text().splitlines()]
     assert "accepted" in events and "expired" in events

@@ -11,7 +11,8 @@
 - the protocol across packages: requests submitted by the JAX
   ``serve.submit_request`` are answered by the port's ``ServeLoop``, and
   JAX's ``read_response``/``server_state`` read the answers; JAX's
-  ``audit.audit_run`` finds no violation in the port's served tree;
+  ``audit.audit_run`` finds no violation in the port's served tree, and
+  the port's ``audit_run`` gives the same verdict, violations and notes;
 - the served features equal the port's ``cli.main`` on the same video bit
   for bit, and JAX's served features within the value tier (atol 1e-2) on
   one seeded resnet18 checkpoint;
@@ -168,10 +169,13 @@ def test_jax_readers_read_the_port_spool(served):
 def test_jax_audit_finds_no_violation_in_the_served_tree(served):
     """The root above the spool, the outputs and the feature cache: the
     spans' artifacts, the spool's done/expired exclusivity, the cache
-    entries."""
+    entries; the port's audit gives the same verdict, violations and
+    notes."""
     from video_features_tpu import audit
+    from video_features_tpu_torch import audit as taudit
     ok, violations, notes = audit.audit_run(str(served["tmp"]))
     assert ok, violations
+    assert taudit.audit_run(str(served["tmp"])) == (ok, violations, notes)
 
 
 def test_served_features_equal_cli_and_jax_value_tier(served, sample_video,

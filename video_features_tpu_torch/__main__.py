@@ -1,7 +1,14 @@
 """``python -m video_features_tpu_torch feature_type=i3d flow_type=raft ...``"""
 import sys
 
-from .cli import main
-
 if __name__ == "__main__":
+    # the storage commands import neither torch nor the extractors, so a
+    # sweep or an audit starts in a fraction of a second
+    if sys.argv[1:2] == ["gc"]:
+        from .gc import main as gc_main
+        sys.exit(gc_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["audit"]:
+        from .audit import main as audit_main
+        sys.exit(audit_main(sys.argv[2:]))
+    from .cli import main
     sys.exit(main())

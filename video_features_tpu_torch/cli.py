@@ -50,7 +50,9 @@ digests to ``_parity.jsonl`` there (``telemetry/parity.py``).
 (which implies ``history``) evaluates the alert rules on every heartbeat,
 journals their transitions to ``_alerts.jsonl`` and captures an incident
 bundle under ``_incidents/`` when one fires (``telemetry/alerts.py``); both
-need ``telemetry=true``. The run's report is ``python -m
+need ``telemetry=true``. ``gc=true`` adds the storage accounting: a
+heartbeat ``gc`` section and the ``vft_gc_*`` gauges (``gc.py
+GcMonitor``). The run's report is ``python -m
 video_features_tpu_torch.telemetry.report OUT``, a fleet's ``python -m
 video_features_tpu_torch.fleet_report ROOT`` (``--stitch`` merges the
 hosts' traces) and the alert evaluator's ``python -m
@@ -64,9 +66,10 @@ per-machine build directory. ``fleet=queue`` (with ``telemetry=true``)
 drains the shared work-stealing queue under ``{output root}/_queue/``
 (``parallel/queue.py``) instead of keeping a static shard: every host seeds
 the full list, claims one video at a time, renews its leases from the
-heartbeat (its ``fleet`` section) and steals expired ones;
-``fleet_canary=true`` gates a joining host on a re-extracted slice of done
-work.
+heartbeat (its ``fleet`` section) and steals expired ones, and sweeps
+``.staging/`` orphans back to pending after ``gc_staging_retention_s``
+when set; ``fleet_canary=true`` gates a joining host on a re-extracted
+slice of done work.
 
 Subcommands: ``python -m video_features_tpu_torch serve feature_type=...
 spool_dir=...`` runs the warm server over a file spool (``serve.py``);
@@ -75,7 +78,9 @@ spool_dir=...`` runs the warm server over a file spool (``serve.py``);
 entry ahead of time; ``... parity <run_dir>`` summarizes a run's
 ``_parity.jsonl``, and ``... parity certify --family raft --flip dtype=bf16
 device=cuda`` A/B-certifies a numerics flip into ``_parity_verdict.json``
-(``--out``, default the working directory).
+(``--out``, default the working directory); ``... gc <root>`` accounts
+the storage planes and runs a journaled eviction sweep (``gc.py``), and
+``... audit <root>`` checks a tree's durability invariants (``audit.py``).
 """
 from __future__ import annotations
 
@@ -114,6 +119,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         return gateway_main(argv[1:])
     if argv and argv[0] == "warmup":
         return compile_cache.warmup_main(argv[1:])
+    if argv and argv[0] == "gc":
+        from .gc import main as gc_main
+        raise SystemExit(gc_main(argv[1:]))
+    if argv and argv[0] == "audit":
+        from .audit import main as audit_main
+        raise SystemExit(audit_main(argv[1:]))
     overrides = parse_dotlist(argv)
     feature_type = overrides.get("feature_type")
     if not feature_type:
@@ -183,6 +194,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                 from .telemetry.alerts import AlertEngine
                 alert_engine = AlertEngine(
                     out_root, run_id=recorder.run_id).attach(recorder)
+            # gc=true: the heartbeat's gc section and the vft_gc_* gauges
+            # (accounting only; eviction is the gc command's)
+            if args.get("gc"):
+                from .gc import GcConfig, GcMonitor
+                GcMonitor(out_root, GcConfig.from_args(args)).attach(
+                    recorder)
             recorder.start()
         # fleet=queue workers co-own out_root: each writes its own
         # _trace_/_roofline_/_parity_{host_id} file
@@ -409,7 +426,10 @@ def _open_queue(args, recorder, journal, paths: List[str]):
         run_id=recorder.run_id,
         lease_s=float(args.get("fleet_lease_s") or 60.0),
         max_reclaims=int(args.get("fleet_max_reclaims") or 3),
-        journal=journal)
+        journal=journal,
+        staging_retention_s=(
+            float(args["gc_staging_retention_s"])
+            if args.get("gc_staging_retention_s") is not None else None))
     recorder.extra_sections["fleet"] = work_queue.heartbeat_section
     entry = compile_cache.active()
     work_queue.canary_warm = bool(entry is not None and entry.warm_at_attach)

@@ -229,7 +229,7 @@ def check_ported(args: Config) -> None:
             and feature_type != "vggish":
         raise NotImplementedError(
             f"show_pred=true is not ported yet for feature_type="
-            f"{feature_type!r} ({_roadmap(None)}); it is for "
+            f"{feature_type!r} ({_roadmap(13)}); it is for "
             f"{', '.join(SHOW_PRED_FAMILIES)}")
     precision_dtype(args.get("precision"), feature_type)
     decode = args.get("video_decode") or "inline"
@@ -312,6 +312,15 @@ def _check_cache(args: Config) -> None:
         raise ValueError(f"cache_scope={cs!r}: expected 'shared' (one "
                          "entry per content) or 'tenant' (the requesting "
                          "tenant salts the key)")
+
+
+def _check_gc(args: Config) -> None:
+    """Every ``gc``/``gc_*`` key, whether or not ``gc=true``, through
+    ``gc.py validate_gc_args``, as the JAX package checks them: the run
+    and the ``gc`` command fail a typo alike."""
+    if "gc" in args or any(str(k).startswith("gc_") for k in args):
+        from .gc import validate_gc_args
+        validate_gc_args(args)
 
 
 def _check_serving(args: Config) -> None:
@@ -440,9 +449,10 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     keys (``telemetry``, ``metrics_interval_s``, ``trace``, ``health``,
     ``parity``, ``roofline``, ``history``, ``alerts``), the serving keys
     (the compile cache, the fleet queue, ``serve_slo_s``, ``gateway_*``),
-    the unported keys, the device (``args.device`` becomes ``cpu``,
-    ``cuda`` or ``cuda:N``) and the ``feature_type[/model_name]``
-    namespacing of ``output_path``/``tmp_path``."""
+    the storage keys (``gc``, ``gc_*``), the unported keys, the device
+    (``args.device`` becomes ``cpu``, ``cuda`` or ``cuda:N``) and the
+    ``feature_type[/model_name]`` namespacing of
+    ``output_path``/``tmp_path``."""
     check_ported(args)
     args.device = str(resolve_device(args.get("device")))
     if args.feature_type in ("r21d", "s3d", "resnet", "clip"):
@@ -488,6 +498,7 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     _check_cache(args)
     _check_telemetry(args)
     _check_serving(args)
+    _check_gc(args)
 
     if require_videos:
         if not (args.get("file_with_video_paths") or args.get("video_paths")):

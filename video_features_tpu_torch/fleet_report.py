@@ -36,9 +36,9 @@ The capacity planner, the serving, tenant, queue, compile-cache and storage
 sections read the JAX package's layout, which the port's planes write too:
 the spool and the ``serve`` section (``serve.py``), the gateway's journal
 (``gateway.py``), ``_queue/`` and the ``fleet`` section
-(``parallel/queue.py``) and the ``compile_cache`` section
-(``compile_cache.py``). The port writes no ``gc`` section until it runs the
-storage plane (ROADMAP.md Queue 1 #8).
+(``parallel/queue.py``), the ``compile_cache`` section
+(``compile_cache.py``) and, with ``gc=true``, the ``gc`` section
+(``gc.py GcMonitor``).
 """
 from __future__ import annotations
 
@@ -816,7 +816,8 @@ def render(agg: dict, capacity: Optional[dict] = None) -> List[str]:
         if top:
             line += "  " + " ".join(
                 f"{p}={float(b or 0) / 1e9:.2f}GB" for p, b in top[:4])
-        lines.append(line + "  (the gc report: ROADMAP.md Queue 1 #8)")
+        lines.append(line + "  (python -m video_features_tpu_torch gc "
+                     "for the full report)")
     if capacity is not None:
         lines += render_capacity(capacity)
     fams = agg["families"]

@@ -31,11 +31,12 @@ The run plane records; this module evaluates, in three steps:
 without it. The rules that read the fleet queue, serving, tenants, the
 compile cache and storage read the JAX package's on-disk layout (the
 ``_queue`` directories, the heartbeat's ``fleet``, ``serve``,
-``compile_cache`` and ``gc`` sections), which the port's queue, server and
-compile cache write; only the ``gc`` section waits for the storage plane
-(ROADMAP.md Queue 1 #8), so its rules stay quiet on the port's runs. Rule
-failures are counted (:attr:`AlertEngine.eval_errors`) and published in the
-heartbeat's ``alerts`` section; the run goes on.
+``compile_cache`` and ``gc`` sections), which the port's queue, server,
+compile cache and storage monitor write (the ``gc`` section with
+``gc=true``, ``gc.py GcMonitor``; ``disk_pressure`` reads its samples in
+the retained history). Rule failures are counted
+(:attr:`AlertEngine.eval_errors`) and published in the heartbeat's
+``alerts`` section; the run goes on.
 """
 from __future__ import annotations
 

@@ -34,8 +34,11 @@ an expired lease) and ``queue.steal_staging`` (``drop`` abandons the item in
 ``.staging/``) in ``parallel/queue.py``, ``spool.claim`` and
 ``spool.respond`` (``drop`` loses the response write) in ``serve.py``, and
 ``gateway.read`` (``torn``, ``stall``) and ``gateway.spool_submit``
-(``drop``) in ``gateway.py``. A plan naming a site whose plane is not ported
-(:data:`UNPORTED_SITES`) raises ``NotImplementedError`` naming its
+(``drop``) in ``gateway.py``, and ``gc.evict`` (``drop``: journaled, never
+unlinked; ``kill``; a raise-kind fault is a counted error) and ``gc.sweep``
+(``stall``) in ``gc.py``: every site of the JAX package. A plan naming a
+site whose plane is not ported (:data:`UNPORTED_SITES`, empty since the
+storage plane was ported) raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` Queue 1 item, so no rule is ever left silently dead.
 
 Arming: the CLI arms the ``inject=`` plan at run start and disarms it in its
@@ -63,7 +66,7 @@ SITES = (
 
 #: sites whose plane the port does not run yet -> the ROADMAP.md Queue 1
 #: item that ports it
-UNPORTED_SITES = {"gc.evict": 8, "gc.sweep": 8}
+UNPORTED_SITES: Dict[str, int] = {}
 
 #: raise-kind faults -> the errno they raise with (None = RuntimeError)
 _RAISE_ERRNO = {
