@@ -301,7 +301,37 @@ that goes wrong:
    features bit-equal. Last ``python -m video_features_tpu_torch audit
    --expect-complete`` over every tree and this phase's own: 0 violations
    each;
-25. prints one JSON line each of the i3d slice's, the raft family's, the
+25. drives seeded traffic through the gateway (:func:`traffic_phase`):
+   for ``scenarios/steady.yml`` and then ``scenarios/burst_shed.yml``,
+   each on a fresh spool and cache, an in-process ``ServeLoop`` on step
+   21's configuration (``cache=true``) behind a ``GatewayServer`` on
+   ``127.0.0.1`` with the drill's tenant table
+   (``loadgen.write_tenant_table``), and ``loadgen.DrillRunner`` issuing
+   the scenario's offered schedule over HTTP at ``speedup=1``
+   (:data:`TRAFFIC_SPEEDUP`: the scenarios' own rates on the wall clock)
+   over a corpus of the sample with a suffix per item
+   (``loadgen.synthesize_corpus``), counts set to 0 just before and read
+   just after. Held: the drill's journal byte-identical to ``loadgen
+   --dry-run`` of the spec; ``_scenario.json`` valid under the port's
+   schema, admitted + rejected + shed + errors = offered, admitted =
+   completed + expired; each served item's features bit-equal to step
+   21's request 1 (the suffix leaves the decode unchanged); proj 20
+   launches a stack on each item's cold request and none on a hit; the
+   port's ``audit --expect-complete`` over each tree; steady's verdict
+   ``PASS``; burst_shed's beta shed (its ``min_rejected`` objective).
+   burst_shed's verdict and objectives, and each drill's p50/p95/p99 wait
+   and service and its walls, are printed, not held;
+26. runs the chaos matrix on the main path (:func:`chaos_phase`): the
+   slice's CLI over two copies of the sample with ``fleet=queue
+   telemetry=true health=true cache=true``, once clean and once per seed
+   of :data:`CHAOS_PLANS` (``decode.read=eio@n3``, ``sink.fsync=eio@n1``:
+   the tier-1 rows of the JAX package's matrix), counts set to 0 just
+   before each and read just after. Held for each seed: the port's
+   ``audit --expect-complete`` passes, the ``.npy`` bytes equal the clean
+   run's, the port's ``compare`` against the clean run gives ``PASS``;
+   proj 20 launches a stack of each extraction; ``compare --selftest``
+   exits 0;
+27. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
    vggish, parallel, multi, telemetry, alerts, fleet, certify, serve,
    compile-cache and fleet-queue phases' numbers, one of the alerting's
@@ -309,16 +339,18 @@ that goes wrong:
    transitions, the bundle's artifacts and bytes, one tick's evaluation,
    the walls), one of the storage phase's (deletions planned and done and
    their bytes by plane, the walls of a ``usage()`` walk and of a sweep,
-   the refill's and the hit's walls, the audit verdicts), one of the
-   kernels' numbers, and last ``{"ok": true, "device": {...}}``.
+   the refill's and the hit's walls, the audit verdicts), one each of the
+   traffic and chaos phases', one of the kernels' numbers, and last
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
 synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
 transforms and the I420 encoder are numpy. The multi, telemetry, alerts,
-certify, serving and storage phases decode a video, with cv2, and fail
-without it; the telemetry, alerts, certify, serving and storage phases read
-the family YAML with yaml. The serving and storage phases start ``python -m
+certify, serving, storage, traffic and chaos phases decode a video, with
+cv2, and fail without it; the telemetry, alerts, certify, serving,
+storage, traffic and chaos phases read YAML with yaml. The serving,
+storage, traffic and chaos phases start ``python -m
 video_features_tpu_torch`` subprocesses with this checkout on
 ``PYTHONPATH`` and wait for each (none outlives its phase), and the gateway
 binds ``127.0.0.1`` only. PIL is needed by the
@@ -327,7 +359,9 @@ resampling.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2994,6 +3028,51 @@ def stem_outputs(outs: dict, stem: str) -> dict:
                 ("copy_", "again_"))}
 
 
+@contextlib.contextmanager
+def running_server(cfg, tenants=None):
+    """An in-process ``ServeLoop`` on ``cfg`` in a thread behind a
+    ``GatewayServer`` on ``127.0.0.1`` at an ephemeral port (``tenants``
+    its tenant table), yielded once the server is ready as a dict with
+    ``loop``, ``base`` (the gateway's URL) and ``construction_s``; on exit
+    both stop, the dict gains the gateway's final ``gateway_section`` and
+    the loop's ``rc``, and the loop must have exited."""
+    import threading
+
+    from video_features_tpu_torch import gateway, serve
+
+    spool = str(cfg.spool_dir)
+    t0 = time.perf_counter()
+    loop = serve.ServeLoop(cfg, out_root=str(cfg.output_path))
+    server = dict(loop=loop, construction_s=time.perf_counter() - t0)
+    rcs = []
+    thread = threading.Thread(target=lambda: rcs.append(loop.run()),
+                              name="chip-smoke-serve", daemon=True)
+    thread.start()
+    args = {"spool_dir": spool, "gateway_host": "127.0.0.1",
+            "gateway_port": 0, "gateway_poll_interval_s": 0.02,
+            "metrics_interval_s": 0.5}
+    if tenants is not None:
+        args["gateway_tenants"] = tenants
+    gw = gateway.GatewayServer(args).start()
+    server["base"] = f"http://127.0.0.1:{gw.port}"
+    try:
+        deadline = time.monotonic() + SERVING_TIMEOUT_S
+        while serve.server_state(spool).get("state") != "ready":
+            if time.monotonic() > deadline or not thread.is_alive():
+                raise AssertionError(f"serve: not ready: "
+                                     f"{serve.server_state(spool)}")
+            time.sleep(0.02)
+        yield server
+    finally:
+        loop.stop()
+        thread.join(timeout=SERVING_TIMEOUT_S)
+        server["gateway_section"] = gw._gateway_section()
+        gw.stop()
+    if thread.is_alive() or rcs not in ([0], [143]):
+        raise AssertionError(f"serve: the loop did not exit ({rcs})")
+    server["rc"] = rcs[0]
+
+
 def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
     """Warm serving through the gateway (module docstring, step 21): an
     in-process ``ServeLoop`` on the telemetry phase's i3d RAFT slice with
@@ -3003,9 +3082,8 @@ def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
     and read just after; then ``cli.main`` on the sample."""
     import os
     import shutil
-    import threading
 
-    from video_features_tpu_torch import gateway, serve
+    from video_features_tpu_torch import serve
     from video_features_tpu_torch.config import (load_config, parse_dotlist,
                                                  sanity_check)
     from video_features_tpu_torch.kernels import corr_lookup as cl
@@ -3025,25 +3103,8 @@ def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
         "serve_max_requests=3", f"serve_idle_exit_s={SERVING_TIMEOUT_S}"]
     cfg = load_config("i3d", parse_dotlist(argv))
     sanity_check(cfg, require_videos=False)
-    t0 = time.perf_counter()
-    loop = serve.ServeLoop(cfg, out_root=str(cfg.output_path))
-    warm_s = time.perf_counter() - t0
-    rcs = []
-    thread = threading.Thread(target=lambda: rcs.append(loop.run()),
-                              name="chip-smoke-serve", daemon=True)
-    thread.start()
-    gw = gateway.GatewayServer({
-        "spool_dir": spool, "gateway_host": "127.0.0.1", "gateway_port": 0,
-        "gateway_poll_interval_s": 0.02, "metrics_interval_s": 0.5}).start()
-    base = f"http://127.0.0.1:{gw.port}"
     requests = {}
-    try:
-        deadline = time.monotonic() + SERVING_TIMEOUT_S
-        while serve.server_state(spool).get("state") != "ready":
-            if time.monotonic() > deadline or not thread.is_alive():
-                raise AssertionError(f"serve: not ready: "
-                                     f"{serve.server_state(spool)}")
-            time.sleep(0.02)
+    with running_server(cfg) as server:
         for name, path, timeout_s in (("first", video, None),
                                       ("copy", copy, None),
                                       ("expired", video, 1e-3)):
@@ -3054,10 +3115,11 @@ def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
             reset_counts(cl)
             frames0 = decoded_frames()
             t = time.perf_counter()
-            code, accepted = http_json(base, "POST", "/v1/extract", body)
+            code, accepted = http_json(server["base"], "POST",
+                                       "/v1/extract", body)
             if code != 202:
                 raise AssertionError(f"serve: {name} -> {code} {accepted}")
-            term = wait_terminal(base, accepted["id"])
+            term = wait_terminal(server["base"], accepted["id"])
             synchronize()
             requests[name] = dict(
                 id=accepted["id"], status=term["status"],
@@ -3068,13 +3130,6 @@ def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
                 service_s=term.get("latency_s"),
                 compile_cache=term.get("compile_cache"),
                 expired_at=term.get("expired_at"))
-    finally:
-        loop.stop()
-        thread.join(timeout=SERVING_TIMEOUT_S)
-        gw_section = gw._gateway_section()
-        gw.stop()
-    if thread.is_alive() or rcs not in ([0], [143]):
-        raise AssertionError(f"serve: the loop did not exit ({rcs})")
 
     served = read_outputs(str(cfg.output_path))
     want = stem_outputs(served, stem)
@@ -3101,7 +3156,7 @@ def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
         raise AssertionError(f"serve: request 3 {late}")
     state = serve.server_state(spool)
     tallies = state.get("requests") or {}
-    edge = gw_section["tenants"].get("anon", {})
+    edge = server["gateway_section"]["tenants"].get("anon", {})
     if state.get("state") != "exited" or tallies.get("done") != 2 or any(
             tallies.get(k) for k in ("partial", "failed", "rejected")) or \
             tallies.get("deadline_exceeded", 0) + edge.get("expired", 0) \
@@ -3118,9 +3173,10 @@ def serve_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
         raise AssertionError(f"serve: cli.main launched "
                              f"{cli_run['launches']}")
     return dict(
-        video=video, stacks=stacks, warm_construction_s=warm_s,
-        requests=requests, server=state, gateway=edge,
-        cli_wall_s=cli_run["wall_s"], loop_rc=rcs[0])
+        video=video, stacks=stacks,
+        warm_construction_s=server["construction_s"], requests=requests,
+        server=state, gateway=edge, cli_wall_s=cli_run["wall_s"],
+        loop_rc=server["rc"])
 
 
 def module_env(**env) -> dict:
@@ -3403,7 +3459,7 @@ def tree_listing(*dirs) -> dict:
     return out
 
 
-def audit_trees(trees: dict) -> dict:
+def audit_trees(trees: dict, phase: str = "storage") -> dict:
     """``python -m video_features_tpu_torch audit`` over each tree's audit
     root with ``--expect-complete`` (and its store re-verified), all at
     once; fails unless each passes with 0 violations. Returns each one's
@@ -3417,11 +3473,11 @@ def audit_trees(trees: dict) -> dict:
         procs[name] = start_module(args)
     verdicts = {}
     for name, proc in procs.items():
-        out = finish_module(proc, f"storage: audit {name}")["stdout"]
+        out = finish_module(proc, f"{phase}: audit {name}")["stdout"]
         m = re.search(r"AUDIT: (PASS|FAIL) \((\d+) violation\(s\), (\d+) "
                       r"note\(s\)\)", out)
         if m is None or m.group(1) != "PASS" or m.group(2) != "0":
-            raise AssertionError(f"storage: audit {name}: {out[-1500:]}")
+            raise AssertionError(f"{phase}: audit {name}: {out[-1500:]}")
         verdicts[name] = dict(verdict=m.group(1), violations=0,
                               notes=int(m.group(3)))
     return verdicts
@@ -3725,6 +3781,257 @@ def storage_phase(video: str = SAMPLE_VIDEO, trees=None, reference=None,
         audits=audits, wall_s=time.perf_counter() - t_phase)
 
 
+# -- seeded traffic and the chaos matrix (steps 25-26) ------------------------
+
+TRAFFIC_ROOT = "output/chip_smoke/traffic"
+CHAOS_ROOT = "output/chip_smoke/chaos"
+#: the drills, in order, each on a fresh spool and cache
+TRAFFIC_SCENARIOS = tuple(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenarios",
+                 f"{name}.yml") for name in ("steady", "burst_shed"))
+#: the drills' clock compression on the card. The YAMLs' speedups (30 and
+#: 40) suit a 2 ms stub service; a cold served request of the slice takes
+#: about 2 s of service on the card, more than steady's 15 s SLO
+#: compressed 30-fold, so the card runs the scenarios' own rates on the
+#: wall clock
+TRAFFIC_SPEEDUP = 1.0
+#: the journal identity of every drill (and of its dry run)
+TRAFFIC_HOST = "lg-chip-smoke"
+#: seed -> fault plan of the chaos phase: the tier-1 rows of the JAX
+#: package's matrix (tests/test_chaos.py CHAOS_PLANS 0 and 1)
+CHAOS_PLANS = {0: "seed=0;decode.read=eio@n3",
+               1: "seed=1;sink.fsync=eio@n1"}
+#: copies of the sample each chaos run extracts
+CHAOS_VIDEOS = 2
+
+
+def traffic_phase(video: str = SAMPLE_VIDEO, scenarios=TRAFFIC_SCENARIOS,
+                  speedup=TRAFFIC_SPEEDUP, stub_s=None, reference=None,
+                  **over) -> dict:
+    """Seeded traffic through the gateway (module docstring, step 25): for
+    each scenario, on a fresh spool and cache, an in-process ``ServeLoop``
+    on step 21's configuration behind a ``GatewayServer`` with the
+    drill's tenant table, and ``loadgen.DrillRunner`` driving the
+    scenario's offered schedule at ``speedup`` (None: the YAML's) over a
+    corpus of the sample with a suffix per item, counts set to 0 just
+    before and read just after. ``reference`` is the outputs directory of
+    step 21's server (its request 1); ``stub_s`` replaces the video step
+    with a sleep (the CPU test's stub service, which writes no
+    features); ``over`` replaces CLI keys."""
+    import os
+    import shutil
+
+    from video_features_tpu_torch import loadgen, serve
+    from video_features_tpu_torch.config import (load_config, parse_dotlist,
+                                                 sanity_check)
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.telemetry import schema as tschema
+    from video_features_tpu_torch.utils.io import decoded_frames
+
+    stem = os.path.splitext(os.path.basename(video))[0]
+    want = {}
+    if stub_s is None:
+        want = stem_outputs(read_outputs(
+            reference or f"{SERVE_ROOT}/served/out/i3d"), stem)
+        if not want:
+            raise AssertionError("traffic: no reference outputs")
+    stacks = len(want.get("timestamps_ms.npy", []))
+    iters = int(over.get("flow_iters") or ITERS)
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    per_item = iters * stacks if on_card else 0
+    none = dict(level=0, proj=0, packed=0)
+    scenario_schema = tschema.load_schema(tschema.SCENARIO_SCHEMA_PATH)
+    shutil.rmtree(TRAFFIC_ROOT, ignore_errors=True)
+    drills, trees = {}, {}
+    for path in scenarios:
+        spec = loadgen.load_scenario(path)
+        name = spec["scenario"]
+        root = f"{TRAFFIC_ROOT}/{name}"
+        os.makedirs(root)
+        spool, cache = f"{root}/spool", f"{root}/cache"
+        rate = float(speedup if speedup is not None else spec["speedup"])
+        # the replay proof: the drill's journal is this dry run's
+        if loadgen.loadgen_main([path, "--spool", spool, "--out",
+                                 f"{root}/dry", "--host-id", TRAFFIC_HOST,
+                                 "--dry-run"]) != 0:
+            raise AssertionError(f"traffic: {name}: the dry run failed")
+        tenants = f"{root}/tenants.yml"
+        loadgen.write_tenant_table([spec], tenants, rate)
+        corpus = loadgen.synthesize_corpus(f"{root}/corpus", [spec],
+                                           sample=video)
+        argv = telemetry_argv(f"{root}/served", video, **over) + [
+            "cache=true", f"cache_dir={cache}", f"spool_dir={spool}",
+            "serve_poll_interval_s=0.02", "metrics_interval_s=0.5"]
+        cfg = load_config("i3d", parse_dotlist(argv))
+        sanity_check(cfg, require_videos=False)
+        with running_server(cfg, tenants) as server:
+            if stub_s is not None:
+                server["loop"]._run_one_video = \
+                    lambda v, f=cfg.feature_type: (time.sleep(stub_s)
+                                                   or {f: "done"})
+            runner = loadgen.DrillRunner(
+                [spec], spool, server["base"], corpus=corpus, speedup=rate,
+                host_id=TRAFFIC_HOST, audit_root=root, cache_dir=cache,
+                drain_timeout_s=SERVING_TIMEOUT_S, http_timeout_s=60)
+            synchronize()
+            reset_counts(cl)
+            frames0 = decoded_frames()
+            t = time.perf_counter()
+            report = runner.run()
+            synchronize()
+            drill_s = time.perf_counter() - t
+            launches = read_counts(cl)
+            frames = decoded_frames() - frames0
+
+        # the journal is the dry run's, byte for byte; the artifact is
+        # valid and its tallies reconcile with the journal
+        dry = f"{root}/dry/{loadgen.journal_filename(TRAFFIC_HOST)}"
+        with open(runner.journal_path, "rb") as a, open(dry, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"traffic: {name}: the journal is not "
+                                     "the dry run's")
+        with open(f"{spool}/{loadgen.SCENARIO_FILENAME}") as f:
+            art = json.load(f)
+        errs = tschema.validate(art, scenario_schema)
+        offered = [e for e in loadgen.offered_events(spec)
+                   if e["event"] == "request"]
+        tally = {k: art[k] for k in ("offered", "admitted", "completed",
+                                     "expired", "rejected", "shed",
+                                     "errors")}
+        if errs or art != report or art["offered"] != len(offered) or \
+                art["admitted"] + art["rejected"] + art["shed"] + \
+                art["errors"] != art["offered"] or \
+                art["admitted"] != art["completed"] + art["expired"]:
+            raise AssertionError(f"traffic: {name}: the artifact {errs} "
+                                 f"{tally}")
+        # the items served: each one's first request ran cold (proj 20
+        # launches a stack), every later one was a cache hit (none)
+        videos = {e["id"]: e["videos"] for e in offered}
+        done = sorted({v for lg_id, o in runner.outcomes.items()
+                       if o["gw_id"] and (serve.read_terminal(
+                           spool, o["gw_id"]) or {}).get("status") == "done"
+                       for v in videos[lg_id]})
+        if stub_s is None:
+            served = read_outputs(str(cfg.output_path))
+            for item in done:
+                check_bit_equal(stem_outputs(served, item), want,
+                                f"traffic: {name}: {item}")
+        if launches != dict(none, proj=per_item * len(done)):
+            raise AssertionError(f"traffic: {name}: launches {launches}, "
+                                 f"{len(done)} cold items x {per_item}")
+        if name == "steady" and art["verdict"] != "PASS":
+            raise AssertionError(f"traffic: steady {art['verdict']}: "
+                                 f"{art['objectives']}")
+        if name == "burst_shed" and not any(
+                o.get("tenant") == "beta" and "min_rejected" in o
+                and o["met"] for o in art["objectives"]):
+            raise AssertionError(f"traffic: burst_shed: beta was not shed: "
+                                 f"{art['objectives']}")
+        trees[name] = dict(audit=root, audit_cache_dir=cache)
+        drills[name] = dict(
+            speedup=rate, verdict=art["verdict"], audit=art["audit"],
+            objectives=[{k: o[k] for k in o if k != "scenario"}
+                        for o in art["objectives"]],
+            **tally,
+            tenants={t: {k: v[k] for k in ("offered", "admitted",
+                                           "completed", "rejected", "shed",
+                                           "attainment_pct")}
+                     for t, v in art["tenants"].items()},
+            latency=art["latency"],
+            items_served=len(done), stacks_per_item=stacks,
+            launches=launches, frames_decoded=frames,
+            warm_construction_s=server["construction_s"],
+            drill_wall_s=drill_s,
+            duration_s=spec["duration_s"])
+    audits = audit_trees(trees, "traffic")
+    for name, verdict in audits.items():
+        drills[name]["audit_command"] = verdict
+    return drills
+
+
+def chaos_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
+    """The chaos matrix on the main path (module docstring, step 26): the
+    slice's CLI over :data:`CHAOS_VIDEOS` copies of the sample with
+    ``fleet=queue telemetry=true health=true cache=true`` (the YAML's
+    ``retry_attempts``), once clean and once per seed of
+    :data:`CHAOS_PLANS`, counts set to 0 just before each and read
+    just after; then the port's ``audit --expect-complete`` over each
+    tree, ``compare`` of each seed against the clean run and ``compare
+    --selftest``. ``over`` replaces CLI keys."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+
+    root = CHAOS_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    videos = []
+    for i in range(CHAOS_VIDEOS):
+        dst = os.path.abspath(f"{root}/v_chaos_{i}.mp4")
+        shutil.copyfile(video, dst)
+        videos.append(dst)
+    iters = int(over.get("flow_iters") or ITERS)
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    keys = dict(dict(retry_attempts=3), **over)
+
+    def run(name, plan=None) -> dict:
+        argv = telemetry_argv(f"{root}/{name}", "[" + ",".join(videos) + "]",
+                              **keys) + [
+            "fleet=queue", "telemetry=true", "health=true", "cache=true",
+            f"cache_dir={root}/{name}/cache"]
+        if plan is not None:
+            argv.append(f"inject={plan}")
+        res = run_cli(argv, cl)
+        out = Path(f"{root}/{name}/out")
+        res["npy"] = {str(p.relative_to(out)): p.read_bytes()
+                      for p in sorted(out.rglob("*.npy"))}
+        return res
+
+    runs = {"clean": run("clean")}
+    runs.update({f"seed{seed}": run(f"seed{seed}", plan)
+                 for seed, plan in sorted(CHAOS_PLANS.items())})
+    clean = runs["clean"]["npy"]
+    stamps = [v for k, v in read_outputs(f"{root}/clean/out").items()
+              if k.endswith("_timestamps_ms.npy")]
+    if len(stamps) != CHAOS_VIDEOS or not len(stamps[0]):
+        raise AssertionError(f"chaos: the clean run wrote {sorted(clean)}")
+    per_video = iters * len(stamps[0])
+    stats = {}
+    for name, res in runs.items():
+        if res["npy"] != clean:
+            raise AssertionError(f"chaos: {name}: outputs differ from the "
+                                 f"clean run's ({sorted(res['npy'])})")
+        proj = res["launches"]["proj"]
+        cold = proj // per_video if per_video else 0
+        if res["launches"]["level"] or res["launches"]["packed"] or (
+                on_card and (proj % per_video or not 1 <= cold <=
+                             2 * CHAOS_VIDEOS)) or (not on_card and proj):
+            raise AssertionError(f"chaos: {name}: launches "
+                                 f"{res['launches']}, {per_video} a video")
+        stats[name] = dict(wall_s=res["wall_s"], launches=res["launches"],
+                           extractions=cold, plan=CHAOS_PLANS.get(
+                               int(name[4:])) if name != "clean" else None)
+    audits = audit_trees({name: dict(audit=f"{root}/{name}/out",
+                                     audit_cache_dir=f"{root}/{name}/cache")
+                          for name in runs}, "chaos")
+    for name in runs:
+        stats[name]["audit"] = audits[name]
+        if name == "clean":
+            continue
+        cmp = run_module(["compare", f"{root}/clean/out",
+                          f"{root}/{name}/out"], f"chaos: compare {name}")
+        verdict = cmp["stdout"].strip().splitlines()[-1]
+        if not verdict.startswith("vft-compare: PASS"):
+            raise AssertionError(f"chaos: compare {name}: {cmp['stdout']}")
+        stats[name]["compare"] = verdict
+    selftest = run_module(["compare", "--selftest"], "chaos: selftest")
+    return dict(runs=stats, videos=CHAOS_VIDEOS, per_video_launches=per_video,
+                npy_files=len(clean),
+                selftest=selftest["stdout"].strip().splitlines()[-1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3788,6 +4095,10 @@ def main() -> int:
     empty_cache()
     storage_stats = storage_phase()
     empty_cache()
+    traffic_stats = traffic_phase()
+    empty_cache()
+    chaos_stats = chaos_phase()
+    empty_cache()
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -3812,6 +4123,10 @@ def main() -> int:
         for k in ("first", "copy")]
     proj_row["launches_storage_refill"] = storage_stats[
         "refill_proj_launches"]
+    proj_row["launches_traffic"] = {
+        name: d["launches"]["proj"] for name, d in traffic_stats.items()}
+    proj_row["launches_chaos"] = {
+        name: r["launches"]["proj"] for name, r in chaos_stats["runs"].items()}
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -3833,6 +4148,7 @@ def main() -> int:
     compile_stats["card"] = card
     fleet_queue_stats["card"] = card
     storage_stats["card"] = card
+    chaos_stats["card"] = card
     print(json.dumps({"slice": slice_stats}))
     print(json.dumps({"raft_family": raft_stats}))
     print(json.dumps({"pwc_family": pwc_stats}))
@@ -3854,6 +4170,8 @@ def main() -> int:
     print(json.dumps({"alerts_plane": alerts_plane_line(
         telemetry_stats, alerts_stats, card)}))
     print(json.dumps({"storage": storage_stats}))
+    print(json.dumps({"traffic": dict(traffic_stats, card=card)}))
+    print(json.dumps({"chaos": chaos_stats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -455,7 +455,8 @@ def test_cli_rejects_unported_families():
 def test_port_imports_no_jax_and_no_lazy_host_deps():
     """Every module of the port (the serving plane's ``compile_cache``,
     ``serve``, ``gateway``, ``parallel/queue``, the storage plane's ``gc``
-    and ``audit`` and the CLI among them), and
+    and ``audit``, the drills' ``loadgen``, ``compare_runs`` and the CLI
+    among them), and
     tests/test_torch_cuda.py, imports under a finder that refuses jax, flax
     and video_features_tpu; importing the
     i3d, raft, pwc, r21d, s3d, resnet and clip extractors and the card-only
@@ -487,7 +488,7 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
             pkg.__path__, pkg.__name__ + ".")]
         serving = {"video_features_tpu_torch." + m for m in (
             "compile_cache", "serve", "gateway", "parallel.queue", "cli",
-            "gc", "audit")}
+            "gc", "audit", "loadgen", "compare_runs")}
         assert serving <= set(names), serving - set(names)
         for name in names:
             importlib.import_module(name)
@@ -497,7 +498,7 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stdout + run.stderr
-    assert int(run.stdout.split()[-1]) >= 41
+    assert int(run.stdout.split()[-1]) >= 43
 
 
 def test_chip_smoke_imports_no_jax():

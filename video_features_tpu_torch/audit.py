@@ -54,11 +54,11 @@ import sys
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
-ARTIFACT_EXTS = (".npy", ".pkl")
+# the drill verdict's schema, from ``loadgen.py``, which writes the
+# ``_scenario.json`` files this audit reads
+from .loadgen import SCENARIO_SCHEMA
 
-#: the drill verdict's schema (the JAX package's ``loadgen.py``, which
-#: writes the ``_scenario.json`` files this audit reads)
-SCENARIO_SCHEMA = "vft.scenario/1"
+ARTIFACT_EXTS = (".npy", ".pkl")
 
 
 class Audit:

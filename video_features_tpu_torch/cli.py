@@ -79,8 +79,12 @@ entry ahead of time; ``... parity <run_dir>`` summarizes a run's
 ``_parity.jsonl``, and ``... parity certify --family raft --flip dtype=bf16
 device=cuda`` A/B-certifies a numerics flip into ``_parity_verdict.json``
 (``--out``, default the working directory); ``... gc <root>`` accounts
-the storage planes and runs a journaled eviction sweep (``gc.py``), and
-``... audit <root>`` checks a tree's durability invariants (``audit.py``).
+the storage planes and runs a journaled eviction sweep (``gc.py``);
+``... audit <root>`` checks a tree's durability invariants (``audit.py``);
+``... loadgen SCENARIO.yml --spool ... --base-url ...`` drives a seeded
+traffic drill through the gateway (``loadgen.py``), and ``... compare A B``
+diffs two runs' digests, stages, failures and artifacts into one verdict
+(``compare_runs.py``).
 """
 from __future__ import annotations
 
@@ -125,6 +129,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     if argv and argv[0] == "audit":
         from .audit import main as audit_main
         raise SystemExit(audit_main(argv[1:]))
+    if argv and argv[0] == "loadgen":
+        from .loadgen import loadgen_main
+        raise SystemExit(loadgen_main(argv[1:]))
+    if argv and argv[0] == "compare":
+        from .compare_runs import main as compare_main
+        raise SystemExit(compare_main(argv[1:]))
     overrides = parse_dotlist(argv)
     feature_type = overrides.get("feature_type")
     if not feature_type:

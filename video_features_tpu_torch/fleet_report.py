@@ -37,8 +37,9 @@ sections read the JAX package's layout, which the port's planes write too:
 the spool and the ``serve`` section (``serve.py``), the gateway's journal
 (``gateway.py``), ``_queue/`` and the ``fleet`` section
 (``parallel/queue.py``), the ``compile_cache`` section
-(``compile_cache.py``) and, with ``gc=true``, the ``gc`` section
-(``gc.py GcMonitor``).
+(``compile_cache.py``), with ``gc=true`` the ``gc`` section
+(``gc.py GcMonitor``), and the drills' ``_scenario.json`` verdicts
+(``loadgen.py``).
 """
 from __future__ import annotations
 
@@ -269,7 +270,7 @@ def collect_alerts(root: str) -> List[dict]:
 
 def collect_scenarios(root: str) -> List[dict]:
     """Every recorded-drill verdict under the root (``_scenario.json``,
-    written by the JAX package's load generator): the traffic-scenario
+    written by ``loadgen.py``'s ``DrillRunner``): the traffic-scenario
     observatory — rendered as the
     ``== scenarios ==`` section and exported as ``vft_scenario_*``
     gauges. Sorted by artifact time so the freshest drill renders

@@ -40,8 +40,8 @@ failure journal (``utils/faults.py``) instead of dispatched forever.
 same root takes part; hosts may join or leave mid-run. A joining host can be
 gated by the **canary** (:meth:`WorkQueue.canary_gate`): it re-extracts a
 slice of completed work and must pass the digest bands of
-``scripts/compare_runs.py`` and the timing band of
-``scripts/bench_history.py`` (the port's own copies below) before it claims.
+``compare_runs.py`` and the timing band of ``scripts/bench_history.py`` (the
+port's own copy below) before it claims.
 
 **Exactly once**: a video is always in at least one of pending, claimed or
 done; completion writes the ``done/`` marker with ``O_EXCL`` (first writer
@@ -64,6 +64,7 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import telemetry
+from ..compare_runs import compare_digests, load_health
 from ..telemetry import trace
 from ..telemetry.heartbeat import STALL_INTERVALS, heartbeat_filename
 from ..telemetry.jsonl import append_jsonl, read_jsonl, write_json_atomic
@@ -86,9 +87,6 @@ STAGING_ORPHAN_LEASES = 4.0
 #: this tighter bar instead: it has no build to pay
 WARM_CANARY_BAND = 0.25
 
-#: digest stats held to the atol + rtol * |baseline| band
-#: (scripts/compare_runs.py STAT_KEYS)
-STAT_KEYS = ("min", "max", "mean", "std", "l2")
 #: the timing history's record schema (scripts/bench_history.py)
 HISTORY_SCHEMA = "vft.bench_history/1"
 
@@ -815,77 +813,9 @@ class WorkQueue:
         return not regressions
 
 
-# -- the canary's bands: the port's copies of scripts/compare_runs.py
-#    (load_health, _within, compare_digests) and scripts/bench_history.py
-#    (load_history, series, check_regressions) -----------------------------
-
-def load_health(root: str) -> Dict[Tuple[str, str, str], dict]:
-    """Latest digest per (video basename, family, key) under ``root``."""
-    from ..telemetry.health import HEALTH_FILENAME
-    out: Dict[Tuple[str, str, str], dict] = {}
-    for path in sorted(Path(root).rglob(HEALTH_FILENAME)):
-        for rec in read_jsonl(path):
-            k = (os.path.basename(str(rec.get("video"))),
-                 str(rec.get("feature_type")), str(rec.get("key")))
-            out[k] = rec  # last record wins: re-runs supersede
-    return out
-
-
-def _within(a: Optional[float], b: Optional[float],
-            atol: float, rtol: float) -> bool:
-    if a is None or b is None:
-        return a is None and b is None
-    return abs(float(a) - float(b)) <= atol + rtol * abs(float(a))
-
-
-def compare_digests(da: dict, db: dict, atol: float, rtol: float
-                    ) -> Tuple[List[str], List[str], int]:
-    """(failures, infos, n_compared) for run B's digests against run A's:
-    a changed shape or dtype and newly non-finite values fail; an equal
-    content signature passes; else every stat must sit inside
-    ``atol + rtol * |a|``."""
-    fails: List[str] = []
-    infos: List[str] = []
-    common = sorted(set(da) & set(db))
-    for k in common:
-        a, b = da[k], db[k]
-        label = f"{k[1]}/{k[0]}:{k[2]}"
-        if a.get("shape") != b.get("shape") or \
-                a.get("dtype") != b.get("dtype"):
-            fails.append(
-                f"shape/dtype changed for {label}: "
-                f"{a.get('shape')}/{a.get('dtype')} -> "
-                f"{b.get('shape')}/{b.get('dtype')}")
-            continue
-        a_bad = int(a.get("nan", 0)) + int(a.get("inf", 0))
-        b_bad = int(b.get("nan", 0)) + int(b.get("inf", 0))
-        if b_bad > a_bad:
-            fails.append(
-                f"non-finite values introduced in {label}: "
-                f"{b.get('nan')} NaN / {b.get('inf')} Inf "
-                f"(baseline had {a_bad})")
-            continue
-        if a.get("sig") == b.get("sig"):
-            continue  # identical within the signature's quantization grid
-        drifted = [
-            f"{s} {a.get(s):.6g}->{b.get(s):.6g}" for s in STAT_KEYS
-            if not _within(a.get(s), b.get(s), atol, rtol)]
-        if drifted:
-            fails.append(f"digest drift beyond atol={atol}/rtol={rtol} "
-                         f"for {label}: " + ", ".join(drifted))
-        else:
-            infos.append(f"content moved within tolerance for {label} "
-                         "(signature changed, stats in band)")
-    only_a = sorted(set(da) - set(db))
-    only_b = sorted(set(db) - set(da))
-    if only_a:
-        infos.append(f"{len(only_a)} digest(s) only in baseline "
-                     f"(e.g. {'/'.join(only_a[0])})")
-    if only_b:
-        infos.append(f"{len(only_b)} digest(s) only in candidate "
-                     f"(e.g. {'/'.join(only_b[0])})")
-    return fails, infos, len(common)
-
+# -- the canary's timing band: the port's copy of scripts/bench_history.py
+#    (load_history, series, check_regressions); its digest band is
+#    compare_runs.py's (load_health, compare_digests) ------------------------
 
 def load_history(path: str) -> List[dict]:
     return [r for r in read_jsonl(path)
