@@ -331,7 +331,48 @@ that goes wrong:
    run's, the port's ``compare`` against the clean run gives ``PASS``;
    proj 20 launches a stack of each extraction; ``compare --selftest``
    exits 0;
-27. prints one JSON line each of the i3d slice's, the raft family's, the
+27. holds blockwise attention (:func:`sequence_phase`):
+   ``parallel/sequence.py blockwise_attention`` against ``dense_attention``
+   at CLIP ViT-L/14@336px's attention shape (16 frames, 577 tokens, 16
+   heads of 64, float32, blocks of 256), causal and not, within atol 2e-5
+   and rtol 1e-5 (the JAX package's band), each timed; then ``ExtractCLIP``
+   at ``model_name=ViT-L/14@336px`` with seeded weights over 32 synthetic
+   frames in batches of 16, once with ``vision_attn=dense`` and once with
+   ``blockwise``, counts set to 0 just before each and read just after (no
+   lookup kernel): the features within the same band, frames/s and
+   ``torch.cuda.max_memory_allocated`` of each. Ring and Ulysses attention
+   are not run: on one card their world is one process and runs no
+   collective, and a process group here would shard the later phases;
+28. drives ``show_pred`` on the flow paths (:func:`show_pred_phase`): the
+   i3d slice (fused proj, ``resize=host``) over two stacks with
+   ``show_pred=true``, then with it off, then on with RAFT's plain gather
+   lookup, counts set to 0 just before each and read just after: the
+   features with ``show_pred`` bit-equal to the run without it, proj's
+   launches the same in both, ``At stack {n} ({stream} stream)`` printed
+   for both streams of each stack, the logits within 5e-4 (the I3D logits
+   band of the port against JAX) of the plain lookup's, and the printed
+   top-5 equal wherever the plain lookup's top six logits lie further
+   apart than twice the measured difference. Then the raft family
+   (proj 20 launches per forward) and the pwc family (none) with
+   ``show_pred=true`` over 65 and 33 frames, their cv2 window replaced by
+   a recorder: one overlay per flow, equal to ``flow_to_image`` of the
+   card's flow under its frame, the flow image the frame's shape and
+   dtype;
+29. runs the trace report over the telemetry phase's on run
+   (:func:`trace_report_phase`): ``trace_report.main`` with ``--merge`` of
+   that run's ``torch.profiler`` capture prints a ``*-bound`` verdict,
+   which ``stage_summary`` gives too; the merged file holds every event of
+   both, the host lanes under one pid above the capture's integer pids,
+   ``"aligned": false``, and the capture's device lanes with the run's 40
+   proj kernels;
+30. kills a queue worker (:func:`worker_kill_phase`): two ``fleet=queue``
+   workers of the slice over step 23's copies, the first with
+   ``VFT_INJECT=seed=11;worker.kill=kill@n2`` (a SIGKILL at its second
+   video), the second started once the first has finished a video, a 2 s
+   lease: the first exits by SIGKILL, the second reclaims its lease and
+   drains the queue, every video done once, the outputs bit-equal to step
+   23's static run, the port's ``audit --expect-complete`` ``PASS``;
+31. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
    vggish, parallel, multi, telemetry, alerts, fleet, certify, serve,
    compile-cache and fleet-queue phases' numbers, one of the alerting's
@@ -340,22 +381,23 @@ that goes wrong:
    the walls), one of the storage phase's (deletions planned and done and
    their bytes by plane, the walls of a ``usage()`` walk and of a sweep,
    the refill's and the hit's walls, the audit verdicts), one each of the
-   traffic and chaos phases', one of the kernels' numbers, and last
+   traffic, chaos, sequence, show_pred, trace-report and worker-kill
+   steps', one of the kernels' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
 synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
 transforms and the I420 encoder are numpy. The multi, telemetry, alerts,
-certify, serving, storage, traffic and chaos phases decode a video, with
-cv2, and fail without it; the telemetry, alerts, certify, serving,
-storage, traffic and chaos phases read YAML with yaml. The serving,
-storage, traffic and chaos phases start ``python -m
-video_features_tpu_torch`` subprocesses with this checkout on
+certify, serving, storage, traffic, chaos and worker-kill phases decode a
+video, with cv2, and fail without it; the telemetry, alerts, certify,
+serving, storage, traffic, chaos and worker-kill phases read YAML with
+yaml. The serving, storage, traffic, chaos and worker-kill phases start
+``python -m video_features_tpu_torch`` subprocesses with this checkout on
 ``PYTHONPATH`` and wait for each (none outlives its phase), and the gateway
-binds ``127.0.0.1`` only. PIL is needed by the
-frame-wise phases' ``resize=host`` runs; scipy by the vggish phase's
-resampling.
+binds ``127.0.0.1`` only. PIL is needed by the frame-wise phases'
+``resize=host`` runs and the show_pred phase's i3d; scipy by the vggish
+phase's resampling. No phase opens a window.
 """
 from __future__ import annotations
 
@@ -2318,6 +2360,7 @@ def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
 #: the telemetry phase: the sample at 7.3 fps is 132 frames, two 64-frame
 #: stacks; the run-plane keys it turns on (profile_trace_dir beside them),
 #: and the retained history and alerting on top of them
+TELEMETRY_ROOT = "output/chip_smoke/telemetry"
 TELEMETRY_FPS = 7.3
 RUN_PLANE = ("telemetry=true", "trace=true", "health=true", "profile=true",
              "roofline=true", "parity=true")
@@ -2382,7 +2425,7 @@ def telemetry_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
     from video_features_tpu_torch.telemetry import (health, roofline, schema,
                                                     trace)
 
-    root = "output/chip_smoke/telemetry"
+    root = TELEMETRY_ROOT
     shutil.rmtree(root, ignore_errors=True)
     stem = os.path.splitext(os.path.basename(video))[0]
     again = f"{root}/{stem}_again.mp4"
@@ -3303,6 +3346,25 @@ def compile_cache_phase(video: str = SAMPLE_VIDEO, env=None,
         rebuilt_identical=open(lib, "rb").read() == good)
 
 
+def fleet_corpus(video: str, n_videos: int = FLEET_VIDEOS) -> list:
+    """The absolute paths of the fleet phase's copies of ``video``."""
+    import os
+    stem = os.path.splitext(os.path.basename(video))[0]
+    return [os.path.abspath(f"{FLEET_ROOT}/{stem}_fleet{i}.mp4")
+            for i in range(n_videos)]
+
+
+def fleet_keys(root: str, videos, **over) -> list:
+    """The CLI arguments of the fleet phase's runs over ``videos`` into
+    ``root``: the slice with ``telemetry health``, a 0.5 s heartbeat, and
+    ``compile_cache=false`` (a joiner's canary keeps the cold-build timing
+    band; the compile-cache phase holds the warm join). ``over`` replaces
+    keys (``fleet``, the CPU test's small sizes)."""
+    return telemetry_argv(root, "[" + ",".join(videos) + "]", **over) + [
+        "telemetry=true", "health=true", "metrics_interval_s=0.5",
+        "compile_cache=false"]
+
+
 def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
                       **over) -> dict:
     """The work-stealing queue (module docstring, step 23): a static
@@ -3322,19 +3384,12 @@ def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
     root = FLEET_ROOT
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    stem = os.path.splitext(os.path.basename(video))[0]
-    copies = []
-    for i in range(n_videos):
-        copies.append(os.path.abspath(f"{root}/{stem}_fleet{i}.mp4"))
-        shutil.copyfile(video, copies[-1])
-    paths = "[" + ",".join(copies) + "]"
+    copies = fleet_corpus(video, n_videos)
+    for copy in copies:
+        shutil.copyfile(video, copy)
 
     def keys(name, **kw):
-        # compile_cache=false: the joiner's canary keeps the cold-build
-        # timing band (the compile-cache phase holds the warm join)
-        return telemetry_argv(f"{root}/{name}", paths, **over, **kw) + [
-            "telemetry=true", "health=true", "metrics_interval_s=0.5",
-            "compile_cache=false"]
+        return fleet_keys(f"{root}/{name}", copies, **over, **kw)
 
     single = run_cli(keys("single", fleet="static"), cl)
     want = read_outputs(f"{root}/single/out/i3d")
@@ -4032,6 +4087,402 @@ def chaos_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
                 selftest=selftest["stdout"].strip().splitlines()[-1])
 
 
+# -- sequence attention, show_pred, the trace report, a killed worker
+# (steps 27-30)
+
+#: the one published CLIP tower whose attention crosses a key block: 577
+#: tokens ((336 / 14)^2 + 1) of 16 heads of 64 in blocks of 256
+SEQUENCE_MODEL = "ViT-L/14@336px"
+SEQUENCE_TOKENS, SEQUENCE_HEADS, SEQUENCE_HEAD_DIM = 577, 16, 64
+#: frames through each extractor run (batches of 16), and the batch of the
+#: attention primitives
+SEQUENCE_FRAMES, SEQUENCE_BATCH = 32, 16
+#: blockwise against dense, features and primitives: the JAX package's
+#: band (tests/test_clip.py)
+SEQUENCE_ATOL, SEQUENCE_RTOL = 2e-5, 1e-5
+SHOW_PRED_ROOT = "output/chip_smoke/show_pred"
+#: the i3d logits through the proj kernel against the plain lookup: the
+#: port's I3D logits band against JAX (tests/test_torch_i3d.py); the
+#: quantised flow crops may step by one where the two lookups round apart
+SHOW_PRED_LOGITS_ATOL = 5e-4
+WORKER_KILL_ROOT = "output/chip_smoke/worker_kill"
+#: the JAX package's replayable kill (tests/test_chaos.py): SIGKILL at the
+#: worker's second per-video attempt
+WORKER_KILL_PLAN = "seed=11;worker.kill=kill@n2"
+#: the kill phase's lease: a dead worker's claim expires this soon
+WORKER_KILL_LEASE_S = 2
+
+
+def sequence_phase(model_name: str = SEQUENCE_MODEL,
+                   n_frames: int = SEQUENCE_FRAMES,
+                   batch: int = SEQUENCE_BATCH, shape=None,
+                   **over) -> dict:
+    """Blockwise attention on the card (module docstring, step 27):
+    ``parallel/sequence.py blockwise_attention`` against
+    ``dense_attention`` at ``shape`` (ViT-L/14@336px's by default),
+    causal and not, each timed; then ``ExtractCLIP`` at ``model_name``
+    with ``vision_attn=dense`` and ``blockwise`` over the same seeded
+    frames, counts set to 0 just before each run and read just after (no
+    lookup kernel), the features within :data:`SEQUENCE_ATOL` /
+    :data:`SEQUENCE_RTOL`; frames/s and peak memory of each. No
+    ``torch.distributed`` group is made here: ring and Ulysses need one,
+    and a group in this process would shard the phases after it.
+    ``over`` goes into both configs (the CPU test's ``device=cpu``)."""
+    from video_features_tpu_torch.extractors.clip import ExtractCLIP
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.models import clip as clip_model
+    from video_features_tpu_torch.parallel.sequence import (
+        blockwise_attention, dense_attention)
+
+    device = torch.device(over.get("device", "cuda"))
+    on_card = device.type == "cuda"
+    shape = shape or (batch, SEQUENCE_TOKENS, SEQUENCE_HEADS,
+                      SEQUENCE_HEAD_DIM)
+    gen = torch.Generator().manual_seed(27)
+    q, k, v = (torch.randn(shape, generator=gen).to(device)
+               for _ in range(3))
+    prims = {}
+    for causal in (False, True):
+        def dense():
+            return dense_attention(q, k, v, causal=causal)
+
+        def block():
+            return blockwise_attention(q, k, v, causal=causal,
+                                       block_size=clip_model.BLOCK_SIZE)
+
+        want, got = dense(), block()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=SEQUENCE_ATOL,
+                              rtol=SEQUENCE_RTOL):
+            raise AssertionError(f"sequence: blockwise against dense "
+                                 f"(causal={causal}) max abs err {err}")
+        prims["causal" if causal else "full"] = dict(
+            max_abs_err=err,
+            dense_ms=median_ms(dense, 5, 1) if on_card else None,
+            blockwise_ms=median_ms(block, 5, 1) if on_card else None)
+    del q, k, v
+    empty_cache()
+
+    frames = list(synthetic_frames(n_frames, 47))
+    runs, feats = {}, {}
+    for impl in clip_model.ATTN_IMPLS:
+        ex = ExtractCLIP(frame_config("clip", model_name=model_name,
+                                      vision_attn=impl, batch_size=batch,
+                                      **over))
+        ex.extract_frames(iter(frames[:batch]), 25.0)  # cuDNN set-up
+        if on_card:
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(cl)
+        out, seconds = timed(ex, frames)
+        counts = read_counts(cl)
+        f = out["clip"]
+        if any(counts.values()) or f.shape != (
+                n_frames, ex.cfg.embed_dim) or not np.isfinite(f).all():
+            raise AssertionError(f"sequence: clip {model_name} "
+                                 f"vision_attn={impl}: launches {counts}, "
+                                 f"features {f.shape}")
+        feats[impl] = f
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        runs[impl] = dict(
+            frames_per_s=n_frames / seconds, seconds=seconds,
+            launches=counts, max_memory_allocated=peak,
+            peak_over_resident=None if peak is None else peak - resident)
+        del ex
+        empty_cache()
+    diff = np.abs(feats["blockwise"].astype(np.float64)
+                  - feats["dense"].astype(np.float64))
+    if not np.allclose(feats["blockwise"], feats["dense"],
+                       atol=SEQUENCE_ATOL, rtol=SEQUENCE_RTOL):
+        raise AssertionError(f"sequence: blockwise features against dense: "
+                             f"max abs {float(diff.max())}")
+    return dict(model_name=model_name, frames=n_frames, batch=batch,
+                attention_shape=list(shape),
+                block_size=clip_model.BLOCK_SIZE, primitives=prims,
+                runs=runs, features_max_abs=float(diff.max()),
+                band=dict(atol=SEQUENCE_ATOL, rtol=SEQUENCE_RTOL))
+
+
+@contextlib.contextmanager
+def recorded_predictions(module):
+    """Within the block, the rows ``module.show_predictions_on_dataset``
+    prints are also appended to the yielded list."""
+    rows = []
+    original = module.show_predictions_on_dataset
+
+    def record(logits, dataset, k=5):
+        rows.append(np.asarray(logits, np.float32)[0].copy())
+        original(logits, dataset, k)
+
+    module.show_predictions_on_dataset = record
+    try:
+        yield rows
+    finally:
+        module.show_predictions_on_dataset = original
+
+
+def top5(row: np.ndarray) -> list:
+    return np.argsort(-row)[:5].tolist()
+
+
+def show_pred_phase(stack: int = STACK, iters: int = ITERS,
+                    raft_frames: int = 2 * RAFT_BATCH + 1,
+                    pwc_frames: int = PWC_BATCH + 1,
+                    device: str = "cuda") -> dict:
+    """``show_pred`` on the flow paths (module docstring, step 28): i3d
+    RAFT (fused proj) over two stacks with ``show_pred=true``, again with
+    it off, and again with it on through the plain lookup, each run's
+    counts set to 0 just before and read just after; then the raft family
+    and the pwc family with ``show_pred=true``, whose windows are replaced
+    by a recorder of the overlays they would show."""
+    import io
+
+    from video_features_tpu_torch.extractors import flow as flow_ex
+    from video_features_tpu_torch.extractors import i3d as i3d_ex
+    from video_features_tpu_torch.extractors.pwc import ExtractPWC
+    from video_features_tpu_torch.extractors.raft import ExtractRAFT
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils.flow_viz import flow_to_image
+
+    on_card = torch.device(device).type == "cuda"
+    ex = i3d_ex.ExtractI3D(slice_config(
+        SHOW_PRED_ROOT, show_pred=True, resize="host", stack_size=stack,
+        step_size=stack, flow_iters=iters, device=device))
+    frames = list(synthetic_frames(2 * stack + 1, 11))
+    raft = ex.flow_stream.raft
+
+    def run(show: bool, impl=None) -> dict:
+        ex.show_pred = show
+        raft.corr_lookup_impl = impl
+        ex.flow_stream.forwards = 0
+        buf = io.StringIO()
+        with recorded_predictions(i3d_ex) as rows, \
+                contextlib.redirect_stdout(buf):
+            reset_counts(cl)
+            out, seconds = timed(ex, frames)
+            counts = read_counts(cl)
+        raft.corr_lookup_impl = None
+        return dict(out=out, seconds=seconds, launches=counts, rows=rows,
+                    forwards=ex.flow_stream.forwards,
+                    heads=[ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("At stack")])
+
+    shown_run = run(True)
+    plain = run(False)
+    gather = run(True, "gather")
+    for key in ("rgb", "flow", "timestamps_ms"):
+        a, b = shown_run["out"][key], plain["out"][key]
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"show_pred: i3d {key} with show_pred "
+                                 f"differs from the run without it")
+    want = dict(level=0, proj=iters * plain["forwards"] if on_card else 0,
+                packed=0)
+    if shown_run["launches"] != want or plain["launches"] != want or \
+            any(gather["launches"].values()):
+        raise AssertionError(
+            f"show_pred: i3d launches {shown_run['launches']} (show_pred), "
+            f"{plain['launches']} (features only), {gather['launches']} "
+            f"(plain lookup); {want} expected")
+    heads = [f"At stack {n} ({s} stream)" for s in ("rgb", "flow")
+             for n in range(2)]
+    if shown_run["heads"] != heads or gather["heads"] != heads or \
+            plain["heads"] or len(shown_run["rows"]) != 4:
+        raise AssertionError(f"show_pred: i3d printed {shown_run['heads']}")
+    # two rows d apart entry by entry print the same ordered top-5 where
+    # the plain lookup's top six are each more than 2 d apart
+    logits_err = max(float(np.abs(got - ref).max())
+                     for got, ref in zip(shown_run["rows"], gather["rows"]))
+    if not logits_err <= SHOW_PRED_LOGITS_ATOL:
+        raise AssertionError(f"show_pred: i3d logits against the plain "
+                             f"lookup: max abs {logits_err}")
+    compared, gaps = 0, []
+    for head, got, ref in zip(heads, shown_run["rows"], gather["rows"]):
+        gap = float(-np.diff(np.sort(ref)[::-1][:6]).min())
+        gaps.append(gap)
+        if gap > 2 * logits_err:
+            compared += 1
+            if top5(got) != top5(ref):
+                raise AssertionError(f"show_pred: {head}: top-5 "
+                                     f"{top5(got)} against the plain "
+                                     f"lookup's {top5(ref)}")
+    i3d_stats = dict(
+        stacks=2, show_pred_s=shown_run["seconds"],
+        features_only_s=plain["seconds"],
+        launches=shown_run["launches"],
+        features_only_launches=plain["launches"],
+        flow_forwards=shown_run["forwards"],
+        logits_max_abs_vs_plain_lookup=logits_err,
+        top6_min_gaps=gaps, top5_compared=compared,
+        top5=[top5(r) for r in shown_run["rows"]])
+
+    stats = {"i3d": i3d_stats}
+    for family, n_frames, build, config in (
+            ("raft", raft_frames, ExtractRAFT,
+             raft_config(SHOW_PRED_ROOT, show_pred=True, iters=iters,
+                         device=device)),
+            ("pwc", pwc_frames, ExtractPWC,
+             pwc_config(SHOW_PRED_ROOT, show_pred=True, device=device))):
+        fex = build(config)
+        shown = []
+        fex.show_flow = lambda i, bgr: shown.append(bgr)
+        used = list(synthetic_frames(n_frames, 21))
+        reset_counts(cl)
+        out, seconds = timed(fex, used)
+        counts = read_counts(cl)
+        flows = out[family]
+        forwards = -(-(n_frames - 1) // fex.batch_size)
+        want = dict(level=0, proj=0, packed=0)
+        if family == "raft" and on_card:
+            want["proj"] = iters * forwards
+        if counts != want or len(shown) != n_frames - 1 or \
+                len(flows) != n_frames - 1:
+            raise AssertionError(f"show_pred: {family} launches {counts} "
+                                 f"({want} expected), {len(shown)} shown "
+                                 f"of {len(flows)} flows")
+        for i, flow in enumerate(flows):
+            frame = used[i][0]
+            vis = flow_to_image(flow.transpose(1, 2, 0))
+            if vis.shape != frame.shape or vis.dtype != frame.dtype or \
+                    not np.array_equal(shown[i], flow_ex.flow_overlay(
+                        frame, flow.transpose(1, 2, 0))):
+                raise AssertionError(f"show_pred: {family} flow {i}: image "
+                                     f"{vis.shape} {vis.dtype} against the "
+                                     f"frame's {frame.shape} {frame.dtype}")
+        stats[family] = dict(flows=len(flows), seconds=seconds,
+                             launches=counts, image_shape=list(vis.shape),
+                             image_dtype=str(vis.dtype))
+    return stats
+
+
+def trace_report_phase(root: str = TELEMETRY_ROOT,
+                       proj_want: int = 2 * ITERS) -> dict:
+    """The trace report (module docstring, step 29) over the telemetry
+    phase's on run: ``trace_report.main`` with ``--merge`` of that run's
+    ``torch.profiler`` capture. Held: a ``*-bound`` verdict printed and in
+    ``stage_summary``; the merged file holds every event of both inputs,
+    the host lanes under one pid above the capture's integer pids,
+    ``"aligned": false`` (the capture has no wall-clock anchor), and on
+    the card the capture's device lanes with ``proj_want`` proj kernels."""
+    import glob
+    import io
+    import re
+
+    from video_features_tpu_torch import trace_report
+
+    host_dir = f"{root}/on/out/i3d"
+    out = f"{root}/_trace_merged.json"
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = trace_report.main([host_dir, "--merge", f"{root}/prof",
+                                "--out", out])
+    wall_s = time.perf_counter() - t
+    m = re.search(r"^verdict: (\S+-bound)", buf.getvalue(), re.M)
+    summary = trace_report.stage_summary(host_dir)
+    if rc != 0 or m is None or summary["verdict"] != m.group(1):
+        raise AssertionError(f"trace report: rc {rc}, summary {summary}: "
+                             f"{buf.getvalue()[-800:]}")
+    merged = json.load(open(out))
+    host = json.load(open(f"{host_dir}/_trace.json"))["traceEvents"]
+    capture = json.load(open(glob.glob(f"{root}/prof/*.pt.trace.json")[0]))[
+        "traceEvents"]
+    host_pid = max(e["pid"] for e in capture
+                   if isinstance(e.get("pid"), int)) + 100000
+    events = merged["traceEvents"]
+    lanes = [e for e in events if e.get("pid") == host_pid]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    proj = [e for e in kernels if "proj_kernel" in e.get("name", "")]
+    on_card = torch.cuda.is_available()
+    if merged["otherData"]["aligned"] is not False or \
+            len(events) != len(host) + len(capture) or \
+            len(lanes) != len(host) or \
+            (on_card and len(proj) != proj_want) or \
+            (not on_card and kernels):
+        raise AssertionError(
+            f"trace report: merged {len(events)} events of "
+            f"{len(host)} + {len(capture)}, host lanes {len(lanes)}, "
+            f"{len(kernels)} device kernels, {len(proj)} proj "
+            f"({proj_want} expected), aligned "
+            f"{merged['otherData']['aligned']}")
+    return dict(verdict=m.group(1), stage_summary=summary, wall_s=wall_s,
+                merged_events=len(events), host_events=len(host),
+                capture_events=len(capture), device_kernels=len(kernels),
+                proj_kernels=len(proj), aligned=False)
+
+
+def worker_kill_phase(video: str = SAMPLE_VIDEO,
+                      n_videos: int = FLEET_VIDEOS,
+                      reference: str = f"{FLEET_ROOT}/single/out/i3d",
+                      **over) -> dict:
+    """A queue worker killed mid-run (module docstring, step 30): two
+    ``fleet=queue`` workers of the slice over the fleet phase's copies,
+    the first with ``VFT_INJECT`` :data:`WORKER_KILL_PLAN`, the second
+    started once the first has finished a video (so the plan's second
+    attempt is the first worker's). Held: the first dies by SIGKILL with
+    the plan fired; the second reclaims its lease, drains the queue and
+    exits 0; every video done once, the reclaimed one by the survivor;
+    the outputs bit-equal to ``reference`` (the fleet phase's static run);
+    the port's ``audit --expect-complete`` passes."""
+    import glob
+    import os
+    import shutil
+
+    from video_features_tpu_torch.parallel.queue import QUEUE_DIRNAME
+
+    root = WORKER_KILL_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    copies = fleet_corpus(video, n_videos)
+    keys = fleet_keys(root, copies, fleet="queue",
+                      fleet_lease_s=WORKER_KILL_LEASE_S, **over)
+    qroot = f"{root}/out/i3d"
+    done_dir = f"{qroot}/{QUEUE_DIRNAME}/done"
+    t = time.perf_counter()
+    victim = start_module(keys, env={"VFT_INJECT": WORKER_KILL_PLAN})
+    survivor = None
+    try:
+        deadline = time.time() + SERVING_TIMEOUT_S
+        while not glob.glob(f"{done_dir}/*.json") and \
+                victim.poll() is None and time.time() < deadline:
+            time.sleep(0.1)
+        survivor = start_module(keys)
+        try:
+            v_out, v_err = victim.communicate(timeout=SERVING_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("worker kill: the victim did not exit") \
+                from None
+        surv = finish_module(survivor, "worker kill: the survivor")
+    finally:
+        for proc in (victim, survivor):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall_s = time.perf_counter() - t
+    if victim.returncode != -9 or \
+            "INJECT: worker.kill=kill fired" not in v_out:
+        raise AssertionError(f"worker kill: the victim exited "
+                             f"{victim.returncode}: {(v_out + v_err)[-800:]}")
+    done = [json.load(open(p)) for p in sorted(
+        glob.glob(f"{done_dir}/*.json"))]
+    reclaimed = [d for d in done if d.get("reclaims", 0) >= 1]
+    mark = f"-{victim.pid}-"
+    if sorted(d["video"] for d in done) != sorted(copies) or \
+            {d["status"] for d in done} != {"done"} or \
+            len(reclaimed) != 1 or mark in reclaimed[0]["by"] or \
+            os.listdir(f"{qroot}/{QUEUE_DIRNAME}/pending"):
+        raise AssertionError(f"worker kill: done {done}")
+    check_bit_equal(read_outputs(qroot), read_outputs(reference),
+                    "worker kill: the reclaimed queue")
+    audit = audit_trees({"worker_kill": dict(audit=qroot)}, "worker kill")
+    return dict(videos=n_videos, wall_s=wall_s, victim_exit=-9,
+                plan=WORKER_KILL_PLAN, lease_s=WORKER_KILL_LEASE_S,
+                reclaimed=os.path.basename(reclaimed[0]["video"]),
+                done_by_victim=sum(mark in d["by"] for d in done),
+                survivor_tail=surv["stdout"].splitlines()[-1:],
+                audit=audit["worker_kill"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4084,7 +4535,7 @@ def main() -> int:
     empty_cache()
     alerts_stats = alerts_phase()
     empty_cache()
-    fleet_stats = fleet_step({"telemetry": "output/chip_smoke/telemetry",
+    fleet_stats = fleet_step({"telemetry": TELEMETRY_ROOT,
                               "alerts": ALERTS_ROOT}, kind)
     certify_stats = certify_phase()
     empty_cache()
@@ -4099,6 +4550,18 @@ def main() -> int:
     empty_cache()
     chaos_stats = chaos_phase()
     empty_cache()
+    steps = {}
+    for name, step in (("sequence", sequence_phase),
+                       ("show_pred", show_pred_phase),
+                       ("trace_report", trace_report_phase),
+                       ("worker_kill", worker_kill_phase)):
+        t0 = time.perf_counter()
+        steps[name] = step()
+        steps[name]["step_wall_s"] = time.perf_counter() - t0
+        empty_cache()
+    sequence_stats, show_pred_stats, trace_stats, kill_stats = (
+        steps[name] for name in ("sequence", "show_pred", "trace_report",
+                                 "worker_kill"))
     # each kernel's launches on the path that runs it: the i3d slice for
     # proj (fused) and level (unfused), the raft family for packed
     launches = {"corr_lookup_proj_cuda": proj_launches,
@@ -4127,6 +4590,12 @@ def main() -> int:
         name: d["launches"]["proj"] for name, d in traffic_stats.items()}
     proj_row["launches_chaos"] = {
         name: r["launches"]["proj"] for name, r in chaos_stats["runs"].items()}
+    proj_row["launches_show_pred"] = {
+        "i3d": show_pred_stats["i3d"]["launches"]["proj"],
+        "raft": show_pred_stats["raft"]["launches"]["proj"],
+        "pwc": show_pred_stats["pwc"]["launches"]["proj"]}
+    proj_row["launches_clip_blockwise"] = sequence_stats["runs"][
+        "blockwise"]["launches"]["proj"]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -4172,6 +4641,10 @@ def main() -> int:
     print(json.dumps({"storage": storage_stats}))
     print(json.dumps({"traffic": dict(traffic_stats, card=card)}))
     print(json.dumps({"chaos": chaos_stats}))
+    print(json.dumps({"sequence": dict(sequence_stats, card=card)}))
+    print(json.dumps({"show_pred": dict(show_pred_stats, card=card)}))
+    print(json.dumps({"trace_report": dict(trace_stats, card=card)}))
+    print(json.dumps({"worker_kill": dict(kill_stats, card=card)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -441,120 +441,6 @@ def test_check_trace_events_fails_a_missing_field_or_span():
             {k: v for k, v in ev.items() if k != "dur"}]}, required, [])
 
 
-#: the telemetry test's small sizes: one 10-frame stack, 2 RAFT iterations
-SMALL = dict(device="cpu", stack_size=10, step_size=10, flow_iters=2,
-             extraction_fps=1)
-
-
-@pytest.fixture(scope="module")
-def run_plane_phases(tmp_path_factory, sample_video):
-    """The telemetry and alerts phases and the fleet step over both roots,
-    on the CPU at :data:`SMALL` in one working directory (the alerts
-    phase's cost turns at the 0.3 s interval only)."""
-    mp = pytest.MonkeyPatch()
-    mp.chdir(tmp_path_factory.mktemp("run_plane"))
-    try:
-        telemetry = cs.telemetry_phase(video=sample_video, **SMALL)
-        alerts = cs.alerts_phase(video=sample_video, intervals=(0.3,),
-                                 **SMALL)
-        fleet = cs.fleet_step({"telemetry": "output/chip_smoke/telemetry",
-                               "alerts": cs.ALERTS_ROOT})
-        yield dict(telemetry=telemetry, alerts=alerts, fleet=fleet)
-    finally:
-        mp.undo()
-
-
-def test_telemetry_phase_runs_on_the_cpu(run_plane_phases):
-    """The telemetry phase on the CPU at a small size (one 10-frame stack,
-    2 RAFT iterations): the run plane on and off give equal features, and
-    every artifact checks; no lookup kernel runs on the CPU."""
-    stats = run_plane_phases["telemetry"]
-    assert stats["max_abs_on_vs_off"] == 0.0 and stats["stacks"] == 1
-    assert stats["proj_launches"] == {"off": 0, "on": 0, "capture_off": 0,
-                                      "repeat": 0}
-    assert stats["health_records"] == 4
-    assert {"decode", "h2d", "forward", "write"} <= set(
-        stats["stage_totals"])
-    assert stats["topology_device_name"] is None
-    assert stats["profiler_trace_bytes"] > 0
-    # roofline and parity on: counted on the CPU, no peak resolved there
-    # (measure_peak needs a card), records at i3d's three seams, live
-    # sections; the repeat run times its second, uncounted dispatch alone
-    for run in ("on", "capture_off", "repeat"):
-        doc = stats["roofline"][run]
-        assert doc["device"]["source"] == "unresolved"
-        assert doc["flops_total"] > 0 and doc["mfu"] is None
-    assert stats["roofline"]["repeat"]["flops_total"] == stats["roofline"][
-        "capture_off"]["flops_total"]
-    assert isinstance(stats["counting_pass_s"], float)
-    assert {s for s, n in stats["parity_seams"].items() if n} == set(
-        cs.I3D_SEAMS)
-    assert stats["heartbeat_parity"]["records"] == sum(
-        stats["parity_seams"].values())
-    assert stats["heartbeat_roofline"]["families"]["i3d"]["dispatches"] == 1
-    # history and alerts on the on runs: at least the first and the final
-    # sample (a run slower than the 30 s interval adds a tick's), no alert;
-    # the last sample's MFU the heartbeat's (None on the CPU)
-    for run in ("on", "capture_off", "repeat"):
-        plane = stats["alert_plane"][run]
-        assert plane["samples"] >= 2 and plane["transitions"] == []
-        assert plane["last_mfu"] == {"i3d": None}
-
-
-def test_alerts_phase_and_fleet_step_run_on_the_cpu(run_plane_phases):
-    """The alerts phase at the small size: the fault run fires one
-    ``failure_spike`` with a verified bundle holding the live roofline
-    summary, then resolves; the cost turns keep their features and write
-    no history with the keys off; one tick's evaluation timed. The fleet
-    step over both roots; the printed line's keys. No proj launch on the
-    CPU."""
-    stats = run_plane_phases["alerts"]
-    fault = stats["fault"]
-    assert fault["proj_launches"] == 0
-    assert fault["transitions"] == [("failure_spike", "firing"),
-                                    ("failure_spike", "resolved")]
-    assert fault["history_samples"] >= 2
-    assert fault["bundle_roofline_device"]["device_kind"] == "cpu"
-    # the run's trace is written at its exit, after the alert fired
-    assert {"alert.json", "roofline.json"} <= set(fault["bundle_paths"])
-    assert "trace_window.json" not in fault["bundle_paths"]
-    assert fault["bundle_artifacts"] == len(fault["bundle_paths"])
-    assert fault["bundle_bytes"] > 0
-    assert set(stats["walls_s"]) == {"0.3"}
-    assert {k: len(v) for k, v in stats["walls_s"]["0.3"].items()} == {
-        "off": 2, "on": 2, "span_off": 2, "span_on": 2}
-    assert sorted(stats["planes"]) == ["0.3_on1", "0.3_on2"]
-    assert stats["eval_ms_per_tick"] > 0 and stats["eval_errors"] == 0
-    fleet = run_plane_phases["fleet"]
-    for root in ("telemetry", "alerts"):
-        assert fleet[root]["hosts"] >= 2 and fleet[root]["prom_series"]
-        assert fleet[root]["roofline_device"] == "cpu"
-        assert fleet[root]["stitched_lanes"] == fleet[root]["hosts"]
-    line = cs.alerts_plane_line(run_plane_phases["telemetry"], stats,
-                                "card, 700 W")
-    assert set(line) == {
-        "card", "history_samples", "transitions", "bundle_artifacts",
-        "bundle_bytes", "eval_ms_per_tick", "observe_root_ms", "walls_s",
-        "mfu_regression_on_clean_runs"}
-    assert line["mfu_regression_on_clean_runs"] == []
-    assert set(line["history_samples"]) == {
-        "telemetry_on", "telemetry_capture_off", "telemetry_repeat",
-        "turn_0.3_on1", "turn_0.3_on2", "fault"}
-    json.dumps(line)
-
-
-def test_storage_audits_the_run_plane_trees(run_plane_phases):
-    """The storage phase's audit over the telemetry and alerts phases'
-    trees: the port's ``audit --expect-complete`` passes each with 0
-    violations, as the JAX audit does."""
-    from video_features_tpu.audit import audit_run
-    verdicts = cs.audit_trees({k: cs.STORAGE_TREES[k]
-                               for k in ("telemetry", "alerts")})
-    assert {v["verdict"] for v in verdicts.values()} == {"PASS"}
-    for name in ("telemetry", "alerts"):
-        ok, _, notes = audit_run(cs.STORAGE_TREES[name]["audit"],
-                                 expect_complete=True)
-        assert ok and len(notes) == verdicts[name]["notes"], name
 
 
 def test_check_roofline_and_parity_fail_bad_artifacts(tmp_path):
@@ -626,142 +512,3 @@ def test_certify_phase_holds_the_verdict(monkeypatch, family, max_abs, cos,
     else:
         assert cs.certify_phase(video="v.mp4")[family]["verdict"] in (
             "PASS", "FAIL")
-
-
-FAKE_NVCC = """#!{python}
-import sys
-a = sys.argv[1:]
-if "--version" in a:
-    print("Cuda compilation tools, release 12.4, V12.4.131")
-    sys.exit(0)
-with open(a[a.index("-o") + 1], "wb") as f:
-    f.write(b"stand-in kernel library " + " ".join(a).encode())
-print("ptxas info    : Compiling entry function '_Z4fakev' for 'sm_90a'")
-"""
-
-
-@pytest.fixture(scope="module")
-def serving_phases(tmp_path_factory, sample_video):
-    """The serve, compile-cache and fleet-queue phases on the CPU at
-    :data:`SMALL` in one working directory (the fleet phase reads the
-    serve phase's spool); the compile-cache phase's subprocesses build
-    through a stand-in ``nvcc`` (a script that writes its ``-o`` file,
-    found through ``CUDA_HOME``)."""
-    import sys
-    work = tmp_path_factory.mktemp("serving")
-    nvcc = work / "cuda" / "bin" / "nvcc"
-    nvcc.parent.mkdir(parents=True)
-    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
-    nvcc.chmod(0o755)
-    mp = pytest.MonkeyPatch()
-    mp.chdir(work)
-    # the phases' subprocesses keep this worker's share of the cores
-    # (tests/test_torch_threads.py)
-    mp.setenv("OMP_NUM_THREADS", str(torch.get_num_threads()))
-    try:
-        serve = cs.serve_phase(video=sample_video, **SMALL)
-        compile_cache = cs.compile_cache_phase(
-            video=sample_video, env={"CUDA_HOME": str(work / "cuda")},
-            **SMALL)
-        fleet = cs.fleet_queue_phase(video=sample_video, **SMALL)
-        # the storage phase's in-process attach fingerprints the stand-in
-        # toolkit as the compile phase's subprocesses did
-        mp.setenv("CUDA_HOME", str(work / "cuda"))
-        storage = cs.storage_phase(
-            video=sample_video,
-            trees={k: cs.STORAGE_TREES[k]
-                   for k in ("serve", "compile_cache", "fleet_queue")},
-            reference=f"{cs.SERVE_ROOT}/cli/out/i3d",
-            env={"CUDA_HOME": str(work / "cuda")}, **SMALL)
-        yield dict(serve=serve, compile_cache=compile_cache, fleet=fleet,
-                   storage=storage)
-    finally:
-        mp.undo()
-
-
-def test_serve_phase_runs_on_the_cpu(serving_phases):
-    """Three HTTP requests through the gateway to the in-process server:
-    the sample, a cache hit that decodes no frame, an expired one; no
-    lookup kernel launches on the CPU."""
-    stats = serving_phases["serve"]
-    req = stats["requests"]
-    assert [req[k]["status"] for k in ("first", "copy", "expired")] == [
-        "done", "done", "deadline_exceeded"]
-    assert req["copy"]["frames_decoded"] == 0
-    assert req["first"]["frames_decoded"] > 0
-    assert all(r["launches"] == {"level": 0, "proj": 0, "packed": 0}
-               for r in req.values())
-    assert req["first"]["queue_wait_s"] >= 0 and req["first"]["service_s"] > 0
-    assert stats["server"]["state"] == "exited" and stats["stacks"] == 1
-    assert stats["gateway"]["accepted"] == 3
-    assert stats["loop_rc"] in (0, 143)
-    json.dumps(stats)
-
-
-def test_compile_cache_phase_runs_on_the_cpu(serving_phases):
-    """Warmup, a warm join with no build, a corrupt library dropped and
-    rebuilt, through the stand-in nvcc."""
-    stats = serving_phases["compile_cache"]
-    assert stats["warm_join"]["misses"] == 0
-    assert stats["warm_join"]["hits"] >= 1
-    assert stats["warm_join"]["warm_at_attach"] is True
-    assert stats["cold_join"]["misses"] == 1
-    assert stats["cold_join"]["dropped"] >= 1
-    assert stats["entry"]["nvcc"] == "12.4"
-    assert stats["entry"]["device_name"] == "cpu"
-    assert min(stats["warmup_wall_s"], stats["warm_join_wall_s"],
-               stats["cold_join_wall_s"]) > 0
-
-
-def test_fleet_queue_phase_runs_on_the_cpu(serving_phases):
-    """Three copies through one and two queue workers, each done once and
-    bit-equal to the static run; the canary host passes on the digest
-    band; the report and the observation read both roots."""
-    stats = serving_phases["fleet"]
-    assert sum(stats["done_by_host"]) == 3
-    assert stats["single_proj_launches"] == 0
-    assert stats["makespan_one_worker_s"] > 0
-    assert stats["makespan_two_workers_s"] > 0
-    assert any("digest(s) compared" in ln and ln.endswith("PASS")
-               for ln in stats["canary_lines"])
-    assert stats["report_queue"]["done"] == 3
-    assert stats["report_serve"]["requests"] >= 2
-    assert stats["observe_hosts"]["queue"] >= 2
-    json.dumps(stats)
-
-
-def test_storage_phase_runs_on_the_cpu(serving_phases):
-    """The storage phase over the serving phases' trees: the dry-run
-    accounting finds each plane they wrote; the gc=true run publishes its
-    section; eviction journals every entry and the refill recomputes it;
-    the SIGKILLed sweep audits clean and converges; the foreign compile
-    entry is pruned and the warm join hits; every tree audits PASS."""
-    stats = serving_phases["storage"]
-    acc = stats["accounting"]
-    assert acc["serve"]["planes"]["spool"] > 0
-    assert acc["serve"]["planes"]["cache"] > 0
-    assert acc["compile_cache"]["planes"]["compile"] > 0
-    assert acc["fleet_queue"]["planes"]["journals"] > 0
-    assert all(v["planned"] == 0 for v in acc.values())
-    assert min(stats["usage_walk_s"].values()) > 0
-    mon = stats["monitor"]
-    assert mon["proj_launches"] == 0 and mon["history_samples"] >= 1
-    assert 0 < mon["used_bytes"] and mon["quota_bytes"] > 0
-    ev = stats["eviction"]
-    assert ev["entries"] >= 1 and ev["journal_records"] == ev["entries"]
-    assert ev["executed"]["cache"]["deleted"] == ev["entries"]
-    assert stats["refill_proj_launches"] == 0
-    assert stats["refill_wall_s"] > 0 and stats["hit_wall_s"] > 0
-    kill = stats["killed_sweep"]
-    assert kill["exit"] == -9 and kill["survivors"] == kill["entries"] - 1
-    assert kill["rerun"]["executed"]["cache"]["deleted"] == \
-        kill["survivors"]
-    assert stats["compile_prune"]["executed"]["compile"]["deleted"] == 1
-    assert stats["compile_prune"]["kept"] == stats["compile_prune"]["pinned"]
-    assert stats["warm_join"]["compile_cache"]["misses"] == 0
-    audits = stats["audits"]
-    assert set(audits) == {"serve", "compile_cache", "fleet_queue",
-                           "storage", "gc_killed", "gc_converged"}
-    assert {a["verdict"] for a in audits.values()} == {"PASS"}
-    assert audits["gc_killed"]["notes"] >= 1
-    json.dumps(stats)

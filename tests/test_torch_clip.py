@@ -145,6 +145,44 @@ def test_encode_image_matches_jax(params, name):
     assert_close_to_scale(got, want)
 
 
+#: one ViT layer of width 64 with patch 2 on 48 px: 24 x 24 + 1 = 577
+#: tokens, ViT-L/14@336px's count, over more than two blocks of 256 keys
+VIT_577 = (16, 48, 1, 64, 2, 12, 128, 128, 2, 1)
+
+
+@pytest.mark.parametrize("name", ["vit", "vit577"])
+def test_blockwise_vision_tower_matches_jax(params, name):
+    """``vision_attn=blockwise``: the port's tower against the JAX
+    package's blockwise tower on the same weights (atol 2e-5, rtol 1e-5, as
+    JAX's own blockwise test holds it to dense), the tiny ViT and a
+    577-token single layer that crosses two block boundaries; the port's
+    blockwise tower also equals its dense one in the same band."""
+    if name == "vit":
+        jcfg, tcfg = configs("vit")
+        tree, x = params["vit"], images("vit")
+    else:
+        jcfg, tcfg = jc.CLIPConfig(*VIT_577), tc.CLIPConfig(*VIT_577)
+        shapes = jax.eval_shape(lambda: jc.CLIP(jcfg).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 48, 48, 3)),
+            jnp.zeros((1, 12), jnp.int32))["params"])
+        tree = seeded_clip_tree(shapes, 7)
+        x = np.random.default_rng(8).normal(size=(2, 48, 48, 3)).astype(
+            np.float32)
+    want = np.asarray(jc.CLIP(jcfg, vision_attn="blockwise").apply(
+        {"params": tree}, x, method="encode_image"))
+    got = {}
+    for impl in tc.ATTN_IMPLS:
+        model = tc.CLIP(tcfg, vision_attn=impl)
+        model.load_state_dict(clip_state_from_jax(tree), strict=True)
+        with torch.inference_mode():
+            got[impl] = model.eval().encode_image(
+                torch.from_numpy(x)).numpy()
+    assert got["blockwise"].shape == want.shape == (len(x), tcfg.embed_dim)
+    np.testing.assert_allclose(got["blockwise"], want, atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(got["blockwise"], got["dense"], atol=2e-5,
+                               rtol=1e-5)
+
+
 @pytest.mark.parametrize("name", list(TINY))
 def test_encode_text_matches_jax(params, name):
     toks = tokens(4, 12, 128)

@@ -35,6 +35,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import pytest
 import torch
 
@@ -44,12 +45,17 @@ from video_features_tpu_torch.utils import faults as tfaults
 
 REPO = Path(__file__).resolve().parents[1]
 FAMILIES = ("i3d", "raft", "pwc", "r21d", "s3d", "resnet", "clip")
-#: gated keys that only CLIP's YAML carries
-CLIP_ONLY_KEYS = {"vision_attn"}
 
 
-GATED_CASES = [
-    ("vision_attn", "blockwise", 10), ("config", "other.yml", None)]
+GATED_CASES = [("config", "other.yml", None)]
+
+#: CLIP's ``vision_attn`` (ported with parallel/sequence.py): (value,
+#: model_name, the ValueError both packages' extractors raise, or None
+#: where the value runs)
+VISION_ATTN_CASES = [
+    ("blockwise", "ViT-B/32", None),
+    ("sparse", "ViT-B/32", "expected 'dense' or 'blockwise'"),
+    ("blockwise", "RN50", "requires a ViT vision tower")]
 
 #: the serving plane's keys (compile cache, fleet queue, serve SLO), ported:
 #: a value away from the default, one the JAX package rejects, and the
@@ -75,6 +81,51 @@ def test_gated_keys_raise_naming_their_item(key, value, item):
         with pytest.raises(NotImplementedError, match=match):
             tconfig.check_ported(tconfig.merge(cfg, tconfig.Config(
                 {key: value})))
+
+
+@pytest.mark.parametrize("value,model_name,error", VISION_ATTN_CASES)
+def test_vision_attn_runs_and_is_checked_as_jax(value, model_name, error,
+                                                tmp_path, monkeypatch):
+    """``vision_attn`` is no longer gated: every value passes
+    ``check_ported`` in every family. ``blockwise`` builds a ViT extractor
+    whose tower runs blockwise; a value that is neither ``dense`` nor
+    ``blockwise``, and ``blockwise`` on the modified-ResNet tower, raise
+    ``ValueError`` in the port's extractor as in the JAX package's, with
+    the same message."""
+    from video_features_tpu import config as jconfig
+    from video_features_tpu.extractors.clip import ExtractCLIP as JCLIP
+    from video_features_tpu.models import clip as jclip
+    from video_features_tpu_torch.extractors.clip import ExtractCLIP
+
+    over = {"vision_attn": value, "model_name": model_name, "device": "cpu",
+            "allow_random_weights": True, "video_paths": "a.mp4",
+            "output_path": str(tmp_path / "o"),
+            "tmp_path": str(tmp_path / "t")}
+    for family in FAMILIES:
+        tconfig.check_ported(tconfig.merge(tconfig.load_config(family),
+                                           tconfig.Config(over)))
+    tcfg = tconfig.load_config("clip", over)
+    tconfig.sanity_check(tcfg)
+    if error is None:
+        ex = ExtractCLIP(tcfg)
+        impls = {m.attn_impl for m in ex.model.visual.modules()
+                 if hasattr(m, "attn_impl")}
+        text = {m.attn_impl for m in ex.model.transformer.modules()
+                if hasattr(m, "attn_impl")}
+        assert impls == {"blockwise"} and text == {"dense"}
+        return
+    monkeypatch.setenv("VFT_WEIGHTS_DIR", str(tmp_path / "weights"))
+    # jit only makes the flax init compile once instead of op by op
+    monkeypatch.setattr(jclip, "init_params",
+                        jax.jit(jclip.init_params, static_argnums=0))
+    jcfg = jconfig.load_config("clip", over)
+    jconfig.sanity_check(jcfg)
+    messages = []
+    for build, cfg in ((JCLIP, jcfg), (ExtractCLIP, tcfg)):
+        with pytest.raises(ValueError, match=error) as info:
+            build(cfg)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
 
 
 @pytest.mark.parametrize("key,value,bad,shows", SERVING_CASES)
@@ -153,19 +204,21 @@ def test_serving_keys_run(key, value, bad, shows, tmp_path):
 
 
 def test_every_gated_key_is_tested_and_in_every_yaml():
-    """``vision_attn`` is in CLIP's YAML alone (as in the JAX YAMLs); every
-    other gated key is in every port YAML. None of the parallel keys is
-    gated."""
+    """Every gated key is in every port YAML; ``vision_attn``, in CLIP's
+    YAML alone (as in the JAX YAMLs), is gated no more. None of the
+    parallel keys is gated."""
     assert {k for k, _, _ in GATED_CASES} == set(tconfig.GATED_KEYS)
     for family in FAMILIES:
         assert {k for k, *_ in SERVING_CASES} <= set(
             tconfig.load_config(family)), family
     assert not {k for k, _ in PARALLEL_CASES + CACHE_CASES
                 + TELEMETRY_CASES} & set(tconfig.GATED_KEYS)
+    assert "vision_attn" not in tconfig.GATED_KEYS
     for family in FAMILIES:
         missing = set(tconfig.GATED_KEYS) - set(tconfig.load_config(family))
-        assert missing == (set() if family == "clip" else CLIP_ONLY_KEYS), \
-            family
+        assert missing == set(), family
+        assert ("vision_attn" in tconfig.load_config(family)) == (
+            family == "clip"), family
 
 
 #: the run-plane keys, at values JAX accepts, with the artifact each
@@ -371,17 +424,26 @@ def test_cache_keys_run(key, value, sample_video, tmp_path, monkeypatch):
 
 
 def test_show_pred_is_ported_for_the_clip_stack_families_only():
-    """And for the frame-wise families, since they were ported; i3d, raft
-    and pwc raise naming the item that ports theirs, Queue 1 #13."""
-    for family in FAMILIES:
-        cfg = tconfig.merge(tconfig.load_config(family),
-                            tconfig.Config({"show_pred": True}))
-        if family in ("r21d", "s3d", "resnet", "clip"):
-            tconfig.check_ported(cfg)
-        else:
-            with pytest.raises(NotImplementedError,
-                               match=r"show_pred.*ROADMAP\.md Queue 1 #13\)"):
-                tconfig.check_ported(cfg)
+    """Since i3d, raft and pwc were ported too (Queue 1 #13), every family
+    but vggish runs ``show_pred``: it passes the port's checks in each, and
+    only vggish refuses it, in its extractor, with the JAX package's
+    message."""
+    from video_features_tpu import config as jconfig
+    from video_features_tpu.extractors.vggish import ExtractVGGish as JVGG
+    from video_features_tpu_torch.extractors.vggish import ExtractVGGish
+
+    assert set(tconfig.SHOW_PRED_FAMILIES) == set(FAMILIES)
+    for family in FAMILIES + ("vggish",):
+        tconfig.check_ported(tconfig.merge(
+            tconfig.load_config(family), tconfig.Config({"show_pred": True})))
+    messages = []
+    for build, mod in ((JVGG, jconfig), (ExtractVGGish, tconfig)):
+        cfg = mod.load_config("vggish", {"show_pred": True, "device": "cpu",
+                                         "allow_random_weights": True})
+        with pytest.raises(NotImplementedError, match="show_pred") as info:
+            build(cfg)
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
 
 
 #: JAX tests/test_gc.py: the surface its validate_gc_args accepts, the

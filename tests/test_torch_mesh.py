@@ -243,6 +243,37 @@ def test_tensor_parallel_clip_matches_replicated(name):
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("name", ["vit_heads1", "vit_heads2"])
+def test_tensor_parallel_clip_runs_blockwise(name):
+    """``vision_attn=blockwise`` under ``model_parallel``: each shard's
+    ``TPMHA`` takes the tower's implementation and runs blockwise over its
+    own heads (or, where the heads do not divide, over the gathered ones),
+    as JAX shards its blockwise ``MHA``; the features equal the replicated
+    dense tower's."""
+    cfg = CLIP_CFGS[name]
+    dense = seeded_init_(tclip.CLIP(cfg), 0).eval()
+    model = tclip.CLIP(cfg, vision_attn="blockwise").eval()
+    model.load_state_dict(dense.state_dict(), strict=True)
+    specs = param_specs_by_rules(model, TP_RULES_TRANSFORMER)
+    r = cfg.image_resolution
+    x = np.random.default_rng(1).normal(size=(5, r, r, 3)).astype(np.float32)
+    with torch.inference_mode():
+        ref = dense.encode_image(torch.from_numpy(x)).numpy()
+    mesh = get_mesh("cpu", n_devices=4, axis_names=("data", "model"),
+                    shape=(2, 2))
+    tp = DataParallelApply(lambda m, v: m.encode_image(v), model, mesh,
+                           shard=lambda m, devs:
+                           tclip.tensor_parallel(m, devs, specs))
+    attn = tp.replicas[0].visual.transformer.resblocks[0].attn
+    assert isinstance(attn, tclip.TPMHA) and attn.attn_impl == "blockwise"
+    assert tp.replicas[0].transformer.resblocks[0].attn.attn_impl == "dense"
+    np.testing.assert_allclose(tp(x), ref, rtol=0, atol=2e-5)
+    odd = tclip.tensor_parallel(model, [CPU] * 3, specs)
+    with torch.inference_mode():
+        got = odd.encode_image(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
+
+
 def test_launch_counters_lose_no_count_across_threads():
     wrappers = (tcl.corr_lookup_level_cuda, tcl.corr_lookup_proj_cuda,
                 tcl.corr_lookup_packed_cuda)

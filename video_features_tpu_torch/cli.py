@@ -284,9 +284,9 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"{out_root}/_incidents/ (render with python -m "
               f"video_features_tpu_torch.telemetry.alerts {out_root})")
     if tracer is not None:
-        print(f"trace: {tracer.trace_path} (stitch the hosts' traces with "
-              f"python -m video_features_tpu_torch.fleet_report --stitch "
-              f"{out_root}, or open in https://ui.perfetto.dev)")
+        print(f"trace: {tracer.trace_path} (render with python -m "
+              f"video_features_tpu_torch.trace_report {out_root}, or open "
+              "in https://ui.perfetto.dev)")
     if rf_observer is not None:
         print(f"roofline: {rf_observer.path} (render with python -m "
               f"video_features_tpu_torch.telemetry.roofline {out_root})")
@@ -296,8 +296,10 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"{out_root}; certify flips with python -m "
               "video_features_tpu_torch parity certify)")
     if capture.path is not None:
-        print(f"profile trace: {capture.path} (torch.profiler; open in "
-              "https://ui.perfetto.dev)")
+        print(f"profile trace: {capture.path} (torch.profiler; merge it "
+              f"with the host trace by python -m "
+              f"video_features_tpu_torch.trace_report {out_root} --merge "
+              f"{capture.path}, or open in https://ui.perfetto.dev)")
     configs = per_family.values() if per_family is not None else [args]
     if any(a.get("health") for a in configs):
         print("health: per-(video, family) feature digests in "

@@ -26,13 +26,11 @@ _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 #: ports the key's plane; None for ``config``, which the JAX package reads
 #: at no value either)
 GATED_KEYS = {
-    # CLIP's blockwise vision attention, parallel/sequence.py (#10)
-    "vision_attn": ((None, "dense"), 10),
     "config": ((None,), None),
 }
-#: families whose ``show_pred`` is ported (``vggish`` has none in either
-#: package: its extractor raises)
-SHOW_PRED_FAMILIES = ("r21d", "s3d", "resnet", "clip")
+#: families with a ``show_pred`` (``vggish`` has none in either package:
+#: its extractor raises)
+SHOW_PRED_FAMILIES = ("i3d", "raft", "pwc", "r21d", "s3d", "resnet", "clip")
 #: the decode sources of ``video_decode`` (``utils/io.py``)
 VIDEO_DECODE_MODES = ("inline", "process", "parallel")
 
@@ -213,11 +211,12 @@ def _roadmap(item: Optional[int]) -> str:
 
 def check_ported(args: Config) -> None:
     """Raise ``NotImplementedError`` for a value the port does not run yet:
-    a :data:`GATED_KEYS` key away from its default, ``show_pred`` outside
-    :data:`SHOW_PRED_FAMILIES`, ``fps_mode=reencode``, and
-    ``precision=bfloat16`` outside ``device.BF16_FAMILIES``; and, as the JAX
-    package does, for a ``video_decode`` outside
-    :data:`VIDEO_DECODE_MODES`."""
+    a :data:`GATED_KEYS` key away from its default, ``fps_mode=reencode``,
+    and ``precision=bfloat16`` outside ``device.BF16_FAMILIES``; and, as
+    the JAX package does, for a ``video_decode`` outside
+    :data:`VIDEO_DECODE_MODES`. ``show_pred`` passes: every family of
+    :data:`SHOW_PRED_FAMILIES` runs it, and vggish's extractor raises, as
+    JAX's does."""
     for key, (accepted, item) in GATED_KEYS.items():
         value = args.get(key)
         if value not in accepted:
@@ -225,12 +224,6 @@ def check_ported(args: Config) -> None:
                 f"{key}={value!r} is not ported yet ({_roadmap(item)}); "
                 f"the port accepts {' or '.join(map(repr, accepted))}")
     feature_type = args.get("feature_type")
-    if args.get("show_pred") and feature_type not in SHOW_PRED_FAMILIES \
-            and feature_type != "vggish":
-        raise NotImplementedError(
-            f"show_pred=true is not ported yet for feature_type="
-            f"{feature_type!r} ({_roadmap(13)}); it is for "
-            f"{', '.join(SHOW_PRED_FAMILIES)}")
     precision_dtype(args.get("precision"), feature_type)
     decode = args.get("video_decode") or "inline"
     if decode not in VIDEO_DECODE_MODES:

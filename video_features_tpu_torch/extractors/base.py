@@ -116,7 +116,6 @@ class BaseExtractor:
     output_feat_keys: List[str]
     #: un-materialized outputs a video's :class:`FeatureStream` may hold
     stream_depth = 4
-    show_pred = False
 
     def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
         """``mesh`` replaces the mesh of ``device`` and ``mesh_devices``
@@ -130,6 +129,7 @@ class BaseExtractor:
         self.precision = args.get("precision") or "float32"
         self.dtype = set_precision(self.precision, self.feature_type)
         self.allow_random = bool(args.get("allow_random_weights", False))
+        self.show_pred = bool(args.get("show_pred", False))
         # video_decode (the JAX package's semantics): where a video's
         # decode and host transform run; decode_workers is the width of
         # 'parallel', decode_depth each child's frame-queue cap
@@ -255,6 +255,15 @@ class BaseExtractor:
                                                        "save_pickle")
                     and not args.get("show_pred") else "host")
         return mode
+
+    def _host_resize_for_show_pred(self) -> None:
+        """``show_pred`` shows or scores the resized frames on the host,
+        which it no longer has under ``resize=device``: warn and resize on
+        the host, as the JAX package does."""
+        if self.resize_mode == "device" and self.show_pred:
+            print("WARNING: resize=device is unsupported with show_pred; "
+                  "using resize=host")
+            self.resize_mode = "host"
 
     def _edge_resizer(self, in_h: int, in_w: int, size: int,
                       device: torch.device, to_smaller_edge: bool = True,

@@ -17,6 +17,13 @@ prompts: the text tower runs once, from the float32 weights whatever the
 model)`` mesh of shape ``(n/N, N)`` over the n devices of ``device`` and
 ``mesh_devices`` (``models/clip.py tensor_parallel``, cut by
 ``parallel/mesh.py TP_RULES_TRANSFORMER``); N must divide n.
+
+``vision_attn=blockwise`` scores the ViT tower's attention with the
+streaming-softmax recurrence (``parallel/sequence.py``), for the big-token
+towers (ViT-L/14@336px runs 577 patch tokens) where the dense per-layer
+(B*H, T, T) score tensor dominates activation memory; under
+``model_parallel`` each device runs it over its own heads. The text tower
+stays dense (77 tokens, masked).
 """
 from __future__ import annotations
 
@@ -51,6 +58,10 @@ class ExtractCLIP(FrameWiseExtractor):
     def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
         super().__init__(args, mesh)
         weights_path = args.get("weights_path")
+        vision_attn = str(args.get("vision_attn") or "dense")
+        if vision_attn not in clip_model.ATTN_IMPLS:
+            raise ValueError(f"vision_attn={vision_attn!r}: expected "
+                             "'dense' or 'blockwise'")
         if self.model_name == "custom":
             if not weights_path:
                 raise FileNotFoundError(
@@ -66,13 +77,21 @@ class ExtractCLIP(FrameWiseExtractor):
             cfg = (clip_model.config_from_state_dict(state)
                    if self.model_name == "custom"
                    else clip_model.CONFIGS[self.model_name])
-            model = clip_model.CLIP(cfg)
+            model = clip_model.CLIP(cfg, vision_attn)
             model.load_state_dict(state, strict=True)
         else:
             cfg = clip_model.CONFIGS[self.model_name]
-            model = load_weights(clip_model.CLIP(cfg), None,
+            model = load_weights(clip_model.CLIP(cfg, vision_attn), None,
                                  self.allow_random, SEED_CLIP,
                                  model_key(self.model_name))
+        if vision_attn == "blockwise" and not cfg.is_vit:
+            # only the ViT tower routes the implementation: a silent no-op
+            # on RN* would betray the key
+            raise ValueError(
+                f"vision_attn=blockwise requires a ViT vision tower; "
+                f"{self.model_name} uses the modified-ResNet trunk whose "
+                "only attention is the 50-token AttentionPool2d head "
+                "(nothing to blockwise)")
         self.cfg = cfg
         size = cfg.image_resolution
         if self.ingest == "yuv420" and size % 2:

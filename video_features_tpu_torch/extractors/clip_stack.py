@@ -53,7 +53,6 @@ class ClipStackExtractor(BaseExtractor):
         self.step_size = args.get("step_size") or default_step
         self.extraction_fps = args.get("extraction_fps")
         self.clip_batch_size = int(args.get("clip_batch_size") or 8)
-        self.show_pred = bool(args.get("show_pred", False))
         self.output_feat_keys = [self.feature_type]
         ingest = args.get("ingest") or (
             "uint8" if self.precision == "bfloat16" else "float32")

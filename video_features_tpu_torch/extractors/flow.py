@@ -16,6 +16,12 @@ Timestamps drop the duplicate overlap timestamp between consecutive batches
 timestamp. Saved flows are channel-first ``(N, 2, H, W)``, as the reference
 stores them.
 
+``show_pred`` (base_flow_extractor.py:139-154) runs each batch
+synchronously and shows every flow, drawn by ``utils/flow_viz.py``, under
+the first frame of its pair in a cv2 window, one key press a frame; where
+there is no display (``cv2.error``) it writes ``{tmp_path}/flow_pred_{i}.png``
+instead and prints the path. cv2 is imported there only.
+
 ``extract(video_path)`` decodes in batches on a background thread;
 ``extract_frames(frames, fps)`` takes any iterable of
 ``(frame_rgb_u8, t, idx)`` (a seam for synthetic frames).
@@ -24,6 +30,7 @@ Output keys: ``[feature_type, fps, timestamps_ms]``.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -33,8 +40,19 @@ from torch import nn
 from ..config import Config
 from ..ops import host_transforms as ht
 from ..parallel.mesh import DataParallelApply, Mesh
+from ..utils import flow_viz
 from ..utils.io import Prefetcher, _batched
 from .base import BaseExtractor
+
+
+def flow_overlay(rgb: np.ndarray, flow: np.ndarray) -> np.ndarray:
+    """The (2H, W, 3) BGR float image in [0, 1] that ``show_pred`` shows:
+    the (H, W, 3) uint8 frame over the colour wheel of its (H, W, 2)
+    flow."""
+    vis = flow_viz.flow_to_image(flow)
+    stacked = np.concatenate([rgb.astype(np.float32),
+                              vis.astype(np.float32)], axis=0)
+    return stacked[:, :, ::-1] / 255.0
 
 
 class OpticalFlowExtractor(BaseExtractor):
@@ -56,6 +74,7 @@ class OpticalFlowExtractor(BaseExtractor):
         self.resize_mode = self._resolve_resize_mode(args)
         if self.side_size is None:
             self.resize_mode = "host"
+        self._host_resize_for_show_pred()
         self.host_transform = None
         if self.side_size is not None and self.resize_mode == "host":
             self.host_transform = ht.EdgeResize(int(self.side_size),
@@ -103,13 +122,15 @@ class OpticalFlowExtractor(BaseExtractor):
         """Flows of ``(frames, timestamps, indices)`` batches; with
         ``parity=true`` and a ``video`` each batch's raw ``(n, H, W, 2)``
         field is the backbone seam, as it came off the card."""
-        stream = self.feature_stream(self.runner)
+        stream = self.feature_stream(self.runner,
+                                     on_result=self.maybe_show_pred)
         timestamps_ms: List[float] = []
         first = True
         for batch, ts, _ in batches:
             if len(batch) >= 2:  # a lone frame yields no pair
                 arr = np.stack(batch)  # (n, H, W, 3) uint8
-                stream.submit(np.stack([arr[:-1], arr[1:]], axis=1))
+                stream.submit(np.stack([arr[:-1], arr[1:]], axis=1),
+                              ctx=arr)
             timestamps_ms.extend(ts if first else ts[1:])
             first = False
         outs = stream.finish()
@@ -117,3 +138,23 @@ class OpticalFlowExtractor(BaseExtractor):
         flows = [f for out in outs for f in out.transpose(0, 3, 1, 2)]
         return {self.feature_type: np.array(flows), "fps": np.array(fps),
                 "timestamps_ms": np.array(timestamps_ms)}
+
+    def maybe_show_pred(self, flows: np.ndarray,
+                        rgb_batch: np.ndarray) -> None:
+        """Show each of a batch's (n, H, W, 2) flows under its pair's first
+        frame of ``rgb_batch`` (:meth:`show_flow`)."""
+        for i, flow in enumerate(flows):
+            self.show_flow(i, flow_overlay(rgb_batch[i], flow))
+
+    def show_flow(self, i: int, bgr: np.ndarray) -> None:
+        """One overlay in a cv2 window, waiting for a key; without a
+        display, ``{tmp_path}/flow_pred_{i}.png``."""
+        import cv2
+        try:
+            cv2.imshow("Press any key to see the next frame...", bgr)
+            cv2.waitKey()
+        except cv2.error:
+            out = Path(self.tmp_path) / f"flow_pred_{i}.png"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(out), (bgr * 255).astype(np.uint8))
+            print(f"show_pred: no display; wrote {out}")

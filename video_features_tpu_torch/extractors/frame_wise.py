@@ -68,7 +68,6 @@ class FrameWiseExtractor(BaseExtractor):
         self.batch_size = int(args.batch_size)
         self.extraction_fps = args.get("extraction_fps")
         self.extraction_total = args.get("extraction_total")
-        self.show_pred = bool(args.get("show_pred", False))
         self.output_feat_keys = [self.feature_type, "fps", "timestamps_ms"]
         ingest = args.get("ingest") or "uint8"
         if ingest not in self.supported_ingest:

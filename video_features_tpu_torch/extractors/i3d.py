@@ -26,6 +26,12 @@ fps)`` takes any iterable of decoded ``(frame_rgb_u8, t, idx)`` and applies
 the transform itself. As in JAX, no backbone seam is tapped here: the
 RAFT flow stays on the card, and tapping it would add a copy off the card.
 
+``show_pred`` runs each stream's I3D a second time with ``features=False``
+on the same input (the flow stream on the same quantised crops, so the
+flow net runs once a group), the group synchronously, and prints ``At stack
+{n} ({stream} stream)`` and the Kinetics-400 top-5 for each stack, stream by
+stream (extract_i3d.py:140-169).
+
 Output keys: ``streams + [fps, timestamps_ms]``.
 """
 from __future__ import annotations
@@ -42,8 +48,9 @@ from ..models.common import cast_floating_
 from ..ops import host_transforms as ht
 from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import Prefetcher
+from ..utils.labels import show_predictions_on_dataset
 from .base import BaseExtractor, load_weights
-from .i3d_flow import FlowStream, i3d_forward
+from .i3d_flow import FlowStream, i3d_heads
 
 SEED_I3D_RGB = 0
 
@@ -81,6 +88,7 @@ class ExtractI3D(BaseExtractor):
             self.flow_stream = nets["flow"] = FlowStream(
                 self, args, mesh.data_devices[0])
         self.resize_mode = self._resolve_resize_mode(args)
+        self._host_resize_for_show_pred()
         self.host_transform = None if self.resize_mode == "device" \
             else ht.EdgeResize(self.min_side_size)
         self.runner = DataParallelApply(self._forward_group,
@@ -95,18 +103,29 @@ class ExtractI3D(BaseExtractor):
         c = self.central_crop_size
         i = (group.shape[2] - c) // 2
         j = (group.shape[3] - c) // 2
-        return i3d_forward(model, group[:, :-1, i:i + c, j:j + c],
-                           self.dtype)
+        return i3d_heads(model, group[:, :-1, i:i + c, j:j + c], self.dtype,
+                         self.show_pred)
 
     def _forward_group(self, net: nn.ModuleDict,
                        group: torch.Tensor) -> torch.Tensor:
-        """(G, T+1, H, W, 3) uint8 on ``net``'s device -> (G, S, 1024)."""
+        """(G, T+1, H, W, 3) uint8 on ``net``'s device -> (G, S, 1024), or
+        under ``show_pred`` (G, S, 1424) with each stream's logits after its
+        features."""
         if self.resize_mode == "device":
             group = self._resizer(group.shape[2], group.shape[3],
                                   group.device)(group)
         return torch.stack([self._rgb(net["rgb"], group) if s == "rgb"
-                            else net["flow"](group)
+                            else net["flow"](group, self.show_pred)
                             for s in self.streams], dim=1)
+
+    def maybe_show_pred(self, out: np.ndarray, stack_base: int) -> None:
+        """Print each stack's top-5 from a group's (G, S, 1424) output,
+        stream by stream; ``stack_base`` is the stacks before the group, so
+        both streams print the same indices (extract_i3d.py:140)."""
+        for s, stream in enumerate(self.streams):
+            for i, row in enumerate(out[:, s, i3d_model.FEATURE_DIM:]):
+                print(f"At stack {stack_base + i} ({stream} stream)")
+                show_predictions_on_dataset(row[None], "kinetics")
 
     def extract(self, video_path: str) -> Dict[str, np.ndarray]:
         src = self.video_source(video_path, fps=self.extraction_fps,
@@ -130,12 +149,16 @@ class ExtractI3D(BaseExtractor):
         window: List[np.ndarray] = []
         stacks: List[np.ndarray] = []
         timestamps_ms: List[float] = []
-        stream = self.feature_stream(self.runner)
+        stream = self.feature_stream(self.runner,
+                                     on_result=self.maybe_show_pred)
+        stacks_done = 0
 
         def flush():
+            nonlocal stacks_done
             if not stacks:
                 return
-            stream.submit(np.stack(stacks))
+            stream.submit(np.stack(stacks), ctx=stacks_done)
+            stacks_done += len(stacks)
             stacks.clear()
 
         for frame, _, idx in frames:
@@ -148,8 +171,9 @@ class ExtractI3D(BaseExtractor):
                     flush()
         flush()
 
-        groups = stream.finish()  # each (G, S, 1024)
-        out = {s: (np.concatenate([g[:, i] for g in groups]) if groups
+        groups = stream.finish()  # each (G, S, 1024), or 1424 (show_pred)
+        out = {s: (np.concatenate([g[:, i, :i3d_model.FEATURE_DIM]
+                                   for g in groups]) if groups
                    else np.array([]))
                for i, s in enumerate(self.streams)}
         out["fps"] = np.array(fps)

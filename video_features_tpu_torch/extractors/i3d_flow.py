@@ -126,6 +126,18 @@ def i3d_forward(model: i3d_model.I3D, batch: torch.Tensor,
     return model(x, features=features).float()
 
 
+def i3d_heads(model: i3d_model.I3D, batch: torch.Tensor, dtype: torch.dtype,
+              logits: bool) -> torch.Tensor:
+    """The (B, 1024) features of :func:`i3d_forward`; with ``logits`` the
+    (B, 400) Kinetics logits of a second forward on the same input
+    (``features=False``, show_pred) follow them, (B, 1424)."""
+    feats = i3d_forward(model, batch, dtype)
+    if not logits:
+        return feats
+    return torch.cat([feats, i3d_forward(model, batch, dtype,
+                                         features=False)], dim=-1)
+
+
 class FlowStream(nn.Module):
     """RAFT or PWC + quantisation + flow I3D over a device group of stacks;
     a module, so that the data mesh replicates it whole. ``budget_device``
@@ -201,6 +213,10 @@ class FlowStream(nn.Module):
             outs.append(q.reshape((kc, t) + tuple(q.shape[1:])))
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
-    def forward(self, group: torch.Tensor) -> torch.Tensor:
-        """(G, T+1, H, W, 3) uint8 on the device -> (G, 1024) features."""
-        return i3d_forward(self.i3d, self.quantized_flow(group), self.dtype)
+    def forward(self, group: torch.Tensor,
+                logits: bool = False) -> torch.Tensor:
+        """(G, T+1, H, W, 3) uint8 on the device -> (G, 1024) features,
+        with ``logits`` (show_pred) the logits of the same quantised crops
+        after them, (G, 1424): the flow net runs once either way."""
+        return i3d_heads(self.i3d, self.quantized_flow(group), self.dtype,
+                         logits)

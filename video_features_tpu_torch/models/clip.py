@@ -11,7 +11,11 @@ transformer with its causal mask (:195-203, :328-334), ``QuickGELU``
 Attention is computed as the JAX package computes it: the scores as a
 matmul in the activation dtype, the mask added, the softmax in float32 and
 cast back, then the product with V; plain torch ops, so the bfloat16 result
-follows JAX's.
+follows JAX's. ``vision_attn='blockwise'`` scores the vision tower's
+unmasked attention with the streaming-softmax recurrence instead
+(``parallel/sequence.py blockwise_attention``, blocks of 256 keys): O(T *
+256) peak score memory in place of the (B*H, T, T) score tensor, the same
+values to float32 rounding. The masked text-causal calls stay dense.
 
 Module names are the reference checkpoint's keys (``visual.transformer.
 resblocks.0.attn.in_proj_weight``, ``mlp.c_fc``, ``visual.attnpool.q_proj``,
@@ -43,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import shard_tensor, split_bounds
+from ..parallel.sequence import blockwise_attention
 from .common import BNInf, Dense
 
 
@@ -88,6 +93,11 @@ CONFIGS: Dict[str, CLIPConfig] = {
     "ViT-L/14": _cfg(768, 224, 24, 1024, 14, 768),
     "ViT-L/14@336px": _cfg(768, 336, 24, 1024, 14, 768),
 }
+
+#: the vision tower's attention implementations (``vision_attn``)
+ATTN_IMPLS = ("dense", "blockwise")
+#: keys per block of the blockwise vision attention
+BLOCK_SIZE = 256
 
 #: non-tensor entries of OpenAI's archives that build_model deletes
 #: (model.py:430)
@@ -137,14 +147,22 @@ class QuickGELU(nn.Module):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              heads: int, mask: Optional[torch.Tensor] = None
-              ) -> torch.Tensor:
+              heads: int, mask: Optional[torch.Tensor] = None,
+              impl: str = "dense") -> torch.Tensor:
     """Multi-head attention of projected ``q`` (B, Tq, E), ``k`` and ``v``
     (B, Tk, E): q scaled by ``head_dim ** -0.5``, the scores in the
     activation dtype, ``mask`` added, the softmax in float32 and cast back,
-    the product with V; (B, Tq, E)."""
+    the product with V; (B, Tq, E). ``impl='blockwise'`` without a mask
+    runs the streaming-softmax recurrence over blocks of
+    :data:`BLOCK_SIZE` keys instead, with float32 scores."""
     b, tq, e = q.shape
     hd = e // heads
+    if impl == "blockwise" and mask is None:
+        out = blockwise_attention(
+            (q * hd ** -0.5).reshape(b, tq, heads, hd),
+            k.reshape(b, -1, heads, hd), v.reshape(b, -1, heads, hd),
+            block_size=BLOCK_SIZE, scale=1.0)
+        return out.reshape(b, tq, e)
     qh = (q * hd ** -0.5).reshape(b, tq, heads, hd).transpose(1, 2)
     kh = k.reshape(b, -1, heads, hd).transpose(1, 2)
     vh = v.reshape(b, -1, heads, hd).transpose(1, 2)
@@ -157,11 +175,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class MHA(nn.Module):
     """Self-attention in ``nn.MultiheadAttention``'s key layout: the packed
-    ``in_proj_weight`` (3E, E) and ``in_proj_bias``, then ``out_proj``."""
+    ``in_proj_weight`` (3E, E) and ``in_proj_bias``, then ``out_proj``;
+    ``attn_impl`` is :func:`attention`'s ``impl``."""
 
-    def __init__(self, width: int, heads: int) -> None:
+    def __init__(self, width: int, heads: int,
+                 attn_impl: str = "dense") -> None:
         super().__init__()
         self.heads = heads
+        self.attn_impl = attn_impl
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = Dense(width, width)
@@ -170,16 +191,18 @@ class MHA(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = (F.linear(x, self.in_proj_weight)
                    + self.in_proj_bias).chunk(3, dim=-1)
-        return self.out_proj(attention(q, k, v, self.heads, mask))
+        return self.out_proj(attention(q, k, v, self.heads, mask,
+                                       self.attn_impl))
 
 
 class ResidualAttentionBlock(nn.Module):
     """model.py:171-193."""
 
-    def __init__(self, width: int, heads: int) -> None:
+    def __init__(self, width: int, heads: int,
+                 attn_impl: str = "dense") -> None:
         super().__init__()
         self.ln_1 = LNf32(width)
-        self.attn = MHA(width, heads)
+        self.attn = MHA(width, heads, attn_impl)
         self.ln_2 = LNf32(width)
         self.mlp = nn.Sequential(OrderedDict([
             ("c_fc", Dense(width, width * 4)), ("gelu", QuickGELU()),
@@ -197,10 +220,12 @@ class Transformer(nn.Module):
     """model.py:195-203: (B, T, width) -> the same, and its float32 value
     before the last rounding (:class:`LNf32`)."""
 
-    def __init__(self, width: int, layers: int, heads: int) -> None:
+    def __init__(self, width: int, layers: int, heads: int,
+                 attn_impl: str = "dense") -> None:
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads) for _ in range(layers))
+            ResidualAttentionBlock(width, heads, attn_impl)
+            for _ in range(layers))
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None
@@ -215,7 +240,7 @@ class VisionTransformer(nn.Module):
     """model.py:206-240: (B, R, R, 3) -> (B, output_dim)."""
 
     def __init__(self, resolution: int, patch: int, width: int, layers: int,
-                 output_dim: int) -> None:
+                 output_dim: int, attn_impl: str = "dense") -> None:
         super().__init__()
         grid = resolution // patch
         self.conv1 = nn.Conv2d(3, width, patch, patch, bias=False)
@@ -223,7 +248,8 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.zeros(grid * grid + 1, width))
         self.ln_pre = LNf32(width)
-        self.transformer = Transformer(width, layers, width // 64)
+        self.transformer = Transformer(width, layers, width // 64,
+                                       attn_impl)
         self.ln_post = LNf32(width)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
 
@@ -331,15 +357,18 @@ class ModifiedResNet(nn.Module):
 class CLIP(nn.Module):
     """The image and text encoders (model.py:243-371). Images come resized,
     cropped and normalised; text is (B, context_length) token ids
-    (``utils/tokenizer.py``)."""
+    (``utils/tokenizer.py``). ``vision_attn`` (:data:`ATTN_IMPLS`) is the
+    ViT tower's attention; the ModifiedResNet's one attention, the
+    attention-pool head, and the text tower stay dense."""
 
-    def __init__(self, cfg: CLIPConfig) -> None:
+    def __init__(self, cfg: CLIPConfig, vision_attn: str = "dense") -> None:
         super().__init__()
         self.cfg = cfg
         if cfg.is_vit:
             self.visual = VisionTransformer(
                 cfg.image_resolution, cfg.vision_patch_size,
-                cfg.vision_width, cfg.vision_layers, cfg.embed_dim)
+                cfg.vision_width, cfg.vision_layers, cfg.embed_dim,
+                vision_attn)
         else:
             self.visual = ModifiedResNet(
                 tuple(cfg.vision_layers), cfg.embed_dim,
@@ -451,20 +480,21 @@ class _TensorParallel(nn.Module):
     the replicated rest to the row's data device) leaves each shard on its
     own device."""
 
-    def _heads_split(self, qkv, heads: int, mask=None):
+    def _heads_split(self, qkv, heads: int, mask=None, impl="dense"):
         """Each shard's attention output (B, T, its columns): over its
         whole heads where they divide evenly, else over all heads on the
         data device from the gathered q, k and v, cut back into the
-        shards' columns."""
+        shards' columns. ``impl`` is :func:`attention`'s."""
         n = len(self.shards)
         if heads % n == 0:
             return [attention(q, k, v, heads // n,
-                              None if mask is None else mask.to(q.device))
+                              None if mask is None else mask.to(q.device),
+                              impl)
                     for q, k, v in qkv]
         q, k, v = (torch.cat([t[i].to(self.data_device) for t in qkv],
                              dim=-1)
                    for i in range(3))
-        out = attention(q, k, v, heads, mask)
+        out = attention(q, k, v, heads, mask, impl)
         return [out[..., a:b].to(s.device)
                 for s, (a, b) in zip(self.shards, self.bounds)]
 
@@ -472,7 +502,8 @@ class _TensorParallel(nn.Module):
 class TPMHA(_TensorParallel):
     """:class:`MHA` over model-axis ``devices``: each shard holds its
     columns of q, k and v (``in_proj`` split within each of them) and the
-    matching input columns of ``out_proj``."""
+    matching input columns of ``out_proj``; ``attn_impl`` is the MHA's, so
+    a blockwise tower runs blockwise over each shard's own heads."""
 
     KINDS = {"in_proj_weight": "qkv", "in_proj_bias": "qkv",
              "out_proj.weight": "row"}
@@ -482,6 +513,7 @@ class TPMHA(_TensorParallel):
         super().__init__()
         _check_kinds("attn", kinds, self.KINDS)
         self.heads = mha.heads
+        self.attn_impl = mha.attn_impl
         self.data_device = torch.device(devices[0])
         self.bounds = split_bounds(mha.out_proj.weight.shape[0],
                                    len(devices), mha.heads)
@@ -498,7 +530,7 @@ class TPMHA(_TensorParallel):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         qkv = [(F.linear(x.to(s.device), s.in_proj_weight)
                 + s.in_proj_bias).chunk(3, dim=-1) for s in self.shards]
-        outs = self._heads_split(qkv, self.heads, mask)
+        outs = self._heads_split(qkv, self.heads, mask, self.attn_impl)
         return _add_on([F.linear(o, s.out_proj_weight)
                         for o, s in zip(outs, self.shards)],
                        x.device, self.out_proj_bias)

@@ -55,7 +55,7 @@ REQUIRED_M_FIELDS = ("ph", "pid", "name", "args")
 
 #: the span vocabulary the instrumentation emits (beyond the
 #: profiler.stage names, which arrive verbatim: decode/h2d/forward/write);
-#: scripts/trace_report.py's stall ranking and critical-path verdict key
+#: trace_report.py's stall ranking and critical-path verdict key
 #: off these names
 KNOWN_SPAN_NAMES = (
     "video_attempt",        # one safe_extract attempt (args: video, attempt)
@@ -76,7 +76,7 @@ KNOWN_SPAN_NAMES = (
     "fleet.canary",         # joining-host canary re-extraction
 )
 
-#: stall names ranked by scripts/trace_report.py "top stalls" —
+#: stall names ranked by trace_report.py "top stalls" —
 #: fleet.idle_wait is the per-host idle TAIL (this worker out of work
 #: while a straggler finishes), the makespan cost work-stealing shrinks
 STALL_SPAN_NAMES = ("fanout.put_blocked", "fanout.get_starved",
