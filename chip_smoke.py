@@ -361,10 +361,11 @@ that goes wrong:
 29. runs the trace report over the telemetry phase's on run
    (:func:`trace_report_phase`): ``trace_report.main`` with ``--merge`` of
    that run's ``torch.profiler`` capture prints a ``*-bound`` verdict,
-   which ``stage_summary`` gives too; the merged file holds every event of
-   both, the host lanes under one pid above the capture's integer pids,
-   ``"aligned": false``, and the capture's device lanes with the run's 40
-   proj kernels;
+   which ``stage_summary`` gives too, with at least 100 ms of device time
+   (the ``forward`` stages, which hold the dispatch's launch); the merged
+   file holds every event of both, the host lanes under one pid above the
+   capture's integer pids, ``"aligned": false``, and the capture's device
+   lanes with the run's 40 proj kernels;
 30. kills a queue worker (:func:`worker_kill_phase`): two ``fleet=queue``
    workers of the slice over step 23's copies, the first with
    ``VFT_INJECT=seed=11;worker.kill=kill@n2`` (a SIGKILL at its second
@@ -372,7 +373,30 @@ that goes wrong:
    lease: the first exits by SIGKILL, the second reclaims its lease and
    drains the queue, every video done once, the outputs bit-equal to step
    23's static run, the port's ``audit --expect-complete`` ``PASS``;
-31. prints one JSON line each of the i3d slice's, the raft family's, the
+31. re-encodes (:func:`reencode_phase`): the slice through the CLI over
+   the sample re-encoded to 7.3 fps (``fps_mode=reencode``; the ``ffmpeg``
+   backend where it is on ``PATH``, else cv2's ``mp4v`` writer; the line
+   names which ran), counts set to 0 just before and read just after: the
+   frame count and timestamps those of ``fps_mode=select``'s index map on
+   the sample (rtol 1e-6), the features finite, proj 20 launches a stack,
+   the temp file removed;
+32. resolves weights (:func:`weights_phase`): seeded checkpoints of I3D
+   RGB, I3D flow and RAFT written as ``i3d_rgb.pt``, ``i3d_flow.pt`` and
+   ``raft-sintel.pth`` into a fresh ``VFT_WEIGHTS_DIR``; the slice through
+   the CLI with their explicit paths, then with none (the store finds
+   them), ``allow_random_weights=false`` and ``cache=true``: the features
+   bit-equal, both cache entries keyed by the weights fingerprint of the
+   three files' sha256, proj 20 launches a stack in each; with an empty
+   ``VFT_WEIGHTS_DIR`` the run fails with the store's message;
+33. writes through the native writer (:func:`native_phase`):
+   ``native.available()`` (``g++`` builds ``native/vft_native.cpp`` into
+   the git-ignored ``native/_build/``), every ``.npy`` of a slice run
+   written by it and byte-equal to ``np.save`` of the same array,
+   ``validate_npy`` flags a truncated file, which ``is_already_exist``
+   then counts as absent; proj 20 launches a stack;
+34. lints the checkout (:func:`lint_phase`): ``python -m
+   video_features_tpu_torch lint --json`` exits 0, its counts and wall;
+35. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
    vggish, parallel, multi, telemetry, alerts, fleet, certify, serve,
    compile-cache and fleet-queue phases' numbers, one of the alerting's
@@ -381,18 +405,22 @@ that goes wrong:
    the walls), one of the storage phase's (deletions planned and done and
    their bytes by plane, the walls of a ``usage()`` walk and of a sweep,
    the refill's and the hit's walls, the audit verdicts), one each of the
-   traffic, chaos, sequence, show_pred, trace-report and worker-kill
-   steps', one of the kernels' numbers, and last
+   traffic, chaos, sequence, show_pred, trace-report, worker-kill,
+   reencode, weights, native and lint steps', one of every phase's wall
+   (``phase_walls_s``), one of the kernels' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX and needs no ffmpeg: the frames and the WAVs are
+It imports nothing of JAX and needs no ffmpeg (step 31 uses it where it
+is on ``PATH``), and step 33 needs ``g++``: the frames and the WAVs are
 synthetic (the WAVs written with the stdlib ``wave`` under
 ``output/chip_smoke``), the configs are built in code, and the clip-stack
 transforms and the I420 encoder are numpy. The multi, telemetry, alerts,
-certify, serving, storage, traffic, chaos and worker-kill phases decode a
-video, with cv2, and fail without it; the telemetry, alerts, certify,
-serving, storage, traffic, chaos and worker-kill phases read YAML with
-yaml. The serving, storage, traffic, chaos and worker-kill phases start
+certify, serving, storage, traffic, chaos, worker-kill, reencode, weights
+and native phases decode a video, with cv2, and fail without it; the
+telemetry, alerts, certify, serving, storage, traffic, chaos,
+worker-kill, reencode, weights and native phases and the lint step read
+YAML with yaml. The serving, storage, traffic, chaos, worker-kill and
+lint phases start
 ``python -m video_features_tpu_torch`` subprocesses with this checkout on
 ``PYTHONPATH`` and wait for each (none outlives its phase), and the gateway
 binds ``127.0.0.1`` only. PIL is needed by the frame-wise phases'
@@ -4105,6 +4133,10 @@ SHOW_PRED_ROOT = "output/chip_smoke/show_pred"
 #: port's I3D logits band against JAX (tests/test_torch_i3d.py); the
 #: quantised flow crops may step by one where the two lookups round apart
 SHOW_PRED_LOGITS_ATOL = 5e-4
+#: the trace report's device time over the telemetry phase's on run, at
+#: least: the launch of two RAFT-20 stacks, a ``forward`` stage since the
+#: dispatch's launch is one (``parallel/mesh.py``), takes over a second
+TRACE_DEVICE_MS_MIN = 100.0
 WORKER_KILL_ROOT = "output/chip_smoke/worker_kill"
 #: the JAX package's replayable kill (tests/test_chaos.py): SIGKILL at the
 #: worker's second per-video attempt
@@ -4395,13 +4427,16 @@ def trace_report_phase(root: str = TELEMETRY_ROOT,
     proj = [e for e in kernels if "proj_kernel" in e.get("name", "")]
     on_card = torch.cuda.is_available()
     if merged["otherData"]["aligned"] is not False or \
+            (on_card and summary["device_ms"] < TRACE_DEVICE_MS_MIN) or \
             len(events) != len(host) + len(capture) or \
             len(lanes) != len(host) or \
             (on_card and len(proj) != proj_want) or \
             (not on_card and kernels):
         raise AssertionError(
-            f"trace report: merged {len(events)} events of "
-            f"{len(host)} + {len(capture)}, host lanes {len(lanes)}, "
+            f"trace report: device {summary['device_ms']} ms (at least "
+            f"{TRACE_DEVICE_MS_MIN} on the card), merged {len(events)} "
+            f"events of {len(host)} + {len(capture)}, host lanes "
+            f"{len(lanes)}, "
             f"{len(kernels)} device kernels, {len(proj)} proj "
             f"({proj_want} expected), aligned "
             f"{merged['otherData']['aligned']}")
@@ -4483,6 +4518,266 @@ def worker_kill_phase(video: str = SAMPLE_VIDEO,
                 audit=audit["worker_kill"])
 
 
+REENCODE_ROOT = "output/chip_smoke/reencode"
+WEIGHTS_ROOT = "output/chip_smoke/weights"
+NATIVE_ROOT = "output/chip_smoke/native"
+#: the seeded checkpoints of the weights step, under their upstream
+#: (hub) filenames: (model key, file, the config key of its explicit path)
+WEIGHTS_FILES = (("i3d_rgb", "i3d_rgb.pt", "weights_path"),
+                 ("i3d_flow", "i3d_flow.pt", "flow_weights_path"),
+                 ("raft_sintel", "raft-sintel.pth",
+                  "flow_model_weights_path"))
+WEIGHTS_SEEDS = {"i3d_rgb": 41, "i3d_flow": 42, "raft_sintel": 43}
+
+
+def stacks_of(outs: dict, stem: str) -> int:
+    """The i3d stacks a run wrote for the video ``stem``."""
+    return next(len(a) for k, a in outs.items()
+                if k.endswith(f"{stem}_rgb.npy"))
+
+
+def reencode_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
+                   **over) -> dict:
+    """The slice through ``cli.main`` over a copy of ``video`` re-encoded to
+    ``extraction_fps`` (``fps_mode=reencode``): the ``ffmpeg`` backend
+    where ``ffmpeg`` is on ``PATH``, else ``cv2``'s ``mp4v`` writer. Held:
+    a re-encoding source's frame indices and timestamps those of
+    ``fps_mode=select``'s index map on the same video (rtol 1e-6), and the
+    run's ``fps`` and per-stack timestamps those the select map gives;
+    every feature finite; proj ``iters`` launches a stack; no temp file
+    left. ``over`` replaces the slice's keys (the CPU test's small
+    sizes)."""
+    from pathlib import Path
+
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils import io as vio
+
+    backend = "ffmpeg" if vio.which_ffmpeg() else "cv2"
+    root = REENCODE_ROOT
+    fps = float(over.get("extraction_fps", TELEMETRY_FPS))
+    stack = int(over.get("stack_size", STACK))
+    step = int(over.get("step_size", STACK))
+    select = vio.VideoSource(video, fps=fps)
+    want = [(i / select.fps * 1000.0, i)
+            for i in range(len(select.index_map))]
+    t = time.perf_counter()
+    probe = vio.VideoSource(video, fps=fps, fps_mode="reencode",
+                            tmp_path=f"{root}/probe")
+    got = [(ts, i) for _, ts, i in probe.frames()]
+    reencode_s = time.perf_counter() - t
+    run = run_cli(telemetry_argv(root, video, **over)
+                  + ["fps_mode=reencode"], cl)
+    outs = read_outputs(f"{root}/out")
+    stem = Path(video).stem
+    n_stacks = stacks_of(outs, stem)
+    ts = next(a for k, a in outs.items()
+              if k.endswith(f"{stem}_timestamps_ms.npy"))
+    run_fps = next(a for k, a in outs.items()
+                   if k.endswith(f"{stem}_fps.npy"))
+    # a stack of ``stack`` flows spans stack + 1 frames; its timestamp is
+    # its last frame's
+    want_ts = [want[last][0] for last in range(stack, len(want), step)]
+    leftover = [str(p) for p in Path(root).rglob("*_new_fps.mp4")]
+    finite = all(np.isfinite(a).all() for a in outs.values())
+    timing = (len(got) == len(want)
+              and [i for _, i in got] == [i for _, i in want]
+              and np.allclose([x for x, _ in got], [x for x, _ in want],
+                              rtol=1e-6, atol=0)
+              and len(ts) == len(want_ts)
+              and np.allclose(ts, want_ts, rtol=1e-6, atol=0)
+              and np.allclose(run_fps, select.fps, rtol=1e-6, atol=0))
+    if not timing or not finite or leftover or n_stacks < 1 or \
+            run["launches"]["proj"] != iters * n_stacks * on_card():
+        raise AssertionError(
+            f"reencode ({backend}): {len(got)} frames against select's "
+            f"{len(want)}, stack timestamps {list(ts)} against {want_ts}, "
+            f"fps {run_fps} against {select.fps}, finite {finite}, temp "
+            f"files left {leftover}, launches {run['launches']}")
+    return dict(backend=backend, frames=len(got), select_frames=len(want),
+                stacks=n_stacks, fps=float(run_fps), reencode_s=reencode_s,
+                wall_s=run["wall_s"], launches=run["launches"],
+                features={k: list(a.shape) for k, a in outs.items()})
+
+
+def on_card() -> int:
+    """1 where the lookup kernels run (a card), else 0: every proj count
+    a step holds is ``iters * stacks * on_card()``."""
+    return int(torch.cuda.is_available())
+
+
+def weights_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
+                  **over) -> dict:
+    """Weights resolution through ``weights/store.py``: seeded checkpoints
+    of the slice's three models written under their upstream filenames
+    into a fresh ``VFT_WEIGHTS_DIR`` (``TORCH_HOME`` an empty directory).
+    The slice through ``cli.main`` with each file's explicit weights path,
+    then with no weights path (the store finds them), both with
+    ``allow_random_weights=false`` and ``cache=true`` into stores of their
+    own. Held: the features bit-equal; each run's cache entry keyed by the
+    same weights fingerprint, the sha256 of the three files; proj
+    ``iters`` launches a stack in both; then, with an empty
+    ``VFT_WEIGHTS_DIR``, the run fails with the store's message naming
+    that directory."""
+    import glob
+    import hashlib
+    import pickle
+    from pathlib import Path
+
+    from video_features_tpu_torch import cache
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.models import i3d as i3d_model
+    from video_features_tpu_torch.models import raft as raft_model
+    from video_features_tpu_torch.weights.bridge import seeded_init_
+
+    root = Path(WEIGHTS_ROOT)
+    wd = root / "weights_dir"
+    wd.mkdir(parents=True, exist_ok=True)
+    nets = {"i3d_rgb": lambda: i3d_model.I3D(400, in_channels=3),
+            "i3d_flow": lambda: i3d_model.I3D(400, in_channels=2),
+            "raft_sintel": lambda: raft_model.RAFT(iters)}
+    capture = []
+    for key, fname, _ in WEIGHTS_FILES:
+        torch.save(seeded_init_(nets[key](), WEIGHTS_SEEDS[key]).state_dict(),
+                   wd / fname)
+        sha = hashlib.sha256((wd / fname).read_bytes()).hexdigest()
+        capture.append({"model_key": key, "sha256": sha})
+    want_fp = cache.weights_fingerprint(capture)
+    saved = {k: os.environ.get(k) for k in ("VFT_WEIGHTS_DIR", "TORCH_HOME")}
+    runs, fps = {}, {}
+    try:
+        os.environ["TORCH_HOME"] = str(root / "torch_home")
+        for name, env_dir, paths in (
+                ("explicit", root / "unused_dir", True),
+                ("weights_dir", wd, False)):
+            os.environ["VFT_WEIGHTS_DIR"] = str(env_dir)
+            keys = {k: str(wd / f) for _, f, k in WEIGHTS_FILES} \
+                if paths else {}
+            argv = telemetry_argv(
+                f"{root}/{name}", video, allow_random_weights="false",
+                cache="true", cache_dir=f"{root}/{name}/cache",
+                **dict(over, **keys))
+            runs[name] = run_cli(argv, cl)
+            entries = glob.glob(f"{root}/{name}/cache/**/*.pkl",
+                                recursive=True)
+            fps[name] = sorted({pickle.load(open(e, "rb"))["weights_fp"]
+                                for e in entries})
+        os.environ["VFT_WEIGHTS_DIR"] = str(root / "empty_dir")
+        try:
+            run_cli(telemetry_argv(f"{root}/empty", video,
+                                   allow_random_weights="false", **over), cl)
+            refusal = None
+        except FileNotFoundError as e:
+            refusal = str(e)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    a = read_outputs(f"{root}/explicit/out")
+    b = read_outputs(f"{root}/weights_dir/out")
+    stacks = stacks_of(a, Path(video).stem)
+    check_bit_equal(b, a, "weights: the store's resolution")
+    want = iters * stacks * on_card()
+    if fps["explicit"] != [want_fp] or fps["weights_dir"] != [want_fp] or \
+            any(r["launches"]["proj"] != want for r in runs.values()) or \
+            refusal is None or str(root / "empty_dir") not in refusal or \
+            "No weights for" not in refusal:
+        raise AssertionError(
+            f"weights: fingerprints {fps} (want {want_fp}), launches "
+            f"{[r['launches'] for r in runs.values()]}, refusal {refusal!r}")
+    return dict(files=[f for _, f, _ in WEIGHTS_FILES], weights_fp=want_fp,
+                stacks=stacks, outputs=len(a), refusal=refusal,
+                walls_s={k: r["wall_s"] for k, r in runs.items()},
+                launches={k: r["launches"] for k, r in runs.items()})
+
+
+def native_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
+                 **over) -> dict:
+    """The native ``.npy`` writer (``native/vft_native.cpp``, built with
+    ``g++`` on first use) on the main path. Held: ``native.available()``;
+    the slice through ``cli.main`` writes every ``.npy`` through it (a
+    counting wrapper), each file byte-equal to ``np.save`` of the array
+    read back; ``validate_npy`` passes each and flags a truncated copy,
+    which ``is_already_exist`` then counts as absent; proj ``iters``
+    launches a stack."""
+    import io
+    from pathlib import Path
+
+    from video_features_tpu_torch import native
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils import sinks
+
+    if not native.available():
+        raise AssertionError("native: the g++ build of vft_native.cpp did "
+                             "not load; the run would take the fallback")
+    # the library is built once a checkout (earlier steps wrote through
+    # it): time a fresh build of the same source beside it
+    t = time.perf_counter()
+    native._build(Path(NATIVE_ROOT) / "timed_build.so")
+    build_s = time.perf_counter() - t
+    written = []
+    real = native.write_npy_atomic
+
+    def counted(fpath, value):
+        ok = real(fpath, value)
+        if ok:
+            written.append(str(fpath))
+        return ok
+
+    native.write_npy_atomic = counted
+    try:
+        run = run_cli(telemetry_argv(NATIVE_ROOT, video, **over), cl)
+    finally:
+        native.write_npy_atomic = real
+    files = sorted(Path(NATIVE_ROOT).rglob("*.npy"))
+    mismatched = []
+    for f in files:
+        buf = io.BytesIO()
+        np.save(buf, np.load(f))
+        if buf.getvalue() != f.read_bytes() or native.validate_npy(
+                str(f)) is not True:
+            mismatched.append(f.name)
+    stem = Path(video).stem
+    stacks = stacks_of(read_outputs(NATIVE_ROOT), stem)
+    flow = next(f for f in files if f.name == f"{stem}_flow.npy")
+    present = sinks.is_already_exist("save_numpy", str(flow.parent), video,
+                                     ["rgb", "flow"])
+    data = flow.read_bytes()
+    flow.write_bytes(data[:len(data) - 7])  # a copy torn by a killed writer
+    torn_flagged = native.validate_npy(str(flow)) is False
+    absent = not sinks.is_already_exist("save_numpy", str(flow.parent),
+                                        video, ["rgb", "flow"])
+    if len(written) != len(files) or sorted(written) != sorted(
+            str(f) for f in files) or mismatched or not present or \
+            not torn_flagged or not absent or \
+            run["launches"]["proj"] != iters * stacks * on_card():
+        raise AssertionError(
+            f"native: {len(written)} native writes of {len(files)} files, "
+            f"mismatched {mismatched}, present {present}, torn flagged "
+            f"{torn_flagged}, absent after {absent}, launches "
+            f"{run['launches']}")
+    return dict(available=True, library=native.library_path().name,
+                build_s=build_s, native_writes=len(written),
+                files=[f.name for f in files], byte_equal_np_save=True,
+                truncated_flagged=True, wall_s=run["wall_s"],
+                launches=run["launches"])
+
+
+def lint_phase() -> dict:
+    """``python -m video_features_tpu_torch lint --json`` on this checkout:
+    exit 0 (a non-zero exit fails the step), its finding counts and its
+    wall."""
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent)
+    res = run_module(["lint", root, "--json"], "lint")
+    doc = json.loads(res["stdout"])
+    if doc["schema"] != "vft.lint/1" or doc["counts"]["errors"]:
+        raise AssertionError(f"lint: {doc['counts']}")
+    return dict(counts=doc["counts"], findings=len(doc["findings"]),
+                lint_elapsed_s=doc["elapsed_s"], wall_s=res["wall_s"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4511,53 +4806,69 @@ def main() -> int:
                       "registry": roofline.registry_peak(kind),
                       "device_kind": kind, "card": card}))
 
-    ragged = check_ragged(dev)
+    # each phase's wall, printed on a line of its own before the kernels'
+    walls = {}
+
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    ragged = timed_phase("ragged", check_ragged, dev)
     print(json.dumps({"ragged_max_abs_err": ragged}))
-    kernels = check_kernels(dev)
-    raft_err = check_small_raft(dev)
-    slice_stats, proj_launches, level_launches, fused_feats = run_slice(dev)
-    raft_stats = run_raft_family(dev)
+    kernels = timed_phase("kernels", check_kernels, dev)
+    raft_err = timed_phase("small_raft", check_small_raft, dev)
+    slice_stats, proj_launches, level_launches, fused_feats = timed_phase(
+        "slice", run_slice, dev)
+    raft_stats = timed_phase("raft_family", run_raft_family, dev)
     torch.cuda.empty_cache()
-    pwc_stats = run_pwc_family(dev)
+    pwc_stats = timed_phase("pwc_family", run_pwc_family, dev)
     torch.cuda.empty_cache()
-    i3d_pwc_stats, proj_launches_bf16 = run_i3d_pwc(dev, fused_feats)
+    i3d_pwc_stats, proj_launches_bf16 = timed_phase(
+        "i3d_pwc", run_i3d_pwc, dev, fused_feats)
     torch.cuda.empty_cache()
-    r21d_stats = run_r21d(dev)
-    s3d_stats = run_s3d(dev)
-    resnet_stats = frame_phase("resnet", 2048, "resnet18", 512)
-    clip_stats = frame_phase("clip", 512, "RN50", 1024)
-    vggish_stats = vggish_phase()
-    parallel_stats = parallel_phase(dev)
+    r21d_stats = timed_phase("r21d", run_r21d, dev)
+    s3d_stats = timed_phase("s3d", run_s3d, dev)
+    resnet_stats = timed_phase("resnet", frame_phase, "resnet", 2048,
+                               "resnet18", 512)
+    clip_stats = timed_phase("clip", frame_phase, "clip", 512, "RN50", 1024)
+    vggish_stats = timed_phase("vggish", vggish_phase)
+    parallel_stats = timed_phase("parallel", parallel_phase, dev)
     empty_cache()
-    multi_stats = multi_phase()
+    multi_stats = timed_phase("multi", multi_phase)
     empty_cache()
-    telemetry_stats = telemetry_phase()
+    telemetry_stats = timed_phase("telemetry", telemetry_phase)
     empty_cache()
-    alerts_stats = alerts_phase()
+    alerts_stats = timed_phase("alerts", alerts_phase)
     empty_cache()
-    fleet_stats = fleet_step({"telemetry": TELEMETRY_ROOT,
-                              "alerts": ALERTS_ROOT}, kind)
-    certify_stats = certify_phase()
+    fleet_stats = timed_phase("fleet", fleet_step,
+                              {"telemetry": TELEMETRY_ROOT,
+                               "alerts": ALERTS_ROOT}, kind)
+    certify_stats = timed_phase("certify", certify_phase)
     empty_cache()
-    serve_stats = serve_phase()
+    serve_stats = timed_phase("serve", serve_phase)
     empty_cache()
-    compile_stats = compile_cache_phase()
-    fleet_queue_stats = fleet_queue_phase()
+    compile_stats = timed_phase("compile_cache", compile_cache_phase)
+    fleet_queue_stats = timed_phase("fleet_queue", fleet_queue_phase)
     empty_cache()
-    storage_stats = storage_phase()
+    storage_stats = timed_phase("storage", storage_phase)
     empty_cache()
-    traffic_stats = traffic_phase()
+    traffic_stats = timed_phase("traffic", traffic_phase)
     empty_cache()
-    chaos_stats = chaos_phase()
+    chaos_stats = timed_phase("chaos", chaos_phase)
     empty_cache()
     steps = {}
     for name, step in (("sequence", sequence_phase),
                        ("show_pred", show_pred_phase),
                        ("trace_report", trace_report_phase),
-                       ("worker_kill", worker_kill_phase)):
-        t0 = time.perf_counter()
-        steps[name] = step()
-        steps[name]["step_wall_s"] = time.perf_counter() - t0
+                       ("worker_kill", worker_kill_phase),
+                       ("reencode", reencode_phase),
+                       ("weights", weights_phase),
+                       ("native", native_phase),
+                       ("lint", lint_phase)):
+        steps[name] = timed_phase(name, step)
+        steps[name]["step_wall_s"] = walls[name]
         empty_cache()
     sequence_stats, show_pred_stats, trace_stats, kill_stats = (
         steps[name] for name in ("sequence", "show_pred", "trace_report",
@@ -4596,6 +4907,10 @@ def main() -> int:
         "pwc": show_pred_stats["pwc"]["launches"]["proj"]}
     proj_row["launches_clip_blockwise"] = sequence_stats["runs"][
         "blockwise"]["launches"]["proj"]
+    proj_row["launches_reencode"] = steps["reencode"]["launches"]["proj"]
+    proj_row["launches_weights"] = {
+        name: d["proj"] for name, d in steps["weights"]["launches"].items()}
+    proj_row["launches_native"] = steps["native"]["launches"]["proj"]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -4645,6 +4960,9 @@ def main() -> int:
     print(json.dumps({"show_pred": dict(show_pred_stats, card=card)}))
     print(json.dumps({"trace_report": dict(trace_stats, card=card)}))
     print(json.dumps({"worker_kill": dict(kill_stats, card=card)}))
+    for name in ("reencode", "weights", "native", "lint"):
+        print(json.dumps({name: dict(steps[name], card=card)}))
+    print(json.dumps({"phase_walls_s": walls, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,19 +183,22 @@ def test_seeded_init_is_deterministic():
                        torch.ones(64))
 
 
-def test_checkpoint_file_loads_strict(tmp_path):
+def test_checkpoint_file_loads_strict(tmp_path, monkeypatch):
     """A checkpoint file in the reference's layout (DataParallel 'module.'
-    prefix, wrapped in a 'state_dict' container) loads into the port; no
-    file and no allow_random_weights is an error, not random weights."""
-    from video_features_tpu_torch.extractors.base import load_weights
+    prefix, wrapped in a 'state_dict' container) loads into the port
+    through the weights store; no file (an empty ``VFT_WEIGHTS_DIR``) and
+    no allow_random_weights is an error, not random weights."""
+    from video_features_tpu_torch.weights.store import resolve_params
+    monkeypatch.setenv("VFT_WEIGHTS_DIR", str(tmp_path / "empty"))
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path / "torch"))
     sd = _torch_layout_state("i3d", seed=11)
     path = tmp_path / "i3d_flow.pt"
     torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
                path)
-    m = load_weights(ti3d.I3D(400), str(path), allow_random=False, seed=0,
-                     what="i3d_rgb")
+    m = resolve_params(ti3d.I3D(400), "i3d_rgb", str(path),
+                       allow_random=False, seed=0)
     for k, v in m.state_dict().items():
         assert torch.equal(v, sd[k]), k
     with pytest.raises(FileNotFoundError, match="allow_random_weights"):
-        load_weights(ti3d.I3D(400), None, allow_random=False, seed=0,
-                     what="i3d_rgb")
+        resolve_params(ti3d.I3D(400), "i3d_rgb", None, allow_random=False,
+                       seed=0)

@@ -8,7 +8,9 @@
   its retries, while the videos around it in the same run succeed; a source
   registered after the deadline fired is cancelled at once; cancelling an
   inline, process or parallel source mid-stream raises
-  ``DeadlineExceeded`` in the consumer, and leaves no child alive.
+  ``DeadlineExceeded`` in the consumer, and leaves no child alive; the
+  watchdog's cancel of a spawned source stops no child from its own
+  thread (the consumer does, after its next poll).
 - The decode ladder: retries of a ``video_decode=parallel`` video run
   ``process`` then ``inline``, as in JAX's ``safe_extract``, and
   ``BaseExtractor.video_source`` builds the source of each rung and
@@ -222,6 +224,24 @@ def test_cancel_kills_spawned_decode(sample_video, cls):
                     n += 1
                     time.sleep(0.02)
     assert 1 < n < 355
+    assert workers and not any(w.proc.is_alive() for w in workers)
+
+
+@pytest.mark.parametrize("cls", ["ProcessVideoSource",
+                                 "ParallelVideoSource"])
+def test_cancel_leaves_the_children_to_the_consumer(sample_video, cls):
+    """The watchdog's ``cancel`` terminates no child from its own thread
+    (one killed while the consumer reads its frame leaves half a message
+    in the pipe, and the read blocks for ever); the consumer's next poll
+    raises ``DeadlineExceeded`` and stops every child on its way out."""
+    src = getattr(tio, cls)(sample_video)
+    workers = list(src._workers)
+    frames = src.frames()
+    next(frames)
+    src.cancel("video deadline (0.3s) exceeded")
+    assert all(w.proc.is_alive() for w in workers)
+    with pytest.raises(tfaults.DeadlineExceeded, match="deadline"):
+        next(frames)
     assert workers and not any(w.proc.is_alive() for w in workers)
 
 

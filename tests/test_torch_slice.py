@@ -260,19 +260,26 @@ def test_sinks_write_and_skip(tmp_path, sink):
                                        list(feats))
 
 
-@pytest.mark.parametrize("key,value,ported", [
-    ("fps_mode", "reencode", False), ("show_pred", True, True)],
+@pytest.mark.parametrize("key,value", [
+    ("fps_mode", "reencode"), ("show_pred", True)],
     ids=["fps_mode-reencode", "show_pred-True"])
-def test_unported_keys_raise(tmp_path, key, value, ported):
-    """``fps_mode=reencode`` raises naming its ROADMAP.md item; the slice's
-    ``show_pred``, ported since (Queue 1 #13), passes the checks as in
-    JAX."""
+def test_unported_keys_raise(tmp_path, sample_video, key, value):
+    """Both keys once raised as unported; both now run as in JAX. The
+    slice's ``show_pred`` (Queue 1 #13) passes the checks; so does
+    ``fps_mode=reencode`` (#11), whose source then decodes the re-encoded
+    copy under the slice's ``tmp_path`` at select's frame count and
+    removes it after the pass."""
     cfg = tconfig.load_config("i3d", dict(_overrides(tmp_path), **{key: value}))
-    if ported:
-        tconfig.sanity_check(cfg)
+    tconfig.sanity_check(cfg)
+    if key != "fps_mode":
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfig.sanity_check(cfg)
+    src = tio.VideoSource(sample_video, fps=2.0, fps_mode=cfg.fps_mode,
+                          tmp_path=cfg.tmp_path)
+    tmp = Path(src.path)
+    assert tmp.parent == Path(cfg.tmp_path) and tmp.exists()
+    frames = list(src.frames())
+    assert len(frames) == len(tio.VideoSource(sample_video, fps=2.0)) > 0
+    assert not tmp.exists()
 
 
 @pytest.mark.parametrize("key,value", [
@@ -462,8 +469,8 @@ def test_cli_rejects_unported_families():
 def test_port_imports_no_jax_and_no_lazy_host_deps():
     """Every module of the port (the serving plane's ``compile_cache``,
     ``serve``, ``gateway``, ``parallel/queue``, the storage plane's ``gc``
-    and ``audit``, the drills' ``loadgen``, ``compare_runs`` and the CLI
-    among them), and
+    and ``audit``, the drills' ``loadgen``, ``compare_runs``, the CLI, the
+    native writer, the weights store and the lint among them), and
     tests/test_torch_cuda.py, imports under a finder that refuses jax, flax
     and video_features_tpu; importing the
     i3d, raft, pwc, r21d, s3d, resnet and clip extractors and the card-only
@@ -495,7 +502,9 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
             pkg.__path__, pkg.__name__ + ".")]
         serving = {"video_features_tpu_torch." + m for m in (
             "compile_cache", "serve", "gateway", "parallel.queue", "cli",
-            "gc", "audit", "loadgen", "compare_runs")}
+            "gc", "audit", "loadgen", "compare_runs", "native",
+            "weights.store", "weights.converters", "weights.torch_import",
+            "lint", "lint.engine", "lint.rules")}
         assert serving <= set(names), serving - set(names)
         for name in names:
             importlib.import_module(name)
@@ -505,7 +514,7 @@ def test_port_imports_no_jax_and_no_lazy_host_deps():
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stdout + run.stderr
-    assert int(run.stdout.split()[-1]) >= 43
+    assert int(run.stdout.split()[-1]) >= 92
 
 
 def test_chip_smoke_imports_no_jax():

@@ -24,7 +24,8 @@ Held, with the tolerances stated where there are any:
     ``prometheus_text``; the same stage observations the same
     ``StageProfiler`` summary; torn-tail healing appends alike;
   - ``scripts/telemetry_report.py`` and ``scripts/trace_report.py`` (JAX
-    side readers) render the port's output directory with exit 0;
+    side readers) render the port's output directory with exit 0, and the
+    port's trace report gives the port's run JAX's verdict on JAX's run;
   - with every key on, the port's features equal its features with them
     off bit for bit, and JAX's within the value tier (atol 1e-2);
   - ``profile=true`` prints the stage summary; ``profile_trace_dir`` holds a
@@ -313,6 +314,17 @@ def test_jax_side_reports_render_port_output(runs, script):
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
     assert run.stdout.strip()
+
+
+def test_trace_verdict_equals_jax(runs):
+    """The trace report's verdict over the port's run is JAX's over its run
+    of the same configuration: the forward's launch is ``forward`` time in
+    the port, as the forward is in JAX, and not time in no stage."""
+    from video_features_tpu_torch import trace_report
+    port = trace_report.stage_summary(str(runs["port"]["dir"]))
+    jax = trace_report.stage_summary(str(runs["jax"]["dir"]))
+    assert port["verdict"] == jax["verdict"], (port, jax)
+    assert port["device_ms"] > 0
 
 
 @pytest.mark.parametrize("key", KEYS)

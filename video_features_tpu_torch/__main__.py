@@ -2,8 +2,8 @@
 import sys
 
 if __name__ == "__main__":
-    # the storage, drill and compare commands import neither torch nor the
-    # extractors, so each starts in a fraction of a second
+    # the storage, drill, compare and lint commands import neither torch
+    # nor the extractors, so each starts in a fraction of a second
     if sys.argv[1:2] == ["gc"]:
         from .gc import main as gc_main
         sys.exit(gc_main(sys.argv[2:]))
@@ -16,5 +16,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["compare"]:
         from .compare_runs import main as compare_main
         sys.exit(compare_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["lint"]:
+        from .lint.engine import main as lint_main
+        sys.exit(lint_main(sys.argv[2:]))
     from .cli import main
     sys.exit(main())

@@ -19,7 +19,7 @@ before any decoder is built:
   value it resolves to.
 
   **weights fingerprint**: sha256 of every checkpoint the extractor loaded
-  (``extractors/base.py load_weights`` records ``{model_key, sha256}``
+  (``weights/store.py resolve_params`` records ``{model_key, sha256}``
   under the JAX package's model keys), or a ``random:{model_key}``
   sentinel for the seeded init of ``allow_random_weights``.
 

@@ -84,7 +84,8 @@ the storage planes and runs a journaled eviction sweep (``gc.py``);
 ``... loadgen SCENARIO.yml --spool ... --base-url ...`` drives a seeded
 traffic drill through the gateway (``loadgen.py``), and ``... compare A B``
 diffs two runs' digests, stages, failures and artifacts into one verdict
-(``compare_runs.py``).
+(``compare_runs.py``); ``... lint [--json] [--baseline ...]`` runs vft-lint
+over the port (``lint/``).
 """
 from __future__ import annotations
 
@@ -135,6 +136,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     if argv and argv[0] == "compare":
         from .compare_runs import main as compare_main
         raise SystemExit(compare_main(argv[1:]))
+    if argv and argv[0] == "lint":
+        from .lint.engine import main as lint_main
+        raise SystemExit(lint_main(argv[1:]))
     overrides = parse_dotlist(argv)
     feature_type = overrides.get("feature_type")
     if not feature_type:

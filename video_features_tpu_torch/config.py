@@ -22,6 +22,51 @@ from .device import precision_dtype, resolve_device
 
 _CONFIG_DIR = Path(__file__).resolve().parent / "configs"
 
+#: validated config keys that appear in only SOME family YAMLs
+#: (family-specific defaults). vft-lint's VFT002 (``lint/rules.py``) wants
+#: every key a validator reads carried by ALL the family YAMLs unless it is
+#: declared here or in LAUNCH_KEYS. The JAX package's set.
+OPTIONAL_KEYS = frozenset({
+    "batch_size", "bpe_path", "clip_batch_size", "corr_lookup_impl",
+    "extraction_fps", "extraction_total", "finetuned_on", "flow_iters",
+    "flow_model_weights_path", "flow_stack_batch", "flow_type",
+    "flow_weights_path", "fps_mode", "frontend", "fuse_convc1", "ingest",
+    "iters", "model_name", "model_parallel", "pca_weights_path",
+    "postprocess", "pred_texts", "resize", "resize_to_smaller_edge",
+    "side_size", "stack_size", "step_size", "streams", "vision_attn",
+})
+
+#: launch-time keys that never ride a family YAML: the serve and gateway
+#: command lines' spool plumbing, the storage keys, and expert decode
+#: knobs that are deliberately undocumented defaults (the JAX package's
+#: set), so VFT002 tells "launch-only by design" from a typo'd key.
+LAUNCH_KEYS = frozenset({
+    # profiling hooks (cli.py)
+    "profile", "profile_trace_dir",
+    # expert decode-pipeline knobs (extractors/base.py, multi.py)
+    "video_decode", "decode_workers", "decode_depth", "fanout_depth",
+    "cross_video_batching",
+    # serve launch keys (serve.py; serve_slo_s rides the YAMLs)
+    "spool_dir", "serve_max_pending", "serve_poll_interval_s",
+    "serve_idle_exit_s", "serve_max_requests", "serve_workers",
+    "serve_warmup_video",
+    # gateway launch keys (gateway.py validate_gateway_args)
+    "gateway_tenants", "gateway_port", "gateway_host",
+    "gateway_max_queued", "gateway_spool_bound", "gateway_max_body_mb",
+    "gateway_poll_interval_s", "gateway_expire_grace_s",
+    "gateway_default_timeout_s",
+    # gc launch keys (gc.py validate_gc_args)
+    "gc", "gc_quota_gb", "gc_cache_retention_s",
+    "gc_compile_retention_s", "gc_spool_retention_s",
+    "gc_inbox_retention_s", "gc_incident_retention_s",
+    "gc_quarantine_retention_s", "gc_staging_retention_s",
+    "gc_interval_s",
+})
+
+#: removed reference flags: accepted, warned about and deleted by
+#: :func:`sanity_check`, exempt from every other key contract.
+REMOVED_KEYS = frozenset({"device_ids"})
+
 #: key -> (the values the port accepts, the ROADMAP.md Queue 1 item that
 #: ports the key's plane; None for ``config``, which the JAX package reads
 #: at no value either)
@@ -211,8 +256,8 @@ def _roadmap(item: Optional[int]) -> str:
 
 def check_ported(args: Config) -> None:
     """Raise ``NotImplementedError`` for a value the port does not run yet:
-    a :data:`GATED_KEYS` key away from its default, ``fps_mode=reencode``,
-    and ``precision=bfloat16`` outside ``device.BF16_FAMILIES``; and, as
+    a :data:`GATED_KEYS` key away from its default, and
+    ``precision=bfloat16`` outside ``device.BF16_FAMILIES``; and, as
     the JAX package does, for a ``video_decode`` outside
     :data:`VIDEO_DECODE_MODES`. ``show_pred`` passes: every family of
     :data:`SHOW_PRED_FAMILIES` runs it, and vggish's extractor raises, as
@@ -230,10 +275,6 @@ def check_ported(args: Config) -> None:
         raise NotImplementedError(
             f"video_decode={decode!r}: expected 'inline', 'process' or "
             "'parallel'")
-    if (args.get("fps_mode") or "select") == "reencode":
-        raise NotImplementedError(
-            "fps_mode='reencode' is not ported yet (it needs an ffmpeg "
-            f"binary; {_roadmap(11)})")
 
 
 def _check_telemetry(args: Config) -> None:
@@ -412,15 +453,21 @@ def _check_parallel(args: Config) -> None:
 
 
 def pca_weights_path(args: Config) -> str:
-    """``pca_weights_path``, which ``postprocess=true`` needs;
-    ``FileNotFoundError`` naming the key when it is unset or missing (the
-    port has no weights directory to search, ROADMAP.md Queue 1 #12)."""
+    """The PCA params that ``postprocess=true`` needs: ``pca_weights_path``,
+    else the ``vggish_pca`` files the weights store finds
+    (``weights/store.py find_checkpoint``); ``FileNotFoundError`` naming
+    the key and the store's directory where there are none."""
+    from .weights import store
     pca = args.get("pca_weights_path")
-    if not pca or not Path(str(pca)).exists():
+    if pca and not Path(str(pca)).exists():
+        raise FileNotFoundError(f"pca_weights_path does not exist: {pca}")
+    found = store.find_checkpoint("vggish_pca", pca)
+    if found is None:
         raise FileNotFoundError(
-            "postprocess=true needs the PCA params: pass pca_weights_path= "
-            f"a vggish_pca_params .pth or .npz (got {pca!r})")
-    return str(pca)
+            "postprocess=true needs the PCA params; drop "
+            "vggish_pca_params-970ea276.pth (or the .npz twin) into "
+            f"{store.weights_dir()} or pass pca_weights_path=...")
+    return str(found)
 
 
 def sanity_check(args: Config, *, require_videos: bool = True) -> None:
@@ -432,6 +479,7 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     ``resize``, ``corr_lookup_impl``/``fuse_convc1``, the flow families'
     keys ``iters``, ``batch_size``, ``side_size`` and
     ``resize_to_smaller_edge`` (``ExtractRAFT`` checks ``finetuned_on``),
+    ``fps_mode``,
     the clip-stack and frame-wise families' ``model_name`` and ``ingest``,
     vggish's ``frontend``, ``postprocess`` and ``pca_weights_path``, the
     retry, deadline and ``inject`` keys,
@@ -442,11 +490,17 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     keys (``telemetry``, ``metrics_interval_s``, ``trace``, ``health``,
     ``parity``, ``roofline``, ``history``, ``alerts``), the serving keys
     (the compile cache, the fleet queue, ``serve_slo_s``, ``gateway_*``),
-    the storage keys (``gc``, ``gc_*``), the unported keys, the device
+    the storage keys (``gc``, ``gc_*``), the unported keys, the removed
+    ``device_ids`` (warned about and deleted), the device
     (``args.device`` becomes ``cpu``, ``cuda`` or ``cuda:N``) and the
     ``feature_type[/model_name]`` namespacing of
     ``output_path``/``tmp_path``."""
     check_ported(args)
+    if "device_ids" in args:
+        print("WARNING: `device_ids` is a removed reference flag; the data "
+              "mesh spans the cards of `device` (and `mesh_devices`). "
+              "Ignoring it.")
+        del args["device_ids"]
     args.device = str(resolve_device(args.get("device")))
     if args.feature_type in ("r21d", "s3d", "resnet", "clip"):
         from .registry import get_extractor_cls
@@ -538,6 +592,12 @@ def sanity_check(args: Config, *, require_videos: bool = True) -> None:
     if rse is not None and not isinstance(rse, bool):
         raise ValueError(f"resize_to_smaller_edge={rse!r}: expected true or "
                          "false")
+    fps_mode = args.get("fps_mode", "select") or "select"
+    if fps_mode not in ("select", "reencode"):
+        raise ValueError(
+            f"fps_mode={fps_mode!r}: expected 'select' (bit-exact source "
+            "frames, the default) or 'reencode' (the reference's lossy "
+            "temp-file decode path, for golden-parity runs)")
 
     subs: List[str] = [args.feature_type]
     if args.get("model_name") is not None:

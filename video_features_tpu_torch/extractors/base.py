@@ -1,7 +1,8 @@
 """Extraction lifecycle shared by the port's families (port of
 ``video_features_tpu/extractors/base.py``): ``_extract`` = cache hit ->
 skip-if-exists -> ``extract`` -> sink dispatch -> cache store; device and
-precision resolution; weights and their capture for the cache key; the
+precision resolution; the capture of the weights the store resolved
+(``weights/store.py``) for the cache key; the
 data mesh of the runners (:meth:`BaseExtractor._data_mesh`) and their
 result streams (:meth:`BaseExtractor.feature_stream`); the
 ``resize=auto|host|device`` choice and the per-resolution, per-device
@@ -25,7 +26,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import telemetry
 from ..config import Config, check_ported
@@ -37,85 +37,20 @@ from ..telemetry import trace
 from ..utils import faults, sinks
 from ..utils import io as vio
 from ..utils.profiling import profiler
-from ..weights.bridge import seeded_init_
+from ..weights.store import start_weights_capture
 
 _RESIZE_CACHE_SIZE = 8
-
-_capture_tls = threading.local()
-
-
-def start_weights_capture() -> list:
-    """Begin a fresh capture of weights resolutions on this thread; returns
-    the live list that later :func:`record_weights` calls on this thread
-    append to (the JAX package's ``weights/store.py``
-    ``start_weights_capture``)."""
-    cap: list = []
-    _capture_tls.capture = cap
-    return cap
-
-
-def record_weights(model_key: str, path: Optional[str]) -> None:
-    """Record what an extractor loaded for ``model_key``, under the JAX
-    package's model keys: ``{model_key, path, sha256}`` for a checkpoint
-    file, ``{model_key, random: True}`` for the seeded init."""
-    cap = getattr(_capture_tls, "capture", None)
-    if cap is None:
-        return
-    if not path:
-        cap.append({"model_key": model_key, "random": True})
-        return
-    from ..cache import file_sha256
-    try:
-        cap.append({"model_key": model_key, "path": str(path),
-                    "sha256": file_sha256(str(path))})
-    except OSError:
-        pass  # keying metadata: an unreadable file fails its load instead
-
-
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A checkpoint file's state dict on the CPU: ``torch.load`` (weights
-    only), or for a TorchScript archive, which it refuses (OpenAI ships
-    CLIP as ``.pt`` JIT archives), ``torch.jit.load(...).state_dict()``;
-    common containers (``state_dict``, ``model_state_dict``,
-    ``model``) unwrapped, a ``module.`` prefix dropped, float16 tensors
-    upcast to float32 (reference clip.py:128-139)."""
-    try:
-        obj = torch.load(path, map_location="cpu", weights_only=True)
-    except RuntimeError:  # a TorchScript archive
-        obj = torch.jit.load(path, map_location="cpu").state_dict()
-    if isinstance(obj, dict):
-        for key in ("state_dict", "model_state_dict", "model"):
-            if isinstance(obj.get(key), dict):
-                obj = obj[key]
-                break
-    return {(k[len("module."):] if k.startswith("module.") else k):
-            (v.float() if torch.is_tensor(v) and v.dtype == torch.float16
-             else v) for k, v in obj.items()}
-
-
-def load_weights(module: nn.Module, path: Optional[str], allow_random: bool,
-                 seed: int, what: str) -> nn.Module:
-    """Load a checkpoint in the reference's torch key layout into
-    ``module`` (``strict=True``), or give it the seeded random init when
-    ``path`` is unset and ``allow_random`` is true; ``what`` is the JAX
-    package's model key, recorded for the cache key
-    (:func:`record_weights`)."""
-    if path:
-        record_weights(what, path)
-        module.load_state_dict(read_state_dict(path), strict=True)
-        return module
-    if not allow_random:
-        raise FileNotFoundError(
-            f"no checkpoint for {what}: pass its weights path, or "
-            "allow_random_weights=true for a seeded random init")
-    record_weights(what, None)
-    return seeded_init_(module, seed)
-
 
 class BaseExtractor:
     output_feat_keys: List[str]
     #: un-materialized outputs a video's :class:`FeatureStream` may hold
     stream_depth = 4
+    #: ``fps_mode`` and ``keep_tmp_files`` (set from the config):
+    #: ``reencode`` decodes the reference's lossy re-encode of each video,
+    #: written under ``tmp_path`` (``utils/io.py``) and kept with
+    #: ``keep_tmp_files``
+    fps_mode = "select"
+    keep_tmp_files = False
 
     def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
         """``mesh`` replaces the mesh of ``device`` and ``mesh_devices``
@@ -141,6 +76,8 @@ class BaseExtractor:
                 f"decode_workers={self.decode_workers}: need >= 1")
         raw_dd = args.get("decode_depth")
         self.decode_depth = None if raw_dd is None else int(raw_dd)
+        self.fps_mode = args.get("fps_mode") or "select"
+        self.keep_tmp_files = bool(args.get("keep_tmp_files", False))
         # health=true: digest every output at the sink into
         # {output_path}/_health.jsonl and refuse non-finite ones
         self.health = bool(args.get("health", False))
@@ -187,7 +124,9 @@ class BaseExtractor:
         """The decode source of ``video_decode`` (``inline``:
         :class:`utils.io.VideoSource`, ``process``: ``ProcessVideoSource``,
         ``parallel``: ``ParallelVideoSource`` with ``decode_workers`` and
-        ``decode_depth``), built with ``kwargs``. Inside a
+        ``decode_depth``), built with ``kwargs``; under
+        ``fps_mode=reencode`` with ``tmp_path`` and ``keep_tmp_files``
+        (the spawned sources refuse it). Inside a
         :class:`utils.faults.FaultContext` the context's
         ``decode_override`` (the ladder's rung for a retry) replaces
         ``video_decode``, and the source is registered with the context so
@@ -228,6 +167,10 @@ class BaseExtractor:
             kwargs.setdefault("decode_workers", self.decode_workers)
             if self.decode_depth is not None:
                 kwargs.setdefault("depth", self.decode_depth)
+        if self.fps_mode == "reencode":
+            kwargs.setdefault("fps_mode", "reencode")
+            kwargs.setdefault("tmp_path", self.tmp_path)
+            kwargs.setdefault("keep_tmp", self.keep_tmp_files)
         # probing can be slow (a recount, spawning workers): its own span
         with trace.span("source_probe", video=str(video_path), mode=mode):
             src = cls(video_path, **kwargs)

@@ -42,7 +42,8 @@ from ..ops import preprocess as pp
 from ..parallel.mesh import (TP_RULES_TRANSFORMER, DataParallelApply, Mesh,
                              get_mesh, param_specs_by_rules)
 from ..utils.labels import load_label_map, show_predictions_on_dataset
-from .base import load_weights, read_state_dict, record_weights
+from ..weights.store import resolve_params
+from ..weights.torch_import import load_torch_state_dict
 from .frame_wise import FrameWiseExtractor
 
 SEED_CLIP = 6
@@ -68,22 +69,20 @@ class ExtractCLIP(FrameWiseExtractor):
                     "model_name=custom requires weights_path=<checkpoint>")
         elif self.model_name not in clip_model.CONFIGS:
             raise NotImplementedError(f"Model {self.model_name} not found")
-        if weights_path:
-            if self.model_name != "custom":
-                # custom reads its architecture off the file: the JAX
-                # package resolves (and records) no model key for it
-                record_weights(model_key(self.model_name), weights_path)
-            state = clip_model.checkpoint_state(read_state_dict(weights_path))
-            cfg = (clip_model.config_from_state_dict(state)
-                   if self.model_name == "custom"
-                   else clip_model.CONFIGS[self.model_name])
+        if self.model_name == "custom":
+            # custom reads its architecture off the file: the JAX package
+            # resolves (and records) no model key for it
+            state = clip_model.checkpoint_state(
+                load_torch_state_dict(weights_path))
+            cfg = clip_model.config_from_state_dict(state)
             model = clip_model.CLIP(cfg, vision_attn)
             model.load_state_dict(state, strict=True)
         else:
             cfg = clip_model.CONFIGS[self.model_name]
-            model = load_weights(clip_model.CLIP(cfg, vision_attn), None,
-                                 self.allow_random, SEED_CLIP,
-                                 model_key(self.model_name))
+            model = resolve_params(
+                clip_model.CLIP(cfg, vision_attn), model_key(self.model_name),
+                weights_path, self.allow_random, SEED_CLIP,
+                prepare=clip_model.checkpoint_state)
         if vision_attn == "blockwise" and not cfg.is_vit:
             # only the ViT tower routes the implementation: a silent no-op
             # on RN* would betray the key

@@ -49,7 +49,8 @@ from ..ops import host_transforms as ht
 from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import Prefetcher
 from ..utils.labels import show_predictions_on_dataset
-from .base import BaseExtractor, load_weights
+from ..weights.store import resolve_params
+from .base import BaseExtractor
 from .i3d_flow import FlowStream, i3d_heads
 
 SEED_I3D_RGB = 0
@@ -78,9 +79,9 @@ class ExtractI3D(BaseExtractor):
         nets = {}
         self.rgb_model = None
         if "rgb" in self.streams:
-            rgb = load_weights(
-                i3d_model.I3D(400, in_channels=3), args.get("weights_path"),
-                self.allow_random, SEED_I3D_RGB, "i3d_rgb")
+            rgb = resolve_params(
+                i3d_model.I3D(400, in_channels=3), "i3d_rgb",
+                args.get("weights_path"), self.allow_random, SEED_I3D_RGB)
             self.rgb_model = nets["rgb"] = cast_floating_(
                 rgb, self.dtype).eval()
         self.flow_stream = None

@@ -28,7 +28,7 @@ from ..models import i3d as i3d_model
 from ..models import pwc as pwc_model
 from ..models import raft as raft_model
 from ..models.common import cast_floating_
-from .base import load_weights
+from ..weights.store import resolve_params
 
 #: flow-net budget when the device reports no free memory (the CPU)
 _FLOW_BUDGET_FALLBACK = 7 * 1024 ** 3
@@ -172,17 +172,18 @@ class FlowStream(nn.Module):
                                  "one GRU refinement iteration")
             raft = raft_model.RAFT(iters, args.get("corr_lookup_impl"),
                                    args.get("fuse_convc1"), dtype=self.dtype)
-            raft = load_weights(raft, weights, parent.allow_random,
-                                SEED_RAFT, "raft_sintel")
+            raft = resolve_params(raft, "raft_sintel", weights,
+                                  parent.allow_random, SEED_RAFT)
             self.raft = cast_floating_(raft, self.dtype).eval()
         else:
             # PWC's weights stay float32: its bfloat16 layers cast at use
-            pwc = load_weights(pwc_model.PWCNet(dtype=self.dtype), weights,
-                               parent.allow_random, SEED_PWC, "pwc_sintel")
+            pwc = resolve_params(pwc_model.PWCNet(dtype=self.dtype),
+                                 "pwc_sintel", weights, parent.allow_random,
+                                 SEED_PWC)
             self.pwc = pwc.eval()
-        i3d = load_weights(i3d_model.I3D(400, in_channels=2),
-                           args.get("flow_weights_path"), parent.allow_random,
-                           SEED_I3D_FLOW, "i3d_flow")
+        i3d = resolve_params(i3d_model.I3D(400, in_channels=2), "i3d_flow",
+                             args.get("flow_weights_path"),
+                             parent.allow_random, SEED_I3D_FLOW)
         self.i3d = cast_floating_(i3d, self.dtype).eval()
         #: flow-net forwards run so far (one per chunk of stacks)
         self.forwards = 0

@@ -17,7 +17,7 @@ import torch
 from ..config import Config
 from ..models import pwc as pwc_model
 from ..parallel.mesh import Mesh
-from .base import load_weights
+from ..weights.store import resolve_params
 from .flow import OpticalFlowExtractor
 from .i3d_flow import SEED_PWC
 
@@ -26,9 +26,9 @@ class ExtractPWC(OpticalFlowExtractor):
 
     def __init__(self, args: Config, mesh: Optional[Mesh] = None) -> None:
         super().__init__(args, mesh)
-        model = load_weights(pwc_model.PWCNet(dtype=self.dtype),
-                             args.get("weights_path"), self.allow_random,
-                             SEED_PWC, "pwc_sintel")
+        model = resolve_params(pwc_model.PWCNet(dtype=self.dtype),
+                               "pwc_sintel", args.get("weights_path"),
+                               self.allow_random, SEED_PWC)
         self.model = model.eval()
         self._build_runner()
 

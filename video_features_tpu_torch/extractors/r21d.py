@@ -25,7 +25,7 @@ from ..ops import colorspace
 from ..ops import host_transforms as ht
 from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.labels import show_predictions_on_dataset
-from .base import load_weights
+from ..weights.store import resolve_params
 from .clip_stack import ClipStackExtractor
 
 SEED_R21D = 3
@@ -40,9 +40,9 @@ class ExtractR21D(ClipStackExtractor):
         _, default_stack = r21d_model.VARIANTS[args.model_name]
         super().__init__(args, default_stack=default_stack,
                          default_step=default_stack, mesh=mesh)
-        model = load_weights(r21d_model.R2Plus1D(self.model_name),
-                             args.get("weights_path"), self.allow_random,
-                             SEED_R21D, self.model_name)
+        model = resolve_params(r21d_model.R2Plus1D(self.model_name),
+                               self.model_name, args.get("weights_path"),
+                               self.allow_random, SEED_R21D)
         # the head stays float32 on the host (show_pred)
         self.head = torch.nn.Linear(r21d_model.FEATURE_DIM,
                                     model.fc.out_features)

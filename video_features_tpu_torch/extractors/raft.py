@@ -17,7 +17,7 @@ from ..config import Config
 from ..models import raft as raft_model
 from ..models.common import cast_floating_
 from ..parallel.mesh import Mesh
-from .base import load_weights
+from ..weights.store import resolve_params
 from .flow import OpticalFlowExtractor
 from .i3d_flow import SEED_RAFT
 
@@ -38,9 +38,9 @@ class ExtractRAFT(OpticalFlowExtractor):
                              "refinement iteration")
         model = raft_model.RAFT(iters, args.get("corr_lookup_impl"),
                                 args.get("fuse_convc1"), dtype=self.dtype)
-        model = load_weights(model, args.get("weights_path"),
-                             self.allow_random, SEED_RAFT,
-                             f"raft_{finetuned_on}")
+        model = resolve_params(model, f"raft_{finetuned_on}",
+                               args.get("weights_path"), self.allow_random,
+                               SEED_RAFT)
         self.model = cast_floating_(model, self.dtype).eval()
         self._build_runner()
 

@@ -23,7 +23,7 @@ from ..ops import host_transforms as ht
 from ..ops import preprocess as pp
 from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.labels import show_predictions_on_dataset
-from .base import load_weights
+from ..weights.store import resolve_params
 from .frame_wise import FrameWiseExtractor
 
 SEED_RESNET = 5
@@ -35,9 +35,9 @@ class ExtractResNet(FrameWiseExtractor):
         super().__init__(args, mesh)
         if self.model_name not in resnet_model.VARIANTS:
             raise NotImplementedError(f"Model {self.model_name} not found.")
-        model = load_weights(resnet_model.ResNet(self.model_name),
-                             args.get("weights_path"), self.allow_random,
-                             SEED_RESNET, self.model_name)
+        model = resolve_params(resnet_model.ResNet(self.model_name),
+                               self.model_name, args.get("weights_path"),
+                               self.allow_random, SEED_RESNET)
         # the head stays float32 on the host (show_pred)
         self.head = torch.nn.Linear(model.fc.in_features,
                                     model.fc.out_features)

@@ -25,7 +25,7 @@ from ..ops import colorspace
 from ..ops import host_transforms as ht
 from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.labels import show_predictions_on_dataset
-from .base import load_weights
+from ..weights.store import resolve_params
 from .clip_stack import ClipStackExtractor
 
 SEED_S3D = 4
@@ -37,8 +37,9 @@ class ExtractS3D(ClipStackExtractor):
         super().__init__(args, default_stack=64, default_step=64, mesh=mesh)
         if self.extraction_fps is None:
             self.extraction_fps = 25  # reference extract_s3d.py:29
-        model = load_weights(s3d_model.S3D(400), args.get("weights_path"),
-                             self.allow_random, SEED_S3D, "s3d_kinetics400")
+        model = resolve_params(s3d_model.S3D(400), "s3d_kinetics400",
+                               args.get("weights_path"), self.allow_random,
+                               SEED_S3D)
         self.model = cast_floating_(model, self.dtype).eval()
         self.host_transform = ht.S3DTransform(self.ingest)
         self.runner = DataParallelApply(self._device_forward, self.model,

@@ -38,7 +38,8 @@ from ..ops import audio
 from ..parallel import fanout
 from ..parallel.mesh import DataParallelApply, Mesh
 from ..utils.io import extract_wav_from_mp4
-from .base import BaseExtractor, load_weights
+from ..weights.store import resolve_params
+from .base import BaseExtractor
 
 SEED_VGGISH = 8
 FRONTENDS = ("host", "device")
@@ -54,12 +55,12 @@ class ExtractVGGish(BaseExtractor):
                 "(reference extract_vggish.py:25-26)")
         self.output_feat_keys = [self.feature_type]
         self.batch_size = int(args.get("batch_size") or 32)
-        self.keep_tmp_files = bool(args.get("keep_tmp_files", False))
         self.frontend = args.get("frontend") or "host"
         if self.frontend not in FRONTENDS:
             raise NotImplementedError(f"frontend={self.frontend!r}")
-        model = load_weights(vggish_model.VGGish(), args.get("weights_path"),
-                             self.allow_random, SEED_VGGISH, "vggish")
+        model = resolve_params(vggish_model.VGGish(), "vggish",
+                               args.get("weights_path"), self.allow_random,
+                               SEED_VGGISH)
         self.model = cast_floating_(model, self.dtype).eval()
         self.runner = DataParallelApply(self._device_forward, self.model,
                                         self._data_mesh())

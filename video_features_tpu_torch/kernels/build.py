@@ -45,11 +45,14 @@ _L = ctypes.c_int64
 #: C signatures of csrc/corr_lookup.cu (pointers and the stream as c_void_p:
 #: ctypes would otherwise pass them as 32-bit ints and cut them)
 _SIGNATURES = {
+    # vft-lint: disable=VFT005 — a C symbol of the kernel library, not a metric name
     "vft_corr_lookup_level": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
                               _P, _L, _P, _P],
+    # vft-lint: disable=VFT005 — a C symbol of the kernel library, not a metric name
     "vft_corr_lookup_proj": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
                              _P, _L, _P, _P, _P, _P],
-    # geometry: a host array of 4 x (h, w, j, k, off) ints
+    # the geometry argument: a host array of 4 x (h, w, j, k, off) ints
+    # vft-lint: disable=VFT005 — a C symbol of the kernel library, not a metric name
     "vft_corr_lookup_packed": [_P, _L, _P, _L, _P, _P, _P],
 }
 

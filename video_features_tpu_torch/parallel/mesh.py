@@ -25,16 +25,21 @@ module is cut by :data:`TP_RULES_TRANSFORMER` (:func:`param_specs_by_rules`,
 ``models/clip.py`` over its model-axis devices.
 
 Profiler stages (``utils/profiling.py``; they add no synchronize and no
-blocking copy): ``h2d`` times :func:`to_device` of each chunk of a host
-batch in :meth:`DataParallelApply.dispatch`, that is the pinned staging
-copy and the enqueue of the non-blocking transfer, a lower bound on the
-wire time, as JAX's ``device_put``. ``forward`` times the host's wait
-for a result, in :meth:`DataParallelApply.__call__` and, under
-:class:`FeatureStream`, in ``_pop``: it is the host's *stall* on the card,
-not device time, as in the JAX package, and near zero means decode hides
-the card's work. The launch of a forward is in no stage (eager PyTorch
-enqueues each kernel from the host, and on the CPU the launch is the
-computation; a span's wall less its stages shows that time).
+blocking copy, and never nest, since a stage inside another would count in
+both): ``h2d`` times the copies of a host batch to every card in
+:meth:`DataParallelApply.dispatch`, that is the pinned staging copies and
+the enqueue of the non-blocking transfers, a lower bound on the wire time,
+as JAX's ``device_put``. ``forward`` comes after it and times the host's
+part of a forward: eager PyTorch enqueues each kernel from the host (on
+the CPU the launch is the computation), so the launch of every replica's
+forward is a ``forward`` stage of its own in ``dispatch``, and the wait
+for the result another, in ``FeatureStream._pop`` (and the packer's
+drain). So a streamed batch has two ``forward`` spans, the launch and the
+wait, where JAX has one (its dispatch returns at once, and its one
+``forward`` is the wait on the device); their sum stands for JAX's one.
+:meth:`DataParallelApply.__call__` times the launch and the copy back as
+one ``forward`` after its ``h2d``: one of each a call, as JAX's ``__call__``
+gives one ``forward``.
 
 ``roofline=true`` (``telemetry/roofline.py``): each replica's forward in
 :meth:`DataParallelApply.dispatch` runs through the active observer, which
@@ -312,40 +317,62 @@ class DataParallelApply:
         other.apply_fn = apply_fn
         return other
 
-    def dispatch(self, batch: Batch) -> List[torch.Tensor]:
-        """Launch the forward of each device's chunk; returns the chunks'
-        outputs in row order WITHOUT synchronizing. A host batch crosses
-        to each card in one pinned copy; a tensor already on a card (a
-        chained stage) is split and moved between cards on the device."""
+    def _place(self, batch: Batch
+               ) -> List[Tuple[nn.Module, torch.device, torch.Tensor]]:
+        """Each device's chunk of ``batch`` on its device, beside its
+        replica. A host batch crosses to the cards in one pinned copy per
+        device, all of them under one ``h2d`` stage; a tensor already on a
+        card (a chained stage) is split and moved between cards on the
+        device, in no stage."""
         n = batch.shape[0]
         sizes = [len(p) for p in np.array_split(np.arange(n),
                                                 len(self.devices))]
         host = isinstance(batch, np.ndarray) or batch.device.type == "cpu"
+        placed, start = [], 0
+        with profiler.stage("h2d") if host else contextlib.nullcontext():
+            for replica, dev, size in zip(self.replicas, self.devices,
+                                          sizes):
+                if size == 0 and (n or placed):
+                    continue  # an empty batch still runs once, on device 0
+                with _on(dev), torch.inference_mode():
+                    placed.append((replica, dev,
+                                   to_device(batch[start:start + size],
+                                             dev)))
+                start += size
+        return placed
+
+    def _launch(self, placed: List[Tuple[nn.Module, torch.device,
+                                         torch.Tensor]]
+                ) -> List[torch.Tensor]:
+        """Launch each replica's forward on its placed chunk, through the
+        roofline observer when one is active; returns the outputs in row
+        order without synchronizing."""
         observer = roofline.active()
-        outs, start = [], 0
-        for replica, dev, size in zip(self.replicas, self.devices, sizes):
-            if size == 0 and (n or outs):
-                continue  # an empty batch still runs once, on device 0
+        outs = []
+        for replica, dev, chunk in placed:
             with _on(dev), torch.inference_mode():
-                chunk = batch[start:start + size]
-                if host:
-                    with profiler.stage("h2d"):
-                        chunk = to_device(chunk, dev)
-                else:
-                    chunk = to_device(chunk, dev)
                 outs.append(self.apply_fn(replica, chunk) if observer is None
                             else observer.run_dispatch(self, replica, chunk))
-            start += size
         return outs
+
+    def dispatch(self, batch: Batch) -> List[torch.Tensor]:
+        """Launch the forward of each device's chunk; returns the chunks'
+        outputs in row order WITHOUT synchronizing. The copies come first
+        (:meth:`_place`, ``h2d``), then every replica's launch under one
+        ``forward`` stage."""
+        placed = self._place(batch)
+        with profiler.stage("forward"):
+            return self._launch(placed)
 
     def __call__(self, batch: Batch, n_valid: Optional[int] = None
                  ) -> np.ndarray:
         """Run a batch; returns its first ``n_valid`` (all) rows on the
-        host."""
+        host. One ``h2d`` (a host batch's copies), then one ``forward``:
+        the launch and the copy back, as JAX's one ``forward`` a call."""
         n = batch.shape[0] if n_valid is None else n_valid
-        outs = self.dispatch(batch)
+        placed = self._place(batch)
         with profiler.stage("forward"):
-            return to_host(outs)[:n]
+            return to_host(self._launch(placed))[:n]
 
     def stream(self, depth: int = 4,
                callback: Optional[Callable[[np.ndarray, Any], None]] = None

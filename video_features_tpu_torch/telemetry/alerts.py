@@ -843,8 +843,7 @@ def capture_incident(root: str, record: dict,
         def _write(rel: str, text: str) -> None:
             full = os.path.join(bundle, rel)
             os.makedirs(os.path.dirname(full) or bundle, exist_ok=True)
-            # no atomic replace: manifest.json is written last over the
-            # recorded sha256s, so a torn artifact fails verify_incident
+            # vft-lint: disable=VFT004 — bundle integrity is manifest-hash-based: manifest.json is written LAST over the recorded sha256s, so a torn artifact fails verify_incident instead of being trusted
             with open(full, "w", encoding="utf-8") as f:
                 f.write(text)
             _add(rel)

@@ -255,6 +255,7 @@ class HistoryWriter:
         kept = downsample(samples, now=now)
         tmp = self.path + ".compact.tmp"
         try:
+            # vft-lint: disable=VFT004 — temp+fsync+os.replace in place (line-oriented rewrite; jsonl.py appends records, it does not rewrite files)
             with open(tmp, "w", encoding="utf-8") as f:
                 for s in kept:
                     f.write(json.dumps(s, sort_keys=True) + "\n")

@@ -344,8 +344,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.prom:
         dump = (man or {}).get("metrics", {"series": []})
-        with open(args.prom, "w", encoding="utf-8") as f:
-            f.write(prometheus_text(dump))
+        # atomic: a textfile collector may read the file at any moment
+        from ..utils.sinks import _write_bytes_atomic
+        _write_bytes_atomic(args.prom, prometheus_text(dump).encode())
         print(f"prometheus textfile: {args.prom} "
               f"({len(dump.get('series', []))} series)")
     if args.fail_on_failures and failure_tallies:

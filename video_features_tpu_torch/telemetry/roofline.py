@@ -38,15 +38,16 @@ the heartbeats and ``_run.json`` (``telemetry/recorder.py``):
     waited for, so the accounting adds no synchronize: the run's own reads
     of its results (``to_host``) have fenced every pair by the end of the
     run. That device window is ``forward_s``. It is not JAX's ``forward``
-    stage: under eager PyTorch the launch of a forward is the host's work
-    and the ``forward`` stage is only the host's wait for a result (9.2 ms
-    of a 1.65 s i3d RAFT span on the H100), so JAX's arithmetic would put
-    a whole RAFT forward's FLOPs over a few milliseconds and read above
-    the card's peak. The window runs from the first launch to the last
+    stage: under eager PyTorch the ``forward`` stages are the host's
+    launch of a forward and its wait for the result, whose sum on the card
+    is neither the device's time nor bounded below by it (the launch of a
+    forward runs ahead of the device), so JAX's arithmetic would not bound
+    the MFU. The window runs from the first launch to the last
     kernel's end, device idle gaps included, so it is never shorter than
     the device's busy time and an honest FLOP count gives ``mfu <= 1``. On
     the CPU the forward is synchronous: ``forward_s`` is the host time of
-    the dispatch's calls plus the ``forward`` stage (the wait). ``h2d`` is
+    the dispatch's calls plus what the ``forward`` stages hold beyond those
+    calls (the wait and the copy back). ``h2d`` is
     the ``h2d`` stage, through the profiler's stage hook, as in JAX.
     The counting pass puts two Python dispatch modes on every aten op of
     its dispatch, which slows that dispatch's launches and so its window.
@@ -493,7 +494,8 @@ class RooflineObserver:
         self._cards: Dict[Tuple, Dict[str, Any]] = {}
         #: family -> {"forward_s", "forward_calls" (the uncounted
         #: dispatches' windows), "count_s", "count_calls" (the counted
-        #: ones'), "h2d_s", "wait_s", "cpu"}
+        #: ones'), "h2d_s", "wait_s" (the ``forward`` stages), "launch_s"
+        #: (the host time of every dispatch's calls, on the CPU), "cpu"}
         self._stages: Dict[str, Dict[str, Any]] = {}
         #: (family, start, end, counted) event pairs not yet completed
         self._pending: deque = deque()
@@ -590,7 +592,7 @@ class RooflineObserver:
         return self._stages.setdefault(
             fam, {"forward_s": 0.0, "forward_calls": 0, "count_s": 0.0,
                   "count_calls": 0, "h2d_s": 0.0, "wait_s": 0.0,
-                  "cpu": False})
+                  "launch_s": 0.0, "cpu": False})
 
     def run_dispatch(self, runner, replica, chunk):
         """``runner.apply_fn(replica, chunk)`` with its accounting: counted
@@ -638,7 +640,9 @@ class RooflineObserver:
             dt = time.perf_counter() - t0
             with self._state:
                 self._add_window(fam, dt, new)
-                self._stage(fam)["cpu"] = True
+                st = self._stage(fam)
+                st["cpu"] = True
+                st["launch_s"] += dt
         return out
 
     def _add_window(self, fam: str, dt: float, counted: bool) -> None:
@@ -682,7 +686,9 @@ class RooflineObserver:
         pre = "forward" if clean else "count"
         fwd = float(st.get(f"{pre}_s", 0.0))
         if st.get("cpu"):
-            fwd += float(st.get("wait_s", 0.0))
+            # the forward stages hold the calls timed above too
+            fwd += max(float(st.get("wait_s", 0.0))
+                       - float(st.get("launch_s", 0.0)), 0.0)
         eff = (flops_total / 1e12 / fwd if fwd > 0 and flops_total
                else None)
         eff_wall = (flops_total / 1e12 / wall_s

@@ -430,8 +430,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         merged = merge_traces(doc, _load_device_trace(args.merge))
         out = args.out or os.path.join(os.path.dirname(path),
                                        "_trace_merged.json")
-        with open(out, "w", encoding="utf-8") as f:
-            json.dump(merged, f)
+        from .utils.sinks import _write_bytes_atomic
+        _write_bytes_atomic(out, json.dumps(merged).encode())
         print(f"\nmerged host+device trace: {out} "
               f"({len(merged['traceEvents'])} events) — open in "
               "https://ui.perfetto.dev")

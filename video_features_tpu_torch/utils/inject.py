@@ -44,7 +44,8 @@ storage plane was ported) raises ``NotImplementedError`` naming its
 Arming: the CLI arms the ``inject=`` plan at run start and disarms it in its
 ``finally``; ``VFT_INJECT`` overrides the key and also arms a spawned decode
 worker when this module is imported there (such a child never runs the CLI).
-Off, a site costs one module-global read.
+Off, a site costs one module-global read. Every fired fault bumps
+``vft_inject_fired_total{site=...}`` (when telemetry is live), as in JAX.
 """
 from __future__ import annotations
 
@@ -159,6 +160,8 @@ class InjectionPlan:
         detail = " ".join(f"{k}={v}" for k, v in ctx.items() if v is not None)
         print(f"INJECT: {site}={rule.kind} fired (hit {hit}, seed "
               f"{self.seed}{', ' + detail if detail else ''})")
+        from .. import telemetry
+        telemetry.inc("vft_inject_fired_total", site=site)
         if rule.kind == "kill":
             os.kill(os.getpid(), signal.SIGKILL)
             time.sleep(30)  # SIGKILL is not synchronous; never fall through

@@ -1,4 +1,4 @@
-"""Host-side video decode for the port (the ``select`` decode paths of
+"""Host-side video decode for the port (port of
 ``video_features_tpu/utils/io.py``).
 
 A streaming cv2 reader yields ``(frame_rgb_u8, timestamp_ms, index)``;
@@ -20,12 +20,21 @@ batched iteration, ``cancel``, ``release``), chosen by ``video_decode``:
     gives.
 
 ``cancel`` is thread-safe (the deadline watchdog of ``utils/faults.py``):
-it releases the capture, or terminates the worker processes, and the
-consuming ``frames()`` raises ``DeadlineExceeded``. The spawned children
+it releases the capture, or marks the spawned source cancelled, and the
+consuming ``frames()`` raises ``DeadlineExceeded`` (a spawned source's
+consumer terminates its worker processes on the way out). The spawned children
 import this module and numpy (cv2 where they decode, and whatever the
 transform they are sent needs), never the models or the card. ``cv2`` is
 imported only where a file is decoded. ``_FrameStream.read`` hosts the
 ``decode.read`` injection site (``utils/inject.py``).
+
+``fps_mode='reencode'`` (:class:`VideoSource` only) decodes the reference's
+lossy intermediate instead: :func:`reencode_video_with_diff_fps` writes
+``{stem}_new_fps.mp4`` under ``tmp_path`` at the target rate, with the
+reference's exact ffmpeg command where ``ffmpeg`` is on ``PATH``, else
+through cv2's ``mp4v`` writer with the same frame selection
+(:func:`fps_filter_map`), and the source iterates that file natively. The
+temp file is removed after one pass, on ``release`` and on ``cancel``.
 
 Every read, grab-only skip and host transform of :class:`VideoSource` is a
 ``decode`` profiler stage (``utils/profiling.py``), and the decode-ahead
@@ -105,9 +114,12 @@ def fps_filter_map(num_frames: int, src_fps: float, dst_fps: float) -> np.ndarra
 def plan_frame_selection(src_fps: float, src_num_frames: int,
                          fps: Optional[float] = None,
                          total: Optional[int] = None,
+                         total_cap: Optional[int] = None,
                          ) -> Tuple[float, Optional[np.ndarray], int]:
     """``(out_fps, index_map_or_None, num_frames)`` for an ``fps`` /
-    ``total`` request; ``None`` means every source frame."""
+    ``total`` request; ``None`` means every source frame. ``total_cap``
+    caps a native stream at that many frames (the re-encoded file of a
+    ``total`` request stops early, reference utils/io.py:117-119)."""
     if total is not None:
         fps = total * src_fps / max(src_num_frames, 1)
     if fps is not None:
@@ -115,7 +127,63 @@ def plan_frame_selection(src_fps: float, src_num_frames: int,
         if total is not None:
             index_map = index_map[:total]
         return float(fps), index_map, len(index_map)
-    return float(src_fps), None, src_num_frames
+    num_frames = src_num_frames
+    if total_cap is not None:
+        num_frames = (min(num_frames, total_cap) if num_frames > 0
+                      else total_cap)
+    return float(src_fps), None, num_frames
+
+
+def reencode_video_with_diff_fps(video_path: Union[str, Path],
+                                 tmp_path: Union[str, Path],
+                                 extraction_fps: float,
+                                 backend: str = "auto") -> str:
+    """Write a lossy copy of ``video_path`` resampled to ``extraction_fps``
+    as ``{tmp_path}/{stem}_new_fps.mp4``; returns its path.
+
+    ``backend='ffmpeg'`` runs the reference's command (``ffmpeg
+    -hide_banner -loglevel panic -y -i <in> -filter:v fps=fps=<fps>
+    <out>``, reference utils/io.py:14-36). ``backend='cv2'`` decodes the
+    source, keeps the frames :func:`fps_filter_map` selects (the timing of
+    ffmpeg's filter) and writes them through cv2's ``mp4v`` encoder: the
+    same frames, another lossy codec. ``'auto'`` prefers ffmpeg when it is
+    on ``PATH``."""
+    video_path, tmp_path = str(video_path), str(tmp_path)
+    if backend == "auto":
+        backend = "ffmpeg" if which_ffmpeg() else "cv2"
+    Path(tmp_path).mkdir(parents=True, exist_ok=True)
+    new_path = str(Path(tmp_path) / f"{Path(video_path).stem}_new_fps.mp4")
+    if backend == "ffmpeg":
+        import subprocess
+        subprocess.run([which_ffmpeg(), "-hide_banner", "-loglevel",
+                        "panic", "-y", "-i", video_path, "-filter:v",
+                        f"fps=fps={extraction_fps}", new_path], check=True)
+        return new_path
+    if backend != "cv2":
+        raise ValueError(f"unknown reencode backend {backend!r}")
+    import cv2
+    props = get_video_props(video_path)
+    n = props["num_frames"]
+    if n <= 0:
+        n = count_frames_by_decode(video_path)
+        if n == 0:
+            raise ValueError(f"No decodable frames in {video_path}")
+    mapping = fps_filter_map(n, props["fps"], float(extraction_fps))
+    writer = cv2.VideoWriter(
+        new_path, cv2.VideoWriter_fourcc(*"mp4v"), float(extraction_fps),
+        (props["width"], props["height"]))
+    if not writer.isOpened():
+        raise RuntimeError(
+            f"cv2 VideoWriter cannot open {new_path} (mp4v); install "
+            "ffmpeg for fps_mode=reencode on this host")
+    stream = _FrameStream(video_path, channel_order=None)
+    try:
+        for frame in _select(stream, mapping):
+            writer.write(frame)
+    finally:
+        stream.release()
+        writer.release()
+    return new_path
 
 
 #: what a decoded stream delivers: ``rgb`` (H, W, 3), or ``i420``, cv2's
@@ -265,19 +333,30 @@ class VideoSource:
     decoded as ``channel_order`` (``rgb`` or ``i420``) and passed through
     ``transform``; iterating it yields batches ``(frames, timestamps_ms,
     indices)`` of ``batch_size`` frames with ``overlap`` frames carried
-    between consecutive batches."""
+    between consecutive batches.
+
+    ``fps_mode='reencode'`` with ``fps`` or ``total`` decodes a re-encoded
+    copy written under ``tmp_path`` (module docstring) natively, capped at
+    ``total`` frames; the copy is removed after one pass (a second pass
+    raises) unless ``keep_tmp``, and on ``release`` or ``cancel``."""
 
     def __init__(self, path: Union[str, Path], fps: Optional[float] = None,
                  total: Optional[int] = None, batch_size: int = 1,
                  transform: Optional[Callable[[np.ndarray],
                                               np.ndarray]] = None,
-                 overlap: int = 0, channel_order: str = "rgb"):
+                 overlap: int = 0, channel_order: str = "rgb",
+                 fps_mode: str = "select",
+                 tmp_path: Optional[Union[str, Path]] = None,
+                 keep_tmp: bool = False):
         if fps is not None and total is not None:
             raise ValueError("'fps' and 'total' are mutually exclusive")
         if not (isinstance(batch_size, int) and batch_size > 0
                 and isinstance(overlap, int) and 0 <= overlap < batch_size):
             raise ValueError(f"batch_size={batch_size!r}, overlap={overlap!r}:"
                              " need 0 <= overlap < batch_size")
+        if fps_mode not in ("select", "reencode"):
+            raise ValueError(
+                f"fps_mode={fps_mode!r}: expected 'select' or 'reencode'")
         self.path = str(path)
         self.channel_order = channel_order
         self.batch_size = batch_size
@@ -286,6 +365,24 @@ class VideoSource:
         self._cancel_reason: Optional[str] = None
         self._stream: Optional[_FrameStream] = None
         self._lock = threading.Lock()
+        self._tmp_file: Optional[str] = None
+        self._tmp_deleted = False
+        self._keep_tmp = keep_tmp
+        self._total_cap: Optional[int] = None
+        if fps_mode == "reencode" and (fps is not None or total is not None):
+            if tmp_path is None:
+                raise ValueError("fps_mode='reencode' requires tmp_path")
+            src = get_video_props(self.path)
+            n0 = src["num_frames"]
+            if total is not None and n0 <= 0:
+                n0 = count_frames_by_decode(self.path)
+            eff_fps = (fps if fps is not None
+                       else total * src["fps"] / max(n0, 1))
+            self._tmp_file = reencode_video_with_diff_fps(
+                self.path, tmp_path, eff_fps)
+            self.path = self._tmp_file
+            self._total_cap = total
+            fps = total = None
         props = get_video_props(self.path)
         self.src_fps = props["fps"]
         self.src_num_frames = props["num_frames"]
@@ -295,7 +392,8 @@ class VideoSource:
             if self.src_num_frames == 0:
                 raise ValueError(f"No decodable frames in {self.path}")
         self.fps, self.index_map, self.num_frames = plan_frame_selection(
-            self.src_fps, self.src_num_frames, fps=fps, total=total)
+            self.src_fps, self.src_num_frames, fps=fps, total=total,
+            total_cap=self._total_cap)
 
     def __len__(self) -> int:
         return self.num_frames
@@ -303,14 +401,29 @@ class VideoSource:
     def cancel(self, reason: str = "cancelled") -> None:
         """Thread-safe kill of the in-flight decode: release the active
         stream, so a read blocked in cv2 returns, and make ``frames()``
-        raise ``DeadlineExceeded`` instead of ending short."""
+        raise ``DeadlineExceeded`` instead of ending short; the re-encoded
+        temp file, if any, is removed."""
         with self._lock:
             self._cancel_reason = reason or "cancelled"
             stream = self._stream
         if stream is not None:
             stream.release()
+        self._cleanup_tmp()
 
     release = cancel
+
+    def _cleanup_tmp(self) -> None:
+        with self._lock:
+            tmp, self._tmp_file = self._tmp_file, None
+        if tmp and not self._keep_tmp:
+            self._tmp_deleted = True
+            Path(tmp).unlink(missing_ok=True)
+
+    def __del__(self):  # abandoned before or inside a pass
+        try:
+            self._cleanup_tmp()
+        except Exception:
+            pass
 
     def _raise_if_cancelled(self) -> None:
         if self._cancel_reason is not None:
@@ -335,6 +448,13 @@ class VideoSource:
         return _batched(self.frames(), self.batch_size, self.overlap)
 
     def _decoded(self) -> Iterator[Tuple[np.ndarray, float, int]]:
+        self._raise_if_cancelled()
+        if self._tmp_deleted:
+            # cv2 reads a missing file as an empty stream: say why instead
+            raise RuntimeError(
+                f"reencode-mode VideoSource for {self.path} is single-pass: "
+                "its re-encoded temp file was already deleted (construct a "
+                "new source, or pass keep_tmp=True)")
         stream = _FrameStream(self.path, self.channel_order)
         with self._lock:
             self._stream = stream
@@ -343,7 +463,7 @@ class VideoSource:
             self._raise_if_cancelled()
             if self.index_map is None:
                 out_idx = 0
-                while True:
+                while self._total_cap is None or out_idx < self._total_cap:
                     with profiler.stage("decode"):
                         rgb = stream.read()
                     if rgb is None:
@@ -353,6 +473,7 @@ class VideoSource:
                     yield rgb, out_idx / self.fps * 1000.0, out_idx
                     out_idx += 1
                     self._raise_if_cancelled()
+                return
             out_idx = 0
             for current in _select(stream, self.index_map):
                 yield current, out_idx / self.fps * 1000.0, out_idx
@@ -367,6 +488,7 @@ class VideoSource:
             with self._lock:
                 self._stream = None
             stream.release()
+            self._cleanup_tmp()
 
 
 def _decode_worker(q, path: str, kwargs: dict) -> None:
@@ -428,6 +550,16 @@ class _WorkerQueue:
         self.proc.join(timeout=10)
 
 
+def _refuse_reencode(fps_mode: str) -> None:
+    """The spawned sources decode ``fps_mode=select`` only (the JAX
+    package's message)."""
+    if fps_mode != "select":
+        raise NotImplementedError(
+            "decode_workers > 1 requires fps_mode=select (the reencode "
+            "path is a serial ffmpeg/cv2 re-encode; parallel-decoding "
+            "its temp file would serialize on producing it anyway)")
+
+
 class _SpawnedSource:
     """What the process and parallel sources share: cancellation, teardown
     of their children, length and batched iteration."""
@@ -453,10 +585,13 @@ class _SpawnedSource:
             raise DeadlineExceeded(f"{self.path}: {self._cancel_reason}")
 
     def cancel(self, reason: str = "cancelled") -> None:
-        """Thread-safe kill: terminate the children; the consuming thread
-        raises ``DeadlineExceeded`` at its next poll."""
+        """Thread-safe kill: the consuming thread raises
+        ``DeadlineExceeded`` at its next poll (within a second) and stops
+        the children as it leaves ``frames()``. The caller's thread (the
+        deadline watchdog) does not stop them itself: a child terminated
+        while the consumer reads its message leaves half a message in the
+        pipe, and the consumer's read of it would block for ever."""
         self._cancel_reason = reason or "cancelled"
-        self.release()
 
     def release(self) -> None:
         """Stop every child; a second caller (the consumer while the
@@ -486,8 +621,11 @@ class ProcessVideoSource(_SpawnedSource):
     def __init__(self, path: Union[str, Path], fps: Optional[float] = None,
                  total: Optional[int] = None, batch_size: int = 1,
                  transform: Optional[Callable] = None, overlap: int = 0,
-                 channel_order: str = "rgb"):
+                 channel_order: str = "rgb", fps_mode: str = "select",
+                 tmp_path: Optional[Union[str, Path]] = None,
+                 keep_tmp: bool = False):
         import multiprocessing as mp
+        _refuse_reencode(fps_mode)
         self.path = str(path)
         self.batch_size = batch_size
         self.overlap = overlap
@@ -569,8 +707,11 @@ class ParallelVideoSource(_SpawnedSource):
                  total: Optional[int] = None, batch_size: int = 1,
                  transform: Optional[Callable] = None, overlap: int = 0,
                  channel_order: str = "rgb", decode_workers: int = 2,
-                 depth: Optional[int] = None):
+                 depth: Optional[int] = None, fps_mode: str = "select",
+                 tmp_path: Optional[Union[str, Path]] = None,
+                 keep_tmp: bool = False):
         import multiprocessing as mp
+        _refuse_reencode(fps_mode)
         if not (isinstance(decode_workers, int) and decode_workers >= 1):
             raise ValueError(f"decode_workers={decode_workers!r}: need an "
                              "int >= 1")

@@ -13,12 +13,14 @@
                    pinned staging copy and the non-blocking transfer's
                    launch, a lower bound on the wire time, as JAX's
                    ``device_put``; on the CPU the whole (zero-copy) move;
-      ``forward``  the host's wait for a forward's result
-                   (``DataParallelApply.__call__``, and under the async
-                   path ``FeatureStream`` and ``parallel/packer.py``): its
-                   *stall* on the card, not device time; near zero means
-                   the card's work is hidden behind decode. The launch
-                   itself is in no stage (``parallel/mesh.py``);
+      ``forward``  the host's part of a forward, after its ``h2d``: the
+                   launch of every replica's forward
+                   (``DataParallelApply.dispatch``; on the CPU the launch
+                   is the computation) and, under the async path, the wait
+                   for its result (``FeatureStream`` and
+                   ``parallel/packer.py``), two spans a batch where JAX
+                   has one, the wait; ``DataParallelApply.__call__`` times
+                   launch and copy back as one (``parallel/mesh.py``);
       ``write``    the sink's atomic file write (``utils/sinks.py``);
       ``health``   the output digests (``telemetry/health.py``).
 
@@ -26,7 +28,8 @@
     run does not already make.
   - ``profile=true`` on the CLI prints the aggregate breakdown at the end
     of the run (:meth:`StageProfiler.summary`): the decode, h2d, forward
-    and write split that says whether the card or the host binds.
+    and write split that says whether the card or the host binds. Stages
+    do not nest: a stage inside another would count in both.
   - ``profile_trace_dir=/path`` also captures a ``torch.profiler`` trace of
     the run, CPU and CUDA activities (:class:`TraceCapture`), written as a
     Chrome trace that Perfetto reads, with the device's kernels by name.

@@ -5,9 +5,11 @@
     namespaced) output dir;
   - sinks: ``print`` (max/mean/min summary), ``save_numpy`` (.npy),
     ``save_pickle`` (.pkl), each written atomically (temp file, fsync,
-    rename);
-  - :func:`is_already_exist`: every key file exists AND loads, so a file
-    torn by a killed worker counts as absent and is extracted again;
+    rename); a .npy through the native writer (``native/``) where it
+    builds, else the Python path, byte for byte the same;
+  - :func:`is_already_exist`: every key file exists AND loads (a .npy:
+    the native header check, else a load), so a file torn by a killed
+    worker counts as absent and is extracted again;
   - :func:`safe_extract`: one video under the retry policy, deadline
     watchdog, decode ladder and failure journal of ``utils/faults.py``.
 
@@ -38,7 +40,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import telemetry
+from .. import native, telemetry
 from ..telemetry import trace
 from . import faults, inject
 from .profiling import profiler
@@ -97,6 +99,14 @@ def _write_digest(fpath: str, data: bytes,
 
 def write_numpy(fpath: str, value, want_digest: bool = False
                 ) -> Optional[Tuple[int, str]]:
+    """An atomic .npy write: through the native writer
+    (``native/vft_native.cpp``: temp file, fsync, rename) where it runs,
+    else the Python path, which writes the same bytes. A write that wants
+    its digest, and every write while an inject plan is armed (so the
+    ``sink.*`` sites cover every file), takes the Python path."""
+    if not want_digest and inject.active() is None \
+            and native.write_npy_atomic(fpath, value):
+        return None
     buf = io.BytesIO()
     np.save(buf, np.asarray(value))
     return _write_digest(fpath, buf.getvalue(), want_digest)
@@ -128,10 +138,18 @@ def is_already_exist(on_extraction: str, output_path: str, video_path: str,
         fpath = make_path(output_path, video_path, key, EXTS[on_extraction])
         if not os.path.exists(fpath):
             continue
-        try:
-            _load(on_extraction, fpath)
+        # the native O(header) check of a .npy; None: load it instead
+        verdict = (native.validate_npy(fpath)
+                   if on_extraction == "save_numpy" else None)
+        if verdict is None:
+            try:
+                _load(on_extraction, fpath)
+                verdict = True
+            except Exception:
+                verdict = False
+        if verdict:
             existing += 1
-        except Exception:
+        else:
             print(f"Failed to load: {fpath}. Will extract again.")
     if existing == len(output_feat_keys):
         print(f'Features for "{video_path}" already exist in '

@@ -8,7 +8,7 @@ vocabulary 256 bytes + 256 ``</w>`` bytes + merges + the two specials, and
 fixed-length ``[sot] + bpe(text) + [eot]`` rows zero-padded on the right.
 
 The vocab file is data, not in the repository: it is read from ``bpe_path``
-and never fetched. ``regex`` is imported when a tokenizer is built (the
+or the weights store's directory, and never fetched. ``regex`` is imported when a tokenizer is built (the
 ``show_pred`` path only); ``ftfy`` cleans the text when it is installed.
 """
 from __future__ import annotations
@@ -49,15 +49,21 @@ def byte_to_unicode() -> Dict[int, str]:
 
 
 def find_bpe_vocab(explicit_path: Optional[str] = None) -> Path:
-    """The vocab file at ``bpe_path``; raises if it is unset or missing."""
-    if not explicit_path:
-        raise FileNotFoundError(
-            "CLIP's show_pred needs its BPE vocab: pass bpe_path=<path to "
-            "bpe_simple_vocab_16e6.txt.gz> (the OpenAI CLIP vocab file)")
-    p = Path(explicit_path)
-    if not p.exists():
-        raise FileNotFoundError(f"bpe_path does not exist: {p}")
-    return p
+    """The vocab file at ``bpe_path``, else
+    ``bpe_simple_vocab_16e6.txt.gz`` under the weights store's directory
+    (``weights/store.py weights_dir``); raises naming both."""
+    from ..weights.store import weights_dir
+    if explicit_path:
+        p = Path(explicit_path)
+        if not p.exists():
+            raise FileNotFoundError(f"bpe_path does not exist: {p}")
+        return p
+    p = weights_dir() / "bpe_simple_vocab_16e6.txt.gz"
+    if p.exists():
+        return p
+    raise FileNotFoundError(
+        "CLIP BPE vocab not found. Drop `bpe_simple_vocab_16e6.txt.gz` (the "
+        f"OpenAI CLIP vocab file) into {weights_dir()} or pass `bpe_path=...`.")
 
 
 class ClipTokenizer:
