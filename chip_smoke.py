@@ -42,8 +42,8 @@ that goes wrong:
    ``fuse_convc1=false``: the level kernel must have run 20 times per
    forward (one launch per call, all four levels), and the features must
    match the fused run's (atol 1e-2, the value tier). One profiled run of
-   the fused path (device time by kernel, the card's busy share), and fused
-   and unfused in turns (F U U F). Last, the fused extractor's RAFT switched
+   the fused path over one stack (device time by kernel, the card's busy
+   share). Last, the fused extractor's RAFT switched
    to ``corr_lookup_impl=packed``, counts set to 0 just before and read just
    after: the packed kernel 20 times per forward, proj and level none, the
    features within 1e-2 of the fused run's;
@@ -57,7 +57,7 @@ that goes wrong:
    packed 20 launches per forward, proj none, and the flows within
    median 0.1 px and p99 1.0 px of the default path's (the JAX package's
    own bfloat16 bound: the fused kernel projects in float32, the packed
-   path runs convc1 in bfloat16). Pairs/s of both in turns (D P P D), and
+   path runs convc1 in bfloat16). Pairs/s of both in turns (D P), and
    one profiled run of the default path;
 8. drives the pwc family, ``ExtractPWC(...).extract_frames(...)``, at the
    YAML defaults (``precision=bfloat16``) with ``batch_size=32``, over 65
@@ -66,7 +66,7 @@ that goes wrong:
    no lookup kernel launched; then the same in ``float32``, the bfloat16
    flows within the JAX package's bfloat16 band of the float32 ones
    (cosine >= 0.98, max abs <= 2.0 px, ``telemetry/parity.py``). Pairs/s of
-   both in turns (B F F B), one profiled run of the default path, with the
+   both in turns (B F), one profiled run of the default path, with the
    device time of the cost volume and the warp read off profiler ranges;
 9. drives I3D with PWC flow, ``ExtractI3D(...).extract_frames(...)`` at the
    i3d YAML defaults (``flow_type=pwc``, both streams, float32,
@@ -75,7 +75,7 @@ that goes wrong:
    256x341, so PWC works at 256x384): features ``(2, 1024)`` per stream and
    finite, no lookup kernel launched; then ``precision=bfloat16``, its
    features within the head band of the float32 run's (cosine >= 0.99,
-   max abs <= 0.5). Stacks/s of both in turns (F B B F), one profiled run
+   max abs <= 0.5). Stacks/s of both in turns (F B), one profiled run
    of each (cost volume and warp ranges as above). Then ``flow_type=raft precision=bfloat16`` once,
    counts set to 0 just before and read just after: proj 20 launches per
    RAFT forward, its features in the same band against the slice's fused
@@ -98,7 +98,7 @@ that goes wrong:
    8): shape and finite values. Clips/s of the whole ``extract_frames``
    run of each dtype, the host transform's ms per frame, clips/s of the
    card's part (the transformed frames through the clip windows, the
-   copy, the forward and back) in turns (F B B F), and one profiled
+   copy, the forward and back) in turns (F B), and one profiled
    ``extract_frames`` run of each dtype;
 11. drives S3D, ``ExtractS3D(...).extract_frames(...)`` at the s3d YAML
    defaults (stack = step = 64, ``clip_batch_size=8``, float32), over 513
@@ -118,7 +118,7 @@ that goes wrong:
    to 0 just before and read just after). Bfloat16 within the head band
    of float32, batch 1 and ``resize=host`` within the value tier (max abs
    1e-2) of batch 64 with ``resize=device``, yuv420 against uint8 cosine
-   >= 0.99. Frames/s of float32 and bfloat16 in turns (F B B F), FLOPs per
+   >= 0.99. Frames/s of float32 and bfloat16 in turns (F B), FLOPs per
    frame (``torch.utils.flop_counter`` on meta tensors), one profiled run
    of each and of batch 1 (busy share, top device items, launches per
    batch);
@@ -129,7 +129,7 @@ that goes wrong:
    16 kHz mono WAV (625 examples, 600.015 s), at the vggish YAML defaults
    (``frontend=host``, float32, ``batch_size=32``), with
    ``frontend=device`` (the log-mel on the card: cuFFT and a float32
-   matmul), and both in bfloat16; then a 60 s 44.1 kHz stereo WAV once
+   matmul), and both in bfloat16; then a 20 s 44.1 kHz stereo WAV once
    (mono mix, ``resample_poly``). Every run: (N, 128) finite embeddings,
    no lookup kernel launched (counts set to 0 just before and read just
    after). The device frontend within 1e-3 of the host one in float32,
@@ -167,7 +167,7 @@ that goes wrong:
    shared passes with ``cache=true`` into a fresh cache and fresh outputs:
    the second serves every family from the store with no frame decoded,
    no rip and no proj launch, bit-equal to the first. Shared and single
-   runs in turns (S, singles, singles, S) and one profiled shared run;
+   runs (the singles once more, warm) and one profiled shared run;
 17. drives the main path through the CLI with the run plane off and on
    (:func:`telemetry_phase`): ``cli.main`` on i3d two-stream
    ``flow_type=raft`` at the slice's widths (20 iterations, float32,
@@ -218,7 +218,7 @@ that goes wrong:
    naming the card; the retained history ends with the failure; a later
    ``telemetry/alerts.py main([dir, "--window", "0.05"])`` resolves it and
    no alert is current after. Then the cost: the run plane without and
-   with ``history=true alerts=true`` in turns (off, on, on, off) at
+   with ``history=true alerts=true`` in turns (off, on) at
    ``metrics_interval_s=0.3`` and at the default, each run's features
    bit-equal to the first and proj 20 launches per stack, each on run held
    as in step 17, each off run without history or journal; then one
@@ -264,7 +264,9 @@ that goes wrong:
    library is flipped, the next run drops it (sha mismatch), rebuilds it
    (one miss) and re-seals it, never loading the corrupt one, with the
    features bit-equal to the warm run's. The warmup's and both joins'
-   walls;
+   walls. Steps 22 and 23 run at once, each on a thread of its own
+   (:func:`concurrent_phases`: both wait on their subprocesses), so the
+   walls of each are taken beside the other's load;
 23. drains the fleet queue (:func:`fleet_queue_phase`): three copies of the
    sample through the slice's CLI with ``telemetry=true health=true``: a
    static single-host run, one ``fleet=queue`` worker, then two concurrent
@@ -309,6 +311,8 @@ that goes wrong:
    (``loadgen.write_tenant_table``), and ``loadgen.DrillRunner`` issuing
    the scenario's offered schedule over HTTP at ``speedup=1``
    (:data:`TRAFFIC_SPEEDUP`: the scenarios' own rates on the wall clock)
+   for part of each scenario's ``duration_s`` (:data:`TRAFFIC_DURATION_SCALE`:
+   15 s of steady's 30, 10 s of burst_shed's 40)
    over a corpus of the sample with a suffix per item
    (``loadgen.synthesize_corpus``), counts set to 0 just before and read
    just after. Held: the drill's journal byte-identical to ``loadgen
@@ -396,7 +400,34 @@ that goes wrong:
    then counts as absent; proj 20 launches a stack;
 34. lints the checkout (:func:`lint_phase`): ``python -m
    video_features_tpu_torch lint --json`` exits 0, its counts and wall;
-35. prints one JSON line each of the i3d slice's, the raft family's, the
+35. decodes in spawned children (:func:`spawned_decode_phase`): for
+   ``video_decode=inline``, ``process`` and ``parallel decode_workers=2``,
+   the sample at 7.3 fps drained from the source alone (its decode wall,
+   spawns included), then the slice through the CLI, counts set to 0 just
+   before and read just after, inside a :class:`ChildWatch`: frames and
+   features bit-equal to inline's, proj 20 launches a stack, every child
+   reaped when the run returns, none holding the card (no ``/dev/nvidia*``
+   descriptor, its PID in no ``nvidia-smi --query-compute-apps`` list);
+36. walks the decode ladder (:func:`ladder_phase`): the slice with
+   ``video_decode=parallel`` and ``seed=0;decode.read=eio@n3`` armed in
+   every decode child through ``VFT_INJECT``, with 3 and with 4 attempts:
+   both demote ``parallel -> process -> inline``; with 3 the video fails,
+   its one journal record ``TRANSIENT`` (the inline rung's injected EIO),
+   no ``.npy``; with 4 it is recovered bit-equal to step 35's inline run,
+   proj 20 launches a stack; the children reaped, none on the card;
+37. holds the deadline watchdog (:func:`deadline_phase`): inline and under
+   ``process``, a copy of the sample whose decode stalls (its last read
+   blocks until the watchdog's release; its child stopped), then the
+   sample, with ``video_deadline_s`` and ``telemetry=true``: one expiry
+   counted, the copy journaled ``TRANSIENT`` with a ``DeadlineExceeded``
+   and no ``.npy`` of it, the sample bit-equal to step 35's run of it
+   alone, proj 20 launches for each stack dispatched;
+38. runs several videos at once (:func:`video_workers_phase`): the slice
+   with ``telemetry=true roofline=true`` over the sample and three copies
+   with ``video_workers`` 1, 2 and ``auto``: every file bit-equal to the
+   serial run's, proj 20 launches a stack of every video (160), one
+   complete span a video; each run's wall and roofline numbers;
+39. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
    vggish, parallel, multi, telemetry, alerts, fleet, certify, serve,
    compile-cache and fleet-queue phases' numbers, one of the alerting's
@@ -406,7 +437,8 @@ that goes wrong:
    their bytes by plane, the walls of a ``usage()`` walk and of a sweep,
    the refill's and the hit's walls, the audit verdicts), one each of the
    traffic, chaos, sequence, show_pred, trace-report, worker-kill,
-   reencode, weights, native and lint steps', one of every phase's wall
+   reencode, weights, native, lint, spawned-decode, ladder, deadline and
+   video-workers steps', one of every phase's wall
    (``phase_walls_s``), one of the kernels' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -430,21 +462,38 @@ phase's resampling. No phase opens a window.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+if __name__ != "__mp_main__":
+    # multiprocessing's spawn runs this script again, as ``__mp_main__``,
+    # in each decode child of a ``video_decode=process|parallel`` run (steps
+    # 35-37); a child runs no phase and needs none of these, with which a
+    # process source took 12.4 s to drain on the card's host against 1.1 s
+    # without (NVIDIA H100 80GB HBM3, 700.00 W; a child of the CLI entry
+    # imports none of them either)
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
 
-# the port's one copy of each lookup's declared work and of the peaks its
-# bounds are taken against, and of the bfloat16 bands
-from video_features_tpu_torch.kernels.corr_lookup import (
-    F32_PEAK_FLOPS, HBM_BYTES_PER_S, kernel_work)
-from video_features_tpu_torch.telemetry import parity
+    # the port's one copy of each lookup's declared work and of the peaks
+    # its bounds are taken against, and of the bfloat16 bands
+    from video_features_tpu_torch.kernels.corr_lookup import (
+        F32_PEAK_FLOPS, HBM_BYTES_PER_S, kernel_work)
+    from video_features_tpu_torch.telemetry import parity
+
+    #: the bfloat16 bands of the port's telemetry/parity.py TOLERANCES (the
+    #: JAX package's): PWC flows ("pwc", "backbone"), features ("*",
+    #: "head")
+    PWC_BF16_COS = parity.tolerance_for("pwc", "backbone")["cos"]
+    PWC_BF16_MAX_PX = parity.tolerance_for("pwc", "backbone")["max_abs"]
+    HEAD_COS = parity.tolerance_for("*", "head")["cos"]
+    HEAD_MAX_ABS = parity.tolerance_for("*", "head")["max_abs"]
 
 STACK = 64
 FRAME_H, FRAME_W = 240, 320
@@ -458,12 +507,6 @@ QUEUE_AHEAD_CYCLES = 100_000_000
 #: the bfloat16 flow bound of the JAX package (tests/test_raft.py)
 BF16_MEDIAN_PX, BF16_P99_PX = 0.1, 1.0
 PWC_BATCH = 32  # pwc family pairs per PWC forward
-#: the bfloat16 bands of the port's telemetry/parity.py TOLERANCES (the
-#: JAX package's): PWC flows ("pwc", "backbone"), features ("*", "head")
-PWC_BF16_COS = parity.tolerance_for("pwc", "backbone")["cos"]
-PWC_BF16_MAX_PX = parity.tolerance_for("pwc", "backbone")["max_abs"]
-HEAD_COS = parity.tolerance_for("*", "head")["cos"]
-HEAD_MAX_ABS = parity.tolerance_for("*", "head")["max_abs"]
 #: the clip-stack phases: frames, window (stack = step) and clips per group
 R21D_FRAMES, R21D_STACK = 257, 16
 S3D_FRAMES, S3D_STACK = 513, 64
@@ -478,7 +521,7 @@ VALUE_ATOL = 1e-2
 #: kHz stereo; the JAX package's bars (tests/test_vggish.py) for the
 #: device frontend against the host one end to end and for the log-mel
 #: alone
-VGGISH_EXAMPLES, VGGISH_STEREO_SECONDS = 625, 60.0
+VGGISH_EXAMPLES, VGGISH_STEREO_SECONDS = 625, 20.0
 VGGISH_FRONTEND_ATOL, VGGISH_LOGMEL_ATOL = 1e-3, 1e-4
 #: PWC's decoder levels at 256x384 (256x341 frames resized to /64):
 #: (level, H, W, C) of the cost volume's inputs
@@ -839,7 +882,16 @@ def slice_config(out_dir: str, **over):
 
 def synthetic_frames(n: int, seed: int):
     """Smooth moving gradients plus seeded noise, uint8 RGB 240x320, at a
-    nominal 25 fps."""
+    nominal 25 fps: an iterator of ``(frame, timestamp_ms, index)``."""
+    return iter(_synthetic_frames(n, seed))
+
+
+@functools.lru_cache(maxsize=4)
+def _synthetic_frames(n: int, seed: int) -> tuple:
+    """:func:`synthetic_frames`'s frames, made once for each of the last
+    four ``(n, seed)`` (the slice draws its few seeds again and again);
+    the arrays are read-only, so no caller changes another's."""
+    out = []
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:FRAME_H, 0:FRAME_W].astype(np.float32)
     for t in range(n):
@@ -848,7 +900,10 @@ def synthetic_frames(n: int, seed: int):
             127 + 100 * np.sin(yy / 17 - t / 7),
             127 + 100 * np.sin((xx + yy) / 31 + t / 3)], axis=-1)
         frame += rng.normal(0, 8, frame.shape)
-        yield frame.clip(0, 255).astype(np.uint8), t / 25 * 1000.0, t
+        frame = frame.clip(0, 255).astype(np.uint8)
+        frame.flags.writeable = False
+        out.append((frame, t / 25 * 1000.0, t))
+    return tuple(out)
 
 
 def annotated(module, names):
@@ -910,9 +965,15 @@ def profile_call(run, ranges=None) -> dict:
         ms, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (end - start) / 1e3, calls + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    averages = prof.key_averages()
-    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
-                  key=lambda e: -e.self_cpu_time_total)[:8]
+    # the host's operators by self CPU time, summed over the events already
+    # parsed (key_averages() walks them again and took over 10 s on the
+    # slice's trace)
+    host_us: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
+            us, calls = host_us.get(e.key, (0.0, 0))
+            host_us[e.key] = (us + e.self_cpu_time_total, calls + 1)
+    host = sorted(host_us.items(), key=lambda kv: -kv[1][0])[:8]
     out = {"wall_ms": wall_us / 1e3,
            "device_busy_ms": busy_us / 1e3,
            "device_busy_share": busy_us / wall_us,
@@ -920,9 +981,9 @@ def profile_call(run, ranges=None) -> dict:
            "kernel_launches": sum(v[1] for v in by_name.values()),
            "top_kernels": [{"name": k[:90], "ms": v[0], "calls": v[1]}
                            for k, v in top],
-           "top_host_ops": [{"name": e.key[:60],
-                             "self_cpu_ms": e.self_cpu_time_total / 1e3,
-                             "calls": e.count} for e in host]}
+           "top_host_ops": [{"name": k[:60], "self_cpu_ms": us / 1e3,
+                             "calls": calls}
+                            for k, (us, calls) in host]}
     if ranges:
         # the kernels launched inside each range, summed over its calls
         # (0 where the profiler linked none: then "not measured")
@@ -974,6 +1035,7 @@ def run_slice(dev):
     fused = ExtractI3D(slice_config("output/chip_smoke"))
     fused.extract_frames(synthetic_frames(2 * STACK + 1, 7), 25.0)
     fused.flow_stream.forwards = 0
+    synthetic_frames(2 * STACK + 1, 11)  # made before the clock starts
     reset_counts(cl)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -994,8 +1056,8 @@ def run_slice(dev):
         raise AssertionError(f"fused path: launches {fused_counts} for "
                              f"{fwd} RAFT forwards")
 
-    profile = profile_run(fused, list(synthetic_frames(2 * STACK + 1, 13)))
-    profile["stacks"] = 2
+    profile = profile_run(fused, list(synthetic_frames(STACK + 1, 13)))
+    profile["stacks"] = 1
 
     unfused = ExtractI3D(slice_config("output/chip_smoke",
                                       fuse_convc1=False))
@@ -1017,16 +1079,6 @@ def run_slice(dev):
              ("rgb", "flow")}
     if not max(diffs.values()) <= 1e-2:
         raise AssertionError(f"unfused vs fused features differ: {diffs}")
-
-    # fused and unfused in turns (F U U F), to compare them within one call
-    ab = {"fused": [], "unfused": []}
-    for name, ex in (("fused", fused), ("unfused", unfused),
-                     ("unfused", unfused), ("fused", fused)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ex.extract_frames(synthetic_frames(2 * STACK + 1, 17), 25.0)
-        torch.cuda.synchronize()
-        ab[name].append(2 / (time.perf_counter() - t0))
 
     # the packed path: RAFT._lookup reads corr_lookup_impl on every forward
     raft = fused.flow_stream.raft
@@ -1055,7 +1107,6 @@ def run_slice(dev):
                 unfused_flow_forwards=fwd_u,
                 level_launches=level_launches,
                 unfused_vs_fused_max_abs=diffs,
-                fused_unfused_turns_stacks_per_s=ab,
                 packed_stacks_per_s=2 / packed_s,
                 packed_flow_forwards=fwd_p,
                 packed_launches=packed_counts["packed"],
@@ -1129,9 +1180,9 @@ def run_raft_family(dev):
             and vs_default["p99_px"] < BF16_P99_PX):
         raise AssertionError(f"raft packed vs default flow: {vs_default}")
     default_abs = np.abs(runs["default"]["flow"])
-    # default and packed in turns (D P P D), to compare them within one call
+    # default and packed in turns (D P), to compare them within one call
     turns = {"default": [], "packed": []}
-    for name in ("default", "packed", "packed", "default"):
+    for name in ("default", "packed"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         runs[name]["extractor"].extract_frames(iter(frames), 25.0)
@@ -1236,7 +1287,7 @@ def run_pwc_family(dev):
             and vs_f32["max_abs"] <= PWC_BF16_MAX_PX):
         raise AssertionError(f"pwc bfloat16 vs float32 flow: {vs_f32}")
     turns = {"bfloat16": [], "float32": []}
-    for precision in ("bfloat16", "float32", "float32", "bfloat16"):
+    for precision in ("bfloat16", "float32"):
         _, seconds = timed(runs[precision]["extractor"], frames)
         turns[precision].append((n_frames - 1) / seconds)
     profile = profile_run(runs["bfloat16"]["extractor"], frames,
@@ -1320,7 +1371,7 @@ def run_i3d_pwc(dev, fused_feats):
                for b in bf16_vs_f32.values()):
         raise AssertionError(f"i3d pwc bfloat16 vs float32: {bf16_vs_f32}")
     turns = {"float32": [], "bfloat16": []}
-    for precision in ("float32", "bfloat16", "bfloat16", "float32"):
+    for precision in ("float32", "bfloat16"):
         _, seconds = timed(runs[precision]["extractor"], frames)
         turns[precision].append(2 / seconds)
     profile = profile_run(runs["float32"]["extractor"], frames, pwc_ranges())
@@ -1414,7 +1465,7 @@ def clip_phase(feature_type: str, n_frames: int, dim: int, unit: str):
     over ``n_frames`` seeded frames: the main-path run of each through
     ``extract_frames`` with every launch count set to 0 just before and
     read just after (no lookup kernel runs), the checks, the host
-    transform's ms per frame, the card's part in turns (F B B F), one
+    transform's ms per frame, the card's part in turns (F B), one
     profiled run of each. Returns (stats, the frames, the float32
     features)."""
     from video_features_tpu_torch.extractors.r21d import ExtractR21D
@@ -1451,7 +1502,7 @@ def clip_phase(feature_type: str, n_frames: int, dim: int, unit: str):
     if not in_head_band(vs_f32):
         raise AssertionError(f"{feature_type} bfloat16 vs float32: {vs_f32}")
     turns = {"float32": [], "bfloat16": []}
-    for precision in ("float32", "bfloat16", "bfloat16", "float32"):
+    for precision in ("float32", "bfloat16"):
         r = runs[precision]
         turns[precision].append(rows / card_part(r["extractor"], r["wire"]))
     stats = dict(frames=n_frames, rows=rows, clip_batch_size=CLIP_BATCH,
@@ -1562,7 +1613,7 @@ def frame_phase(feature_type: str, dim: int, other_model: str,
     kernel launched, counts set to 0 just before and read just after);
     bfloat16 against float32 in the head band, batch 1 and resize=host
     against batch 64 in the value tier, yuv420 against uint8 at cosine
-    0.99. Frames/s of float32 and bfloat16 in turns (F B B F), one
+    0.99. Frames/s of float32 and bfloat16 in turns (F B), one
     profiled run of each and of batch 1. ``over`` goes into every config
     (the CPU tests run the phase with ``device=cpu`` and small models)."""
     from video_features_tpu_torch.extractors.clip import ExtractCLIP
@@ -1638,7 +1689,7 @@ def frame_phase(feature_type: str, dim: int, other_model: str,
     empty_cache()
 
     turns = {"float32": [], "bfloat16": []}
-    for precision in ("float32", "bfloat16", "bfloat16", "float32"):
+    for precision in ("float32", "bfloat16"):
         _, seconds = timed(runs[precision]["extractor"], frames)
         turns[precision].append(n_frames / seconds)
     flops = frame_flops(runs["float32"]["extractor"])
@@ -1816,7 +1867,7 @@ def vggish_phase(n_examples: int = VGGISH_EXAMPLES,
     _, stereo_s = run(exs[("host", "float32")], stereo, stereo_rows)
 
     turns = {f"{f}_{p}": [] for f, p in names}
-    for key in names + names[::-1]:
+    for key in names:
         _, sec = run(exs[key], mono, n_examples)
         turns[f"{key[0]}_{key[1]}"].append(n_examples / sec)
     flops = vggish_flops()
@@ -1868,7 +1919,7 @@ def parallel_raft(devices, n_frames: int = 2 * RAFT_BATCH + 1,
     mesh against the one-device run: flows within 1e-3 px; on the card, proj
     launched 20 times per forward on each replica (counted by forward hooks
     around each replica's RAFT; a replica's forwards launch in turn on one
-    thread), level and packed never; pairs/s of both in turns (O T T O).
+    thread), level and packed never; pairs/s of both in turns (O T).
     ``timed_turns=False`` (the CPU test) leaves the turns out, as in the
     other parts."""
     from video_features_tpu_torch.extractors.raft import ExtractRAFT
@@ -1920,7 +1971,7 @@ def parallel_raft(devices, n_frames: int = 2 * RAFT_BATCH + 1,
                      t["proj"] / max(t["forwards"], 1) for t in per_replica])
     if timed_turns:
         turns = {"one": [], "two": []}
-        for name in ("one", "two", "two", "one"):
+        for name in ("one", "two"):
             _, seconds = timed(one if name == "one" else two, frames)
             turns[name].append(pairs / seconds)
         stats["turns_pairs_per_s"] = turns
@@ -1993,7 +2044,7 @@ def parallel_packed(lengths=PACKED_VIDEOS, workers: int = PACKED_WORKERS,
     ``len(lengths)`` seeded videos through ``extract_frames`` on
     ``workers`` threads (:func:`feed_videos`), against the same videos
     unpacked: per-video features within 1e-4, ceil(clips / group) groups
-    with only the last short; clips/s of both in turns (U P P U)."""
+    with only the last short; clips/s of both in turns (U P)."""
     from video_features_tpu_torch.extractors.r21d import ExtractR21D
     from video_features_tpu_torch.utils.lists import form_slices
 
@@ -2031,7 +2082,7 @@ def parallel_packed(lengths=PACKED_VIDEOS, workers: int = PACKED_WORKERS,
                                         packed=total / packed_s))
     if timed_turns:
         turns = {"unpacked": [], "packed": []}
-        for name in ("unpacked", "packed", "packed", "unpacked"):
+        for name in ("unpacked", "packed"):
             ex = packed if name == "packed" else plain
             _, seconds = feed_videos(ex, videos, workers,
                                      keep_open=name == "packed")
@@ -2046,7 +2097,7 @@ def parallel_clip_tp(devices, n_frames: int = TP_FRAMES,
     ``resize=device``) with ``model_parallel=2`` over a ``(data=1,
     model=2)`` mesh of ``devices``, against ``model_parallel=1``: features
     within 1e-4; each shard's ``in_proj_weight`` (3E/2, E); frames/s of
-    both in turns (R T T R)."""
+    both in turns (R T)."""
     from video_features_tpu_torch.extractors.clip import ExtractCLIP
     from video_features_tpu_torch.parallel.mesh import get_mesh
 
@@ -2079,8 +2130,7 @@ def parallel_clip_tp(devices, n_frames: int = TP_FRAMES,
                  vs_replicated_max_abs=err, max_abs_limit=1e-4)
     if timed_turns:
         turns = {"replicated": [], "tensor_parallel": []}
-        for name in ("replicated", "tensor_parallel", "tensor_parallel",
-                     "replicated"):
+        for name in ("replicated", "tensor_parallel"):
             _, seconds = timed(ref if name == "replicated" else tp, frames)
             turns[name].append(n_frames / seconds)
         stats["turns_frames_per_s"] = turns
@@ -2101,7 +2151,7 @@ def parallel_stream(n_frames: int = R21D_FRAMES, timed_turns: bool = True,
     if timed_turns:
         ex.extract_frames(iter(frames[:R21D_STACK]), 25.0)  # cuDNN set-up
     feats, turns = {}, {4: [], 0: []}
-    for depth in ((4, 0, 0, 4) if timed_turns else (4, 0)):
+    for depth in (4, 0):
         ex.stream_depth = depth
         out, seconds = timed(ex, frames)
         feats.setdefault(depth, out["r21d"])
@@ -2212,8 +2262,8 @@ def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
     sum of the private sources'. (3) Cache: two shared passes with
     ``cache=true`` into a fresh cache and fresh outputs; the second serves
     every family from the store: no frame decoded, no rip, no proj launch,
-    outputs bit-equal to the first. (4) Times: shared and singles in turns
-    (S, singles, singles, S; each run into fresh outputs and a fresh
+    outputs bit-equal to the first. (4) Times: the singles once more, warm
+    (the storing pass is the warm shared run; into fresh outputs and a fresh
     cache), one profile of a shared run. ``over`` maps a family to its own
     overrides (the CPU test's small sizes)."""
     import cv2  # noqa: F401  (the decode of the mp4; fail here without it)
@@ -2343,7 +2393,7 @@ def multi_phase(video: str = SAMPLE_VIDEO, seconds: float = SAMPLE_SECONDS,
         # (4) times in turns, then one profiled shared run
         turns = {"shared_s": [], "singles_s": [], "singles_by_family": []}
         if timed_turns:
-            for kind in ("shared", "singles", "singles", "shared"):
+            for kind in ("singles",):
                 fresh()
                 if kind == "shared":
                     turns["shared_s"].append(shared()["seconds"])
@@ -2789,14 +2839,14 @@ def alerts_phase(video: str = SAMPLE_VIDEO, intervals=ALERTS_INTERVALS,
         bundle_paths=paths, bundle_roofline_device=rf["device"])
 
     # the cost turns: the run plane without and with history and alerts,
-    # off on on off at each interval; each run's launches and features, its
+    # off then on at each interval; each run's launches and features, its
     # CLI wall and its video's span wall (the part the ticks run beside)
     walls, planes, last_on = {}, {}, None
     want = None
     for interval in intervals:
         key = str(interval or "default")
         walls[key] = {"off": [], "on": [], "span_off": [], "span_on": []}
-        for turn, on in enumerate((False, True, True, False)):
+        for turn, on in enumerate((False, True)):
             name = f"{key}_{'on' if on else 'off'}{turn}"
             argv = telemetry_argv(f"{ALERTS_ROOT}/{name}", video, **over) \
                 + list(RUN_PLANE) + list(ALERT_KEYS if on else ()) + (
@@ -3878,6 +3928,13 @@ TRAFFIC_SCENARIOS = tuple(
 #: compressed 30-fold, so the card runs the scenarios' own rates on the
 #: wall clock
 TRAFFIC_SPEEDUP = 1.0
+#: the card's cut of each drill's schedule (``duration_s``; the arrival
+#: process, rates, tenants, corpus and objectives as the YAML has them):
+#: at their own rates the two drills' 73.6 s were the longest phase
+#: (NVIDIA H100 80GB HBM3, 700.00 W); steady
+#: keeps 15 s (18 requests reach all 6 items), burst_shed 10 s (one whole
+#: 5 s train)
+TRAFFIC_DURATION_SCALE = {"steady": 0.5, "burst_shed": 0.25}
 #: the journal identity of every drill (and of its dry run)
 TRAFFIC_HOST = "lg-chip-smoke"
 #: seed -> fault plan of the chaos phase: the tier-1 rows of the JAX
@@ -3890,7 +3947,7 @@ CHAOS_VIDEOS = 2
 
 def traffic_phase(video: str = SAMPLE_VIDEO, scenarios=TRAFFIC_SCENARIOS,
                   speedup=TRAFFIC_SPEEDUP, stub_s=None, reference=None,
-                  **over) -> dict:
+                  duration_scale=None, **over) -> dict:
     """Seeded traffic through the gateway (module docstring, step 25): for
     each scenario, on a fresh spool and cache, an in-process ``ServeLoop``
     on step 21's configuration behind a ``GatewayServer`` with the
@@ -3900,9 +3957,13 @@ def traffic_phase(video: str = SAMPLE_VIDEO, scenarios=TRAFFIC_SCENARIOS,
     before and read just after. ``reference`` is the outputs directory of
     step 21's server (its request 1); ``stub_s`` replaces the video step
     with a sleep (the CPU test's stub service, which writes no
-    features); ``over`` replaces CLI keys."""
+    features); ``duration_scale`` maps a scenario's name to the factor of
+    its ``duration_s`` (a copy of its YAML under the drill's root, which
+    the dry run and the drill both read); ``over`` replaces CLI keys."""
     import os
     import shutil
+
+    import yaml
 
     from video_features_tpu_torch import loadgen, serve
     from video_features_tpu_torch.config import (load_config, parse_dotlist,
@@ -3931,6 +3992,15 @@ def traffic_phase(video: str = SAMPLE_VIDEO, scenarios=TRAFFIC_SCENARIOS,
         name = spec["scenario"]
         root = f"{TRAFFIC_ROOT}/{name}"
         os.makedirs(root)
+        scale = (duration_scale or {}).get(name, 1.0)
+        if scale != 1.0:
+            with open(path) as f:
+                raw = yaml.safe_load(f)
+            raw["duration_s"] = spec["duration_s"] * scale
+            path = f"{root}/{name}.yml"
+            with open(path, "w") as f:
+                yaml.safe_dump(raw, f, sort_keys=False)
+            spec = loadgen.load_scenario(path)
         spool, cache = f"{root}/spool", f"{root}/cache"
         rate = float(speedup if speedup is not None else spec["speedup"])
         # the replay proof: the drill's journal is this dry run's
@@ -4003,8 +4073,11 @@ def traffic_phase(video: str = SAMPLE_VIDEO, scenarios=TRAFFIC_SCENARIOS,
             raise AssertionError(f"traffic: {name}: launches {launches}, "
                                  f"{len(done)} cold items x {per_item}")
         if name == "steady" and art["verdict"] != "PASS":
-            raise AssertionError(f"traffic: steady {art['verdict']}: "
-                                 f"{art['objectives']}")
+            from video_features_tpu_torch.audit import audit_run
+            raise AssertionError(
+                f"traffic: steady {art['verdict']}: {art['objectives']}, "
+                f"audit {art['audit']}: "
+                f"{audit_run(root, cache_dir=cache, expect_complete=True)}")
         if name == "burst_shed" and not any(
                 o.get("tenant") == "beta" and "min_rejected" in o
                 and o["met"] for o in art["objectives"]):
@@ -4032,7 +4105,8 @@ def traffic_phase(video: str = SAMPLE_VIDEO, scenarios=TRAFFIC_SCENARIOS,
     return drills
 
 
-def chaos_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
+def chaos_phase(video: str = SAMPLE_VIDEO, compare_min_stage_s=None,
+                **over) -> dict:
     """The chaos matrix on the main path (module docstring, step 26): the
     slice's CLI over :data:`CHAOS_VIDEOS` copies of the sample with
     ``fleet=queue telemetry=true health=true cache=true`` (the YAML's
@@ -4040,7 +4114,8 @@ def chaos_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
     :data:`CHAOS_PLANS`, counts set to 0 just before each and read
     just after; then the port's ``audit --expect-complete`` over each
     tree, ``compare`` of each seed against the clean run and ``compare
-    --selftest``. ``over`` replaces CLI keys."""
+    --selftest``; ``compare_min_stage_s`` is ``compare``'s
+    ``--min-stage-s`` (None: its default). ``over`` replaces CLI keys."""
     import os
     import shutil
     from pathlib import Path
@@ -4103,8 +4178,11 @@ def chaos_phase(video: str = SAMPLE_VIDEO, **over) -> dict:
         stats[name]["audit"] = audits[name]
         if name == "clean":
             continue
+        floor = ([] if compare_min_stage_s is None else
+                 ["--min-stage-s", str(compare_min_stage_s)])
         cmp = run_module(["compare", f"{root}/clean/out",
-                          f"{root}/{name}/out"], f"chaos: compare {name}")
+                          f"{root}/{name}/out", *floor],
+                         f"chaos: compare {name}")
         verdict = cmp["stdout"].strip().splitlines()[-1]
         if not verdict.startswith("vft-compare: PASS"):
             raise AssertionError(f"chaos: compare {name}: {cmp['stdout']}")
@@ -4778,6 +4856,566 @@ def lint_phase() -> dict:
                 lint_elapsed_s=doc["elapsed_s"], wall_s=res["wall_s"])
 
 
+
+SPAWNED_ROOT = "output/chip_smoke/spawned_decode"
+LADDER_ROOT = "output/chip_smoke/ladder"
+DEADLINE_ROOT = "output/chip_smoke/deadline"
+WORKERS_ROOT = "output/chip_smoke/video_workers"
+#: step 35's decode modes and the keys each adds to the slice
+DECODE_MODES = {"inline": (), "process": (),
+                "parallel": ("decode_workers=2",)}
+#: the ladder's plan (the JAX chaos matrix's seed 0 row), armed in every
+#: decode child through ``VFT_INJECT``, and the ladder runs' attempts: with
+#: 3 every rung fails at its own process's third read (the inline rung's
+#: is this process's first third read); with 4 the fourth attempt, inline
+#: again, completes
+LADDER_INJECT = "seed=0;decode.read=eio@n3"
+LADDER_ATTEMPTS = (3, 4)
+#: the deadline step's ``video_deadline_s`` by decode mode: over twice the
+#: clean video's attempt on the card (1.6 s inline, 3.7 s under
+#: ``process``, whose child starts in about 1 s; NVIDIA H100 80GB HBM3,
+#: 700.00 W)
+DEADLINE_S = {"inline": 4.0, "process": 8.0}
+#: the tag in the stalled video's name (:func:`deadline_phase`)
+STALL_TAG = "_stall"
+#: copies of the sample step 38 extracts, and its ``video_workers`` values
+WORKER_VIDEOS = 4
+VIDEO_WORKERS = (1, 2, "auto")
+
+
+class ChildWatch:
+    """The decode children spawned inside the ``with`` block (each
+    ``utils/io.py _WorkerQueue``'s process), watched while they live and
+    held after it:
+
+      - none may hold the card: no ``/dev/nvidia*`` descriptor among its
+        open files (``/proc/PID/fd``, sampled every :attr:`POLL_S`), and,
+        on the card, its PID in no ``nvidia-smi --query-compute-apps``
+        list taken during the block; this process's own descriptors are
+        the control (a card's process holds ``/dev/nvidia*``);
+      - every one reaped when the block ends: no ``/proc`` entry left
+        whose parent is this process, alive or zombie.
+
+    Children left alive are killed on the way out, after the check."""
+
+    POLL_S = 0.2
+    SMI_EVERY = 5  # polls between two nvidia-smi queries (1 s)
+
+    def __init__(self, card: bool) -> None:
+        import threading
+        self.card = card
+        self.workers: list = []
+        self.opened: dict = {}
+        self.listed: set = set()
+        self.smi_queries = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True,
+                                        name="chip-smoke-child-watch")
+
+    def __enter__(self) -> "ChildWatch":
+        from video_features_tpu_torch.utils import io as vio
+        self._vio = vio
+        self._init = init = vio._WorkerQueue.__init__
+        watch = self
+
+        def recording(wq, *args, **kwargs):
+            init(wq, *args, **kwargs)
+            watch.workers.append(wq)
+
+        vio._WorkerQueue.__init__ = recording
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        import signal
+        self._vio._WorkerQueue.__init__ = self._init
+        self._stop.set()
+        self._thread.join(timeout=60)
+        # the control: the block ran on the card in this process
+        self.parent_card_fd = bool(self._card_fds(os.getpid()))
+        self.unreaped = [p for p in self.pids()
+                         if self._ppid(p) == os.getpid()]
+        self.states = {p: self._state(p) for p in self.unreaped}
+        for w in self.workers:
+            if w.proc.is_alive():
+                with contextlib.suppress(OSError):
+                    os.kill(w.proc.pid, signal.SIGCONT)
+                w.proc.kill()
+                w.proc.join(timeout=10)
+        return False
+
+    def pids(self) -> list:
+        return [w.proc.pid for w in self.workers]
+
+    @staticmethod
+    def _card_fds(pid: int) -> list:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            return []
+        out = []
+        for fd in fds:
+            with contextlib.suppress(OSError):
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+                if target.startswith("/dev/nvidia"):
+                    out.append(target)
+        return out
+
+    @staticmethod
+    def _state(pid: int):
+        """``/proc/PID/stat``'s state letter (``T``: stopped), None when
+        gone."""
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            return None
+        return stat[stat.rindex(")") + 2]
+
+    @staticmethod
+    def _ppid(pid: int):
+        """The parent of ``pid`` (``/proc/PID/stat``'s fourth field, read
+        after the command name's closing parenthesis), None when gone."""
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            return None
+        return int(stat[stat.rindex(")") + 2:].split()[1])
+
+    def _sample(self, query_smi: bool) -> None:
+        for pid in self.pids():
+            fds = self._card_fds(pid)
+            if fds:
+                self.opened[pid] = sorted(set(fds))
+        if query_smi:
+            res = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=30)
+            self.smi_queries += 1
+            self.listed |= {int(t) for t in res.stdout.split()
+                            if t.strip().isdigit()}
+
+    def _poll(self) -> None:
+        n = 0
+        while not self._stop.wait(self.POLL_S):
+            self._sample(self.card and n % self.SMI_EVERY == 0)
+            n += 1
+
+    def check(self, what: str, children: int, left=()) -> dict:
+        """Raise unless ``children`` were spawned, every one reaped but
+        those of ``left``, none on the card (and, on the card, this
+        process's own descriptors show the card); the watch's numbers."""
+        on_card = sorted({p for p in self.pids()
+                          if p in self.opened or p in self.listed})
+        if len(self.workers) != children or \
+                sorted(self.unreaped) != sorted(left) or on_card or (
+                self.card and not self.parent_card_fd):
+            raise AssertionError(
+                f"{what}: {len(self.workers)} decode children "
+                f"({children} expected), unreaped {self.unreaped}, on the "
+                f"card {on_card} ({self.opened}, nvidia-smi {self.listed}), "
+                f"this process's card descriptors {self.parent_card_fd}")
+        return dict(children=len(self.workers),
+                    unreaped=len(self.unreaped),
+                    children_on_card=0, smi_queries=self.smi_queries,
+                    parent_listed_by_smi=os.getpid() in self.listed,
+                    parent_card_fd=self.parent_card_fd)
+
+
+def spawned_decode_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
+                         **over) -> dict:
+    """Spawned decode on the main path (module docstring, step 35): for
+    each of :data:`DECODE_MODES`, the source alone drained (its start: the
+    spawn to the video's properties, and its decode wall, spawns included,
+    and its frames), then the slice through
+    ``cli.main`` with ``video_decode`` set, counts set to 0 just before
+    and read just after, both inside a :class:`ChildWatch`. Held: the
+    frames and the features bit-equal to ``inline``'s, proj ``iters``
+    launches a stack, one child a ``process`` source and two a
+    ``parallel`` one, each reaped, none on the card. ``over`` replaces
+    the slice's keys (the CPU test's small sizes)."""
+    import shutil
+
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils import io as vio
+
+    root = SPAWNED_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    fps = float(over.get("extraction_fps", TELEMETRY_FPS))
+    sources = {"inline": vio.VideoSource, "process": vio.ProcessVideoSource,
+               "parallel": lambda v, fps: vio.ParallelVideoSource(
+                   v, fps=fps, decode_workers=2)}
+    children = {"inline": 0, "process": 2, "parallel": 4}
+    modes, want_frames, want = {}, None, None
+    for mode, keys in DECODE_MODES.items():
+        with ChildWatch(bool(on_card())) as watch:
+            t = time.perf_counter()
+            src = sources[mode](video, fps=fps)
+            start_s = time.perf_counter() - t
+            frames = list(src.frames())
+            decode_s = time.perf_counter() - t
+            run = run_cli(telemetry_argv(f"{root}/{mode}", video, **over)
+                          + [f"video_decode={mode}", *keys], cl)
+        stats = watch.check(f"spawned decode ({mode})", children[mode])
+        outs = read_outputs(f"{root}/{mode}/out")
+        if want is None:
+            want_frames, want = frames, outs
+        stacks = stacks_of(outs, Path(video).stem)
+        same_frames = len(frames) == len(want_frames) and all(
+            (t1, i1) == (t2, i2) and f1.tobytes() == f2.tobytes()
+            for (f1, t1, i1), (f2, t2, i2) in zip(frames, want_frames))
+        check_bit_equal(outs, want, f"spawned decode ({mode})")
+        if "1 extracted" not in run["stdout"] or not same_frames or \
+                run["launches"] != dict(level=0, packed=0,
+                                        proj=iters * stacks * on_card()):
+            raise AssertionError(
+                f"spawned decode ({mode}): frames equal {same_frames}, "
+                f"launches {run['launches']}: {run['stdout'][-300:]}")
+        modes[mode] = dict(stats, start_s=start_s, decode_s=decode_s,
+                           frames=len(frames),
+                           stacks=stacks, wall_s=run["wall_s"],
+                           launches=run["launches"])
+    return dict(modes=modes, bit_equal_to_inline=True,
+                reference=f"{root}/inline/out")
+
+
+def journal_records(root: str) -> list:
+    """Every ``_failures.jsonl`` record under ``root``, in order."""
+    return [json.loads(line) for f in sorted(Path(root).rglob(
+        "_failures.jsonl")) for line in open(f) if line.strip()]
+
+
+def ladder_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
+                 reference: str = f"{SPAWNED_ROOT}/inline/out",
+                 **over) -> dict:
+    """The decode ladder on the main path (module docstring, step 36): the
+    slice through ``cli.main`` with ``video_decode=parallel
+    decode_workers=2`` and :data:`LADDER_INJECT`, armed in this process
+    and every decode child through ``VFT_INJECT``, once for each of
+    :data:`LADDER_ATTEMPTS`, inside a :class:`ChildWatch`, counts set to 0
+    just before and read just after. Held: both runs demote ``parallel ->
+    process -> inline`` as ``utils/faults.py demote``; with 3 attempts the
+    video fails and its one journal record is :func:`ladder_record`'s, no
+    ``.npy`` written, no launch; with 4 it is recovered on the fourth
+    attempt, no record, the features bit-equal to ``reference`` (step
+    35's inline run), proj ``iters`` launches a stack; three children a
+    run, each reaped, none on the card."""
+    import shutil
+
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils import inject
+
+    root = LADDER_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    want = read_outputs(reference)
+    stacks = stacks_of(want, Path(video).stem)
+    saved = os.environ.get("VFT_INJECT")
+    os.environ["VFT_INJECT"] = LADDER_INJECT
+    runs = {}
+    try:
+        for attempts in LADDER_ATTEMPTS:
+            out = f"{root}/attempts{attempts}"
+            with ChildWatch(bool(on_card())) as watch:
+                run = run_cli(telemetry_argv(
+                    out, video, **dict(over, retry_attempts=attempts))
+                    + ["video_decode=parallel", "decode_workers=2",
+                       "retry_backoff_s=0", f"inject={LADDER_INJECT}"], cl)
+            runs[attempts] = dict(watch.check(f"ladder ({attempts})", 3),
+                                  run=run, out=out)
+    finally:
+        if saved is None:
+            os.environ.pop("VFT_INJECT", None)
+        else:
+            os.environ["VFT_INJECT"] = saved
+        inject.disarm()
+    result = {}
+    for attempts, r in runs.items():
+        stdout = r["run"]["stdout"]
+        ladder = [line.split("video_decode=")[1].split(" ")[0]
+                  for line in stdout.splitlines()
+                  if line.startswith("DECODE LADDER")]
+        records = [{k: rec[k] for k in ("category", "attempts", "error")}
+                   for rec in journal_records(r["out"])]
+        outs = read_outputs(f"{r['out']}/out")
+        recovered = f"on attempt {attempts}/{attempts} (video_decode=inline)"
+        if attempts == LADDER_ATTEMPTS[0]:
+            ok = (records == [ladder_record(attempts)] and not outs
+                  and r["run"]["launches"]["proj"] == 0)
+        else:
+            check_bit_equal(outs, want, f"ladder ({attempts})")
+            ok = (not records and recovered in stdout and
+                  r["run"]["launches"]["proj"] == iters * stacks * on_card())
+        if ladder != ["process", "inline"] or not ok:
+            raise AssertionError(
+                f"ladder ({attempts}): demotions {ladder}, records "
+                f"{records}, outputs {sorted(outs)}, launches "
+                f"{r['run']['launches']}: {stdout[-400:]}")
+        result[f"attempts{attempts}"] = dict(
+            {k: v for k, v in r.items() if k not in ("run", "out")},
+            demotions=ladder, journal=records, outputs=len(outs),
+            recovered=bool(outs), wall_s=r["run"]["wall_s"],
+            launches=r["run"]["launches"])
+    return dict(result, plan=LADDER_INJECT, bit_equal_to_clean=True)
+
+
+def ladder_record(attempts: int) -> dict:
+    """The journal record of the ladder's video after ``attempts`` tries
+    that all failed: the last, inline, rung's error is this process's
+    third read."""
+    return {"category": "TRANSIENT", "attempts": attempts,
+            "error": "OSError: [Errno 5] injected EIO at decode.read "
+                     "(hit 3, seed 0)"}
+
+
+def stacks_from(frames: int, stack: int, step: int) -> int:
+    """The stacks ``frames`` frames give (a stack reads ``stack + 1``)."""
+    return max(0, (frames - stack - 1) // step + 1)
+
+
+def deadline_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
+                   reference: str = f"{SPAWNED_ROOT}/inline/out",
+                   deadlines=None, **over) -> dict:
+    """The deadline watchdog on the main path (module docstring, step
+    37): for ``inline`` and ``process`` decode, the slice through
+    ``cli.main`` with ``telemetry=true``, ``retry_attempts=1`` and
+    ``video_deadline_s`` (:data:`DEADLINE_S`, or ``deadlines``) over a
+    copy of the sample whose decode stalls, then the sample, in that order
+    (the work list's shuffle held), counts set to 0 just before and read
+    just after. The stall does not depend on the host's speed: inline, the
+    copy's last frame's read blocks until the watchdog's cancel releases
+    its capture (so every stack before it went to the card); under
+    ``process``, its child is stopped (``SIGSTOP``) as the parent asks for
+    its first frame. Held: one watchdog expiry
+    (``vft_deadline_expirations_total`` 1 in ``_run.json``), the copy's
+    span ``error`` and first, its one journal record ``TRANSIENT`` with a
+    ``DeadlineExceeded``, no ``.npy`` of it; the sample ``done``, bit-equal
+    to ``reference`` (a run of it alone); proj ``iters`` launches a stack
+    dispatched; none of the children on the card, the sample's reaped.
+    The stopped child is not: the consumer's stop terminates it (SIGTERM,
+    which a stopped process does not act on), waits 10 s and gives up, as
+    the JAX package's does; the phase records its state and kills it."""
+    import random
+    import shutil
+    import signal
+
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.utils import io as vio
+
+    root = DEADLINE_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stem = Path(video).stem
+    stalled = f"{root}/{stem}{STALL_TAG}.mp4"
+    shutil.copyfile(video, stalled)
+    fps = float(over.get("extraction_fps", TELEMETRY_FPS))
+    stack = int(over.get("stack_size", STACK))
+    step = int(over.get("step_size", STACK))
+    group = int(over.get("clip_batch_size", 2))
+    n = len(vio.VideoSource(video, fps=fps).index_map)
+    want = read_outputs(reference)
+    per_video = iters * stacks_from(n, stack, step) * on_card()
+    # inline: every full group of the n - 1 frames before the stall
+    dispatched = {"inline": stacks_from(n - 1, stack, step) // group
+                  * group * iters * on_card(), "process": 0}
+    reads, stopped = {}, []
+    real_read, real_get = vio._FrameStream.read, vio._WorkerQueue.get
+
+    def stalling_read(stream):
+        if STALL_TAG in stream._path:
+            k = reads[id(stream)] = reads.get(id(stream), 0) + 1
+            if k >= n:
+                while stream.cap is not None:  # until the cancel's release
+                    time.sleep(0.01)
+                return None
+        return real_read(stream)
+
+    def stalling_get(wq, path, raise_if_cancelled):
+        if STALL_TAG in path and wq.proc.pid not in stopped:
+            os.kill(wq.proc.pid, signal.SIGSTOP)
+            stopped.append(wq.proc.pid)
+        return real_get(wq, path, raise_if_cancelled)
+
+    real_shuffle = random.shuffle
+    vio._FrameStream.read, vio._WorkerQueue.get = stalling_read, stalling_get
+    random.shuffle = lambda x, *a, **k: None
+    runs = {}
+    try:
+        for mode, deadline in (deadlines or DEADLINE_S).items():
+            out = f"{root}/{mode}"
+            with ChildWatch(bool(on_card())) as watch:
+                run = run_cli(telemetry_argv(
+                    out, f"[{stalled}, {video}]",
+                    **dict(over, retry_attempts=1))
+                    + ["telemetry=true", f"video_decode={mode}",
+                       f"video_deadline_s={deadline}"], cl)
+            # the stopped child outlives the consumer's stop (SIGTERM, a
+            # 10 s join, no SIGKILL: the JAX package's stop too); the
+            # watch kills it after its check
+            runs[mode] = dict(watch.check(
+                f"deadline ({mode})", 2 if mode == "process" else 0,
+                left=stopped), run=run, out=out, deadline_s=deadline,
+                stopped_child_state=[watch.states[p] for p in stopped])
+            stopped.clear()
+    finally:
+        vio._FrameStream.read, vio._WorkerQueue.get = real_read, real_get
+        random.shuffle = real_shuffle
+    result = {}
+    for mode, r in runs.items():
+        run, out = r.pop("run"), r.pop("out")
+        tel = f"{out}/out/i3d"
+        spans = [json.loads(line) for line in
+                 open(f"{tel}/_telemetry.jsonl") if line.strip()]
+        by_video = {Path(s["video"]).stem: s for s in spans}
+        records = journal_records(out)
+        metrics = json.load(open(f"{tel}/_run.json"))["metrics"]["series"]
+        expired = sum(m.get("value", 0) for m in metrics
+                      if m.get("name") == "vft_deadline_expirations_total")
+        outs = read_outputs(f"{out}/out")
+        left = sorted(k for k in outs if f"{stem}{STALL_TAG}_" in k)
+        stall_span = by_video.get(f"{stem}{STALL_TAG}", {})
+        ok = (expired == 1 and run["stdout"].count("WATCHDOG:") == 1
+              and [Path(s["video"]).stem for s in spans]
+              == [f"{stem}{STALL_TAG}", stem]
+              and stall_span.get("status") == "error"
+              and by_video[stem].get("status") == "done"
+              and len(records) == 1 and records[0]["video"] == stalled
+              and records[0]["category"] == "TRANSIENT"
+              and records[0]["attempts"] == 1
+              and records[0]["error"].startswith("DeadlineExceeded")
+              and not left and run["launches"] == dict(
+                  level=0, packed=0, proj=per_video + dispatched[mode]))
+        if not ok:
+            raise AssertionError(
+                f"deadline ({mode}): expirations {expired}, spans "
+                f"{[(s['video'], s['status']) for s in spans]}, records "
+                f"{records}, left {left}, launches {run['launches']}: "
+                f"{run['stdout'][-400:]}")
+        # no output of the stalled copy: every file is the sample's
+        check_bit_equal(outs, want, f"deadline ({mode})")
+        result[mode] = dict(
+            r, expirations=expired, stalled_status=stall_span["status"],
+            stalled_wall_s=stall_span.get("wall_s"),
+            next_video_wall_s=by_video[stem].get("wall_s"),
+            journal={k: records[0][k] for k in ("category", "attempts")},
+            error=records[0]["error"][:160], npy_left=0,
+            next_video_bit_equal=True, wall_s=run["wall_s"],
+            launches=run["launches"])
+    return result
+
+
+def roofline_line(doc: dict, family: str = "i3d") -> dict:
+    """A run's ``_roofline.json`` numbers of ``family`` that step 38
+    prints beside each other."""
+    fam = doc["families"][family]
+    return {k: fam[k] for k in ("dispatches", "forward_calls", "forward_s",
+                                "h2d_s", "wall_s", "device_share",
+                                "effective_tflops", "mfu", "verdict")}
+
+
+def video_workers_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
+                        n_videos: int = WORKER_VIDEOS,
+                        workers=VIDEO_WORKERS, **over) -> dict:
+    """Several videos at once (module docstring, step 38): the slice through
+    ``cli.main`` with ``telemetry=true roofline=true`` over the sample and
+    ``n_videos - 1`` copies, once for each of ``workers`` as
+    ``video_workers``, counts set to 0 just before and read just after.
+    Held: every feature file bit-equal to the first (serial) run's, proj
+    ``iters`` launches a stack of every video, one span a video, each
+    ``done`` with every stage of :data:`TELEMETRY_STAGES` timed; the
+    walls and each run's roofline numbers (:func:`roofline_line`)
+    printed."""
+    import shutil
+
+    from video_features_tpu_torch import cli
+    from video_features_tpu_torch.kernels import corr_lookup as cl
+    from video_features_tpu_torch.telemetry import roofline
+
+    root = WORKERS_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(f"{root}/corpus")
+    stem = Path(video).stem
+    paths = [video]
+    for i in range(1, n_videos):
+        paths.append(f"{root}/corpus/{stem}_w{i}.mp4")
+        shutil.copyfile(video, paths[-1])
+    runs, want = {}, None
+    for w in workers:
+        out = f"{root}/w{w}"
+        run = run_cli(telemetry_argv(out, f"[{', '.join(paths)}]", **over)
+                      + ["telemetry=true", "roofline=true",
+                         f"video_workers={w}"], cl)
+        outs = read_outputs(f"{out}/out")
+        if want is None:
+            want = outs
+        check_bit_equal(outs, want, f"video_workers={w}")
+        tel = f"{out}/out/i3d"
+        spans = [json.loads(line) for line in
+                 open(f"{tel}/_telemetry.jsonl") if line.strip()]
+        stacks = stacks_of(outs, stem)
+        complete = sorted(Path(s["video"]).stem for s in spans
+                          if s["status"] == "done" and all(
+                              s["stages"].get(k, {}).get("s", 0) > 0
+                              for k in TELEMETRY_STAGES))
+        if f"{n_videos} extracted" not in run["stdout"] or \
+                complete != sorted(Path(p).stem for p in paths) or \
+                len(spans) != n_videos or run["launches"] != dict(
+                    level=0, packed=0,
+                    proj=n_videos * iters * stacks * on_card()):
+            raise AssertionError(
+                f"video_workers={w}: spans {len(spans)}, complete "
+                f"{complete}, launches {run['launches']}: "
+                f"{run['stdout'][-300:]}")
+        runs[str(w)] = dict(
+            threads=cli._video_workers(w), wall_s=run["wall_s"],
+            launches=run["launches"], spans=len(spans),
+            span_wall_s=[s["wall_s"] for s in spans],
+            roofline=roofline_line(json.load(
+                open(f"{tel}/{roofline.ROOFLINE_FILENAME}"))))
+    return dict(videos=n_videos, runs=runs, bit_equal_to_serial=True)
+
+
+def concurrent_phases(walls: dict, *phases) -> list:
+    """Each ``(name, fn)`` of ``phases`` on a thread of its own, all at once:
+    phases whose time is their subprocesses' and that share no state in
+    this process (the compile-cache and fleet-queue phases, 115 s one
+    after the other, and the storage and worker-kill phases, 55 s, on an
+    NVIDIA H100 80GB HBM3 at 700.00 W). Each one's wall goes into
+    ``walls`` and the group's under the names joined by ``+``; the
+    results come back in
+    order, and the first failure is raised once every phase has ended."""
+    import threading
+
+    results, errors = {}, []
+
+    def run(name, fn):
+        t = time.perf_counter()
+        try:
+            results[name] = fn()
+        except BaseException as e:  # raised below, on the caller's thread
+            errors.append(e)
+        finally:
+            walls[name] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=run, args=phase,
+                                name=f"chip-smoke-{phase[0]}")
+               for phase in phases]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    group = "+".join(name for name, _ in phases)
+    walls[group] = time.perf_counter() - t
+    for name in [n for n, _ in phases] + [group]:
+        print(json.dumps({"phase": name, "wall_s": walls[name]}),
+              file=sys.stderr, flush=True)
+    if errors:
+        raise errors[0]
+    return [results[name] for name, _ in phases]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4813,6 +5451,9 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*args)
         walls[name] = time.perf_counter() - t
+        # on stderr as it ends, so a run cut short still shows where
+        print(json.dumps({"phase": name, "wall_s": walls[name]}),
+              file=sys.stderr, flush=True)
         return out
 
     ragged = timed_phase("ragged", check_ragged, dev)
@@ -4849,24 +5490,34 @@ def main() -> int:
     empty_cache()
     serve_stats = timed_phase("serve", serve_phase)
     empty_cache()
-    compile_stats = timed_phase("compile_cache", compile_cache_phase)
-    fleet_queue_stats = timed_phase("fleet_queue", fleet_queue_phase)
+    compile_stats, fleet_queue_stats = concurrent_phases(
+        walls, ("compile_cache", compile_cache_phase),
+        ("fleet_queue", fleet_queue_phase))
     empty_cache()
-    storage_stats = timed_phase("storage", storage_phase)
+    # step 30's killed worker beside step 24: it reads step 23's corpus
+    # and static run, which the storage phase only accounts and audits
+    storage_stats, kill_step = concurrent_phases(
+        walls, ("storage", storage_phase), ("worker_kill", worker_kill_phase))
+    kill_step["step_wall_s"] = walls["worker_kill"]
     empty_cache()
-    traffic_stats = timed_phase("traffic", traffic_phase)
+    traffic_stats = timed_phase("traffic", traffic_phase, SAMPLE_VIDEO,
+                                TRAFFIC_SCENARIOS, TRAFFIC_SPEEDUP, None,
+                                None, TRAFFIC_DURATION_SCALE)
     empty_cache()
     chaos_stats = timed_phase("chaos", chaos_phase)
     empty_cache()
-    steps = {}
+    steps = {"worker_kill": kill_step}
     for name, step in (("sequence", sequence_phase),
                        ("show_pred", show_pred_phase),
                        ("trace_report", trace_report_phase),
-                       ("worker_kill", worker_kill_phase),
                        ("reencode", reencode_phase),
                        ("weights", weights_phase),
                        ("native", native_phase),
-                       ("lint", lint_phase)):
+                       ("lint", lint_phase),
+                       ("spawned_decode", spawned_decode_phase),
+                       ("ladder", ladder_phase),
+                       ("deadline", deadline_phase),
+                       ("video_workers", video_workers_phase)):
         steps[name] = timed_phase(name, step)
         steps[name]["step_wall_s"] = walls[name]
         empty_cache()
@@ -4911,6 +5562,18 @@ def main() -> int:
     proj_row["launches_weights"] = {
         name: d["proj"] for name, d in steps["weights"]["launches"].items()}
     proj_row["launches_native"] = steps["native"]["launches"]["proj"]
+    proj_row["launches_spawned_decode"] = {
+        mode: d["launches"]["proj"]
+        for mode, d in steps["spawned_decode"]["modes"].items()}
+    proj_row["launches_ladder"] = {
+        k: steps["ladder"][k]["launches"]["proj"]
+        for k in steps["ladder"] if k.startswith("attempts")}
+    proj_row["launches_deadline"] = {
+        mode: d["launches"]["proj"] for mode, d in steps["deadline"].items()
+        if isinstance(d, dict) and "launches" in d}
+    proj_row["launches_video_workers"] = {
+        w: d["launches"]["proj"]
+        for w, d in steps["video_workers"]["runs"].items()}
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -4960,7 +5623,8 @@ def main() -> int:
     print(json.dumps({"show_pred": dict(show_pred_stats, card=card)}))
     print(json.dumps({"trace_report": dict(trace_stats, card=card)}))
     print(json.dumps({"worker_kill": dict(kill_stats, card=card)}))
-    for name in ("reencode", "weights", "native", "lint"):
+    for name in ("reencode", "weights", "native", "lint", "spawned_decode",
+                 "ladder", "deadline", "video_workers"):
         print(json.dumps({name: dict(steps[name], card=card)}))
     print(json.dumps({"phase_walls_s": walls, "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -255,7 +255,7 @@ def test_frame_phases_run_on_the_cpu(tmp_path):
         assert st["model"] == model and st["frames"] == 5
         assert set(st) >= {"float32", "bfloat16", "batch1", "resize_host",
                            "yuv420", "turns_frames_per_s", "gflop_per_frame"}
-        assert len(st["turns_frames_per_s"]["bfloat16"]) == 2
+        assert len(st["turns_frames_per_s"]["bfloat16"]) == 1
         assert "not measured" in st["float32"]["profile"]["device_time"]
         assert st["resize_host"]["vs_device"]["max_abs"] <= cs.VALUE_ATOL
 
@@ -273,7 +273,7 @@ def test_vggish_phase_runs_on_the_cpu(tmp_path, monkeypatch):
     assert stats["device_vs_host_f32_max_abs"] <= cs.VGGISH_FRONTEND_ATOL
     assert stats["logmel_vs_numpy_max_abs"] <= cs.VGGISH_LOGMEL_ATOL
     assert abs(stats["gflop_per_example"] - 1.7278) < 1e-3
-    assert all(len(v) == 2 for v in stats["turns_examples_per_s"].values())
+    assert all(len(v) == 1 for v in stats["turns_examples_per_s"].values())
     assert "not measured" in \
         stats["host_float32"]["profile"]["device_time"]
     assert (tmp_path / "output" / "chip_smoke" / "vggish" /

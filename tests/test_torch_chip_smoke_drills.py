@@ -23,6 +23,14 @@ SMALL = dict(device="cpu", stack_size=10, step_size=10, flow_iters=2,
              extraction_fps=1)
 
 
+#: ``compare``'s noise floor for the chaos runs' stage timings here: on a
+#: CPU shared by the suite's workers a stage under 5 s in all (cv2's
+#: sub-millisecond grabs: 0.10 against 0.81 ms a call failed one run at
+#: 1.5x) is the scheduler's, not the run's; the forward stage, seconds a
+#: call, stays held to the band
+CPU_STAGE_FLOOR_S = 5.0
+
+
 #: a drill small enough to serve the slice for real on the CPU: 6 requests
 #: over 2 corpus items in 3 wall seconds
 TINY_SCENARIO = """
@@ -62,13 +70,16 @@ def drill_phases(tmp_path_factory, sample_video):
     mp.setenv("OMP_NUM_THREADS", str(torch.get_num_threads()))
     try:
         cs.run_cli(cs.telemetry_argv("ref", sample_video, **SMALL), cl)
-        stub = cs.traffic_phase(video=sample_video, speedup=None,
-                                stub_s=0.002, **SMALL)
+        stub = cs.traffic_phase(
+            video=sample_video, speedup=None, stub_s=0.002,
+            duration_scale=cs.TRAFFIC_DURATION_SCALE, **SMALL)
         real = cs.traffic_phase(video=sample_video,
                                 scenarios=(str(work / "tiny.yml"),),
                                 speedup=1.0, reference="ref/out/i3d",
                                 **SMALL)
-        chaos = cs.chaos_phase(video=sample_video, **SMALL)
+        chaos = cs.chaos_phase(video=sample_video,
+                               compare_min_stage_s=CPU_STAGE_FLOOR_S,
+                               **SMALL)
         yield dict(stub=stub, real=real, chaos=chaos)
     finally:
         mp.undo()
@@ -76,14 +87,17 @@ def drill_phases(tmp_path_factory, sample_video):
 
 def test_traffic_phase_runs_stub_served_on_the_cpu(drill_phases):
     """steady and burst_shed at their own speedups against a 2 ms stub
-    service: the journal is the dry run's (held inside the phase), the
-    tallies reconcile, steady passes, beta is shed, every audit passes."""
+    service, cut to the card's schedules (15 s of steady's 30, 10 s of
+    burst_shed's 40): the journal is the dry run's (held inside the
+    phase), the tallies reconcile, steady passes, beta is shed, every
+    audit passes."""
     stats = drill_phases["stub"]
     assert list(stats) == ["steady", "burst_shed"]
     steady, burst = stats["steady"], stats["burst_shed"]
     assert (steady["speedup"], burst["speedup"]) == (30.0, 40.0)
-    assert (steady["offered"], burst["offered"]) == (38, 88)
-    assert steady["verdict"] == "PASS" and steady["admitted"] == 38
+    assert (steady["duration_s"], burst["duration_s"]) == (15.0, 10.0)
+    assert (steady["offered"], burst["offered"]) == (18, 34)
+    assert steady["verdict"] == "PASS" and steady["admitted"] == 18
     assert burst["tenants"]["beta"]["rejected"] >= 3
     for drill in stats.values():
         assert drill["audit"]["pass"] is True

@@ -97,9 +97,10 @@ def test_alerts_phase_and_fleet_step_run_on_the_cpu(run_plane_phases):
     assert fault["bundle_artifacts"] == len(fault["bundle_paths"])
     assert fault["bundle_bytes"] > 0
     assert set(stats["walls_s"]) == {"0.3"}
+    # one off and one on turn an interval
     assert {k: len(v) for k, v in stats["walls_s"]["0.3"].items()} == {
-        "off": 2, "on": 2, "span_off": 2, "span_on": 2}
-    assert sorted(stats["planes"]) == ["0.3_on1", "0.3_on2"]
+        "off": 1, "on": 1, "span_off": 1, "span_on": 1}
+    assert sorted(stats["planes"]) == ["0.3_on1"]
     assert stats["eval_ms_per_tick"] > 0 and stats["eval_errors"] == 0
     fleet = run_plane_phases["fleet"]
     for root in ("telemetry", "alerts"):
@@ -115,7 +116,7 @@ def test_alerts_phase_and_fleet_step_run_on_the_cpu(run_plane_phases):
     assert line["mfu_regression_on_clean_runs"] == []
     assert set(line["history_samples"]) == {
         "telemetry_on", "telemetry_capture_off", "telemetry_repeat",
-        "turn_0.3_on1", "turn_0.3_on2", "fault"}
+        "turn_0.3_on1", "fault"}
     json.dumps(line)
 
 

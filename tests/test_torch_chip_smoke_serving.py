@@ -57,7 +57,12 @@ def serving_phases(tmp_path_factory, sample_video):
         compile_cache = cs.compile_cache_phase(
             video=sample_video, env={"CUDA_HOME": str(work / "cuda")},
             **SMALL)
-        fleet = cs.fleet_queue_phase(video=sample_video, **SMALL)
+        # the fleet phase's five subprocesses extract ten videos: on the
+        # RGB stream alone, since RAFT's 10-pair stack takes 10-15 s on
+        # the one thread a worker gets and the queue, the canary and the
+        # reports are what the phase holds
+        fleet = cs.fleet_queue_phase(video=sample_video,
+                                     **dict(SMALL, streams="rgb"))
         # the storage phase's in-process attach fingerprints the stand-in
         # toolkit as the compile phase's subprocesses did
         mp.setenv("CUDA_HOME", str(work / "cuda"))

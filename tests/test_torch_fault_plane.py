@@ -10,7 +10,9 @@
   inline, process or parallel source mid-stream raises
   ``DeadlineExceeded`` in the consumer, and leaves no child alive; the
   watchdog's cancel of a spawned source stops no child from its own
-  thread (the consumer does, after its next poll).
+  thread (the consumer does, after its next poll); a child killed inside
+  a frame's message fails the video at once instead of hanging its
+  consumer.
 - The decode ladder: retries of a ``video_decode=parallel`` video run
   ``process`` then ``inline``, as in JAX's ``safe_extract``, and
   ``BaseExtractor.video_source`` builds the source of each rung and
@@ -243,6 +245,67 @@ def test_cancel_leaves_the_children_to_the_consumer(sample_video, cls):
     with pytest.raises(tfaults.DeadlineExceeded, match="deadline"):
         next(frames)
     assert workers and not any(w.proc.is_alive() for w in workers)
+
+
+@pytest.mark.parametrize("cls", ["ProcessVideoSource",
+                                 "ParallelVideoSource"])
+def test_child_killed_inside_a_message_fails_the_video(sample_video, cls):
+    """A child SIGKILLed while its writer stands inside a frame's message
+    (one 240x320 frame is larger than the pipe, and nothing has read it):
+    the consumer raises the dead-worker ``RuntimeError``, TRANSIENT as JAX
+    classifies it, at once. The parent used to hold the pipe's write end
+    too, so its read of the message's remainder never returned (the JAX
+    package's ``tests/test_io.py::test_process_video_source_killed_worker_
+    raises`` hangs so when its kill lands inside a message)."""
+    import signal
+    import threading
+    src = getattr(tio, cls)(sample_video)
+    workers = list(src._workers)
+    time.sleep(1.5)  # the first frame's message fills the pipe and waits
+    os.kill(workers[0].proc.pid, signal.SIGKILL)
+    raised = {}
+
+    def consume():
+        try:
+            next(src.frames())
+        except BaseException as e:
+            raised["e"] = e
+
+    reader = threading.Thread(target=consume, daemon=True)
+    reader.start()
+    reader.join(timeout=30)
+    assert not reader.is_alive()
+    err = raised["e"]
+    assert isinstance(err, RuntimeError) and \
+        "died without a result" in str(err)
+    assert tfaults.classify(err) == \
+        jfaults.classify(RuntimeError(str(err))) == tfaults.TRANSIENT
+    src.release()
+    assert not any(w.proc.is_alive() for w in workers)
+
+
+@pytest.mark.parametrize("cls", ["ProcessVideoSource",
+                                 "ParallelVideoSource"])
+def test_release_stops_each_child_once(sample_video, monkeypatch, cls):
+    """The consumer's ``frames()`` releases a spawned source and
+    ``__del__`` releases it again: each child is stopped once, as the JAX
+    package's sources drop their processes on the first release. A stop
+    waits up to 10 s for a child that outlives ``terminate`` (a stopped
+    one), so every repeat cost the deadline step 10 s on the card."""
+    stops = []
+    real = tio._WorkerQueue.stop
+
+    def counted(wq):
+        stops.append(wq.proc.pid)
+        real(wq)
+
+    monkeypatch.setattr(tio._WorkerQueue, "stop", counted)
+    src = getattr(tio, cls)(sample_video, total=4)
+    pids = [w.proc.pid for w in src._workers]
+    assert len(list(src.frames())) == 4  # its finally releases
+    src.release()
+    src.__del__()
+    assert sorted(stops) == sorted(pids)
 
 
 # -- the decode ladder -------------------------------------------------------

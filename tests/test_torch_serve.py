@@ -93,11 +93,17 @@ def served(tmp_path_factory, sample_video, ckpt):
     r2 = jserve.submit_request(spool, [vids[1]])
     resp2 = jserve.wait_response(spool, r2, timeout_s=240)
     t.join(timeout=120)
+    # both readers at one instant: each reports the heartbeat's age from
+    # its own time.time(), and two calls a millisecond apart differ
+    now = time.time()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(time, "time", lambda: now)
+        final_state = jserve.server_state(spool)
+        port_final_state = serve.server_state(spool)
     return dict(tmp=tmp, argv=argv, spool=spool, vids=vids, r1=r1, r2=r2,
                 resp1=resp1, resp2=resp2, absent=absent,
                 mid_state=mid_state, alive=t.is_alive(),
-                final_state=jserve.server_state(spool),
-                port_final_state=serve.server_state(spool))
+                final_state=final_state, port_final_state=port_final_state)
 
 
 def test_serve_roundtrip_warm_and_cache_hit(served):

@@ -513,31 +513,47 @@ def _decode_worker(q, path: str, kwargs: dict) -> None:
 
 class _WorkerQueue:
     """The parent's end of one decode child: its queue and process, polled
-    once a second so a cancel or a child killed from outside is noticed."""
+    once a second so a cancel or a child killed from outside is noticed.
+
+    The parent only reads, so it closes its copy of the queue's pipe's
+    write end once the child holds its own: a child killed in the middle of
+    a message (a frame is larger than the pipe, so its writer is usually
+    mid-message while the parent is behind) then leaves the reader an end
+    of file, not a read of the message's remainder that never returns."""
 
     def __init__(self, ctx, target, args: tuple, maxsize: int) -> None:
         self.q = ctx.Queue(maxsize=maxsize)
         self.proc = ctx.Process(target=target, args=(self.q,) + args,
                                 daemon=True)
         self.proc.start()
+        # the spawned child inherited the descriptor at its start
+        self.q._writer.close()
+
+    def _died(self, path: str) -> RuntimeError:
+        self.proc.join(timeout=1.0)
+        return RuntimeError(
+            f"decode worker for {path} died without a result (killed? "
+            f"exitcode={self.proc.exitcode})")
 
     def get(self, path: str, raise_if_cancelled: Callable[[], None]):
         """The child's next ``(tag, payload)``; ``RuntimeError`` when it
-        died without one or reported an error."""
+        died without one (an end of file, a torn message included) or
+        reported an error."""
         while True:
             raise_if_cancelled()
             try:
                 tag, payload = self.q.get(timeout=1.0)
+            except (EOFError, OSError):  # at a message or inside one
+                raise_if_cancelled()
+                raise self._died(path) from None
             except queue.Empty:
                 if self.proc.is_alive():
                     continue
                 raise_if_cancelled()  # the watchdog terminated it
                 try:  # it may have flushed its tail and exited just now
                     tag, payload = self.q.get_nowait()
-                except queue.Empty:
-                    raise RuntimeError(
-                        f"decode worker for {path} died without a result "
-                        f"(killed? exitcode={self.proc.exitcode})") from None
+                except (queue.Empty, EOFError, OSError):
+                    raise self._died(path) from None
             if tag == "error":
                 raise RuntimeError(
                     f"decode worker failed for {path}: {payload}")
@@ -594,10 +610,14 @@ class _SpawnedSource:
         self._cancel_reason = reason or "cancelled"
 
     def release(self) -> None:
-        """Stop every child; a second caller (the consumer while the
-        watchdog stops them) waits until they are gone."""
+        """Stop every child, once: a second caller (the consumer's
+        ``frames()`` and then ``__del__``) waits until the first has
+        stopped them and stops none again, as the JAX package's sources
+        drop their processes on the first release (a stop of a child that
+        outlives ``terminate`` waits 10 s each time)."""
         with self._release_lock:
-            for w in self._workers:
+            workers, self._workers = self._workers, []
+            for w in workers:
                 w.stop()
 
     def __del__(self):  # abandoned mid-video: do not leak the children
@@ -638,6 +658,9 @@ class ProcessVideoSource(_SpawnedSource):
         worker = self._workers[0]
         try:
             tag, props = worker.q.get(timeout=self.START_TIMEOUT_S)
+        except (EOFError, OSError):  # it died before its first message
+            self.release()
+            raise worker._died(self.path) from None
         except BaseException:
             self.release()
             raise
