@@ -276,7 +276,10 @@ that goes wrong:
    ``fleet_canary=true``, which passes its canary on the digest band; then
    ``fleet_report.aggregate`` and ``telemetry/alerts.observe_root`` over
    the queue root and step 21's spool (the ``fleet``, ``compile_cache``
-   and ``serve`` sections). Both makespans;
+   and ``serve`` sections). Both makespans, and each of the two workers'
+   wall, exit code and heartbeat ``fleet`` tallies (claims, steals,
+   reclaims, requeues, lease losses, idle wait), which name a claim that
+   waits out its lease;
 24. runs the storage lifecycle over those trees (:func:`storage_phase`,
    :data:`STORAGE_TREES`): ``python -m video_features_tpu_torch gc ROOT
    --dry-run --json`` over the serve spool with its cache, the compile
@@ -427,7 +430,21 @@ that goes wrong:
    with ``video_workers`` 1, 2 and ``auto``: every file bit-equal to the
    serial run's, proj 20 launches a stack of every video (160), one
    complete span a video; each run's wall and roofline numbers;
-39. prints one JSON line each of the i3d slice's, the raft family's, the
+39. runs the installed port (:func:`installed_phase`): the checkout
+   installed from a copy of the tree into ``output/chip_smoke/install``,
+   by ``pip install --no-deps --no-build-isolation --target`` where this
+   interpreter has ``pip`` and ``setuptools``, else laid out as the wheel
+   would be (the line names the route); the install made read-only and
+   ``XDG_CACHE_HOME`` a fresh directory; the installed ``vft-torch`` on
+   the telemetry slice with ``PYTHONPATH`` the install alone: features
+   bit-equal to step 17's off run, proj 20 kernels a stack in the run's
+   device trace, the kernels built under the fresh cache (the library's
+   path and ``nvcc``'s seconds), nothing built inside the install; every
+   other installed port command's ``--help`` exits 0, on threads beside
+   the run; the line also prints the slice's FLOPs and ``mfu`` under the
+   count of ``telemetry/roofline.py`` beside those of the earlier
+   ``torch.utils.flop_counter`` count;
+40. prints one JSON line each of the i3d slice's, the raft family's, the
    pwc family's, the i3d PWC phase's, the r21d, s3d, resnet, clip,
    vggish, parallel, multi, telemetry, alerts, fleet, certify, serve,
    compile-cache and fleet-queue phases' numbers, one of the alerting's
@@ -437,8 +454,8 @@ that goes wrong:
    their bytes by plane, the walls of a ``usage()`` walk and of a sweep,
    the refill's and the hit's walls, the audit verdicts), one each of the
    traffic, chaos, sequence, show_pred, trace-report, worker-kill,
-   reencode, weights, native, lint, spawned-decode, ladder, deadline and
-   video-workers steps', one of every phase's wall
+   reencode, weights, native, lint, spawned-decode, ladder, deadline,
+   video-workers and installed steps', one of every phase's wall
    (``phase_walls_s``), one of the kernels' numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -454,7 +471,9 @@ worker-kill, reencode, weights and native phases and the lint step read
 YAML with yaml. The serving, storage, traffic, chaos, worker-kill and
 lint phases start
 ``python -m video_features_tpu_torch`` subprocesses with this checkout on
-``PYTHONPATH`` and wait for each (none outlives its phase), and the gateway
+``PYTHONPATH`` and wait for each (none outlives its phase), the installed
+step the installed commands with the install alone on ``PYTHONPATH``
+(and ``pip``, where it is there), and the gateway
 binds ``127.0.0.1`` only. PIL is needed by the frame-wise phases'
 ``resize=host`` runs and the show_pred phase's i3d; scipy by the vggish
 phase's resampling. No phase opens a window.
@@ -3443,6 +3462,40 @@ def fleet_keys(root: str, videos, **over) -> list:
         "compile_cache=false"]
 
 
+#: each queue worker's heartbeat ``fleet`` tallies that the phase's line
+#: prints (``parallel/queue.py WorkQueue.heartbeat_section``)
+FLEET_TALLIES = ("claimed", "stolen", "reclaimed", "requeued", "done",
+                 "lease_lost", "duplicate_discarded", "idle_wait_s_total")
+
+
+def wait_workers(procs, t0: float) -> tuple:
+    """Each process of ``procs`` waited for on a thread of its own
+    (:func:`finish_module`'s timeout): their outputs, and the seconds from
+    ``t0`` to each one's exit; the first failure is raised once all have
+    ended."""
+    import threading
+
+    outs, ends, errors = [None] * len(procs), [None] * len(procs), []
+
+    def wait(i, proc):
+        try:
+            outs[i] = finish_module(proc, f"fleet: worker {i}")
+        except AssertionError as e:
+            errors.append(e)
+        finally:
+            ends[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(i, p))
+               for i, p in enumerate(procs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SERVING_TIMEOUT_S + 30)
+    if errors:
+        raise errors[0]
+    return outs, ends
+
+
 def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
                       **over) -> dict:
     """The work-stealing queue (module docstring, step 23): a static
@@ -3474,8 +3527,7 @@ def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
     one = run_module(keys("one", fleet="queue"), "fleet: one worker")
     t = time.perf_counter()
     workers = [start_module(keys("two", fleet="queue")) for _ in range(2)]
-    outs = [finish_module(p, f"fleet: worker {i}")
-            for i, p in enumerate(workers)]
+    outs, ends = wait_workers(workers, t)
     makespan_2 = time.perf_counter() - t
     qroot = f"{root}/two/out/i3d"
     done = [json.load(open(p)) for p in sorted(
@@ -3498,6 +3550,11 @@ def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
     if len(beats) != 2 or any(f.get("mode") != "queue" for f in fleets) or \
             sum(f.get("done", 0) for f in fleets) != n_videos:
         raise AssertionError(f"fleet: heartbeat fleet sections {fleets}")
+    by_pid = {b.get("pid"): b.get("fleet") or {} for b in beats}
+    worker_lines = [dict(pid=p.pid, wall_s=ends[i], exit_code=p.returncode,
+                         fleet={k: by_pid.get(p.pid, {}).get(k)
+                                for k in FLEET_TALLIES})
+                    for i, p in enumerate(workers)]
 
     canary = run_module(keys("two", fleet="queue", fleet_canary="true"),
                         "fleet: the canary host")
@@ -3540,6 +3597,7 @@ def fleet_queue_phase(video: str = SAMPLE_VIDEO, n_videos: int = FLEET_VIDEOS,
             "compile_cache"], report_serve=agg_s["serve"]["totals"],
         observe_hosts={"queue": len(obs_q["hosts"]),
                        "spool": len(obs_s["hosts"])},
+        workers=worker_lines,
         worker_stdout_tail=[o["stdout"].splitlines()[-1:] for o in outs])
 
 
@@ -5376,6 +5434,209 @@ def video_workers_phase(video: str = SAMPLE_VIDEO, iters: int = ITERS,
     return dict(videos=n_videos, runs=runs, bit_equal_to_serial=True)
 
 
+INSTALL_ROOT = "output/chip_smoke/install"
+#: the figures step 39 prints beside the new count, both taken with
+#: ``torch.utils.flop_counter``'s count before the roofline counted as XLA
+#: does: the TFLOP of one i3d RAFT dispatch of 2 stacks and the slice's
+#: ``mfu`` on one ``video_workers`` thread (NVIDIA H100 80GB HBM3, 700.00
+#: W; PERF.md)
+EARLIER_ROOFLINE = {"flop_counter_tflop_per_dispatch": 24.63,
+                    "flop_counter_mfu_one_thread": 0.0229}
+#: the tree an install copies: the packaging files and both packages
+INSTALL_FILES = ("pyproject.toml", "README.md", "LICENSE")
+INSTALL_PACKAGES = ("video_features_tpu", "video_features_tpu_torch")
+
+
+def install_route() -> str:
+    """``pip`` where this interpreter has both ``pip`` and ``setuptools``
+    (the build backend an offline ``--no-build-isolation`` install needs),
+    else ``layout``."""
+    import importlib.util
+    have = all(importlib.util.find_spec(m) is not None
+               for m in ("pip", "setuptools"))
+    return "pip" if have else "layout"
+
+
+def lay_out(src: Path, target: Path, project: dict, package_data: dict,
+            ) -> None:
+    """The files a wheel of ``src`` would hold, laid out under ``target``:
+    every ``.py`` of each package and the files its ``package-data``
+    patterns name, and one console wrapper a command of ``project``'s
+    ``scripts`` under ``target/bin``."""
+    import shutil
+    for pkg in INSTALL_PACKAGES:
+        root = src / pkg
+        files = set(root.rglob("*.py"))
+        for pattern in package_data.get(pkg, []):
+            files |= set(root.glob(pattern))
+        for f in sorted(files):
+            if "_build" in f.parts or "__pycache__" in f.parts:
+                continue
+            dst = target / f.relative_to(src)
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy2(f, dst)
+    (target / "bin").mkdir(parents=True, exist_ok=True)
+    for name, entry in project["scripts"].items():
+        module, fn = entry.split(":")
+        wrapper = target / "bin" / name
+        wrapper.write_text(
+            f"#!{sys.executable}\nimport sys\nfrom {module} import {fn}\n"
+            f"if __name__ == '__main__':\n    sys.exit({fn}())\n")
+        wrapper.chmod(0o755)
+
+
+def set_writable(tree: Path, writable: bool) -> None:
+    """Every directory and file under ``tree`` with its write bits on or
+    off (directories after their files when turning them off)."""
+    for d, dirs, files in os.walk(tree, topdown=writable):
+        for name in files:
+            p = Path(d, name)
+            p.chmod(p.stat().st_mode | 0o200 if writable
+                    else p.stat().st_mode & ~0o222)
+        Path(d).chmod(0o755 if writable else 0o555)
+
+
+def installed_phase(video: str = SAMPLE_VIDEO, route=None, reference=None,
+                    **over) -> dict:
+    """The installed port (module docstring, step 39): the checkout
+    installed into a directory of its own from a copy of the tree, by
+    ``pip`` (``--no-deps --no-build-isolation``, offline) where this
+    interpreter has ``pip`` and ``setuptools``, else laid out as the wheel
+    would be; the tree made read-only and ``XDG_CACHE_HOME`` a fresh
+    directory; then the installed ``vft-torch`` on the telemetry slice with
+    ``PYTHONPATH`` the install alone, from a directory outside the
+    checkout, with ``roofline`` and ``profile`` on (and no span, so that
+    the native writer writes the features): its features
+    bit-equal to ``reference`` (the telemetry phase's off run), proj 20
+    kernels a stack in its device trace, the kernels built under the fresh
+    cache (the path and the seconds of ``nvcc`` from the build's line),
+    nothing built inside the install; and every other installed port
+    command's ``--help``, on threads while the run goes, exits 0.
+    ``over`` replaces CLI keys (the CPU test's small sizes)."""
+    import glob
+    import shutil
+    import tomllib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from video_features_tpu_torch.utils.build_dirs import PACKAGE
+
+    repo = Path(__file__).resolve().parent
+    root = Path(INSTALL_ROOT).resolve()
+    if root.exists():
+        set_writable(root, True)
+        shutil.rmtree(root)
+    src, target, cache, cwd = (root / d for d in ("src", "site", "xdg",
+                                                  "cwd"))
+    for d in (src, cache, cwd):
+        d.mkdir(parents=True)
+    for name in INSTALL_FILES:
+        shutil.copy2(repo / name, src / name)
+    for pkg in INSTALL_PACKAGES:
+        shutil.copytree(repo / pkg, src / pkg, ignore=shutil.ignore_patterns(
+            "_build", "__pycache__", "*.pyc"))
+    with open(src / "pyproject.toml", "rb") as f:
+        toml = tomllib.load(f)
+    project = toml["project"]
+    route = route or install_route()
+    checkout = sorted(os.listdir(repo))
+    t = time.perf_counter()
+    if route == "pip":
+        proc = subprocess.run(
+            [sys.executable, "-m", "pip", "install", "--no-deps",
+             "--no-build-isolation", "--no-index", "--target", str(target),
+             str(src)], capture_output=True, text=True, timeout=600,
+            cwd=str(cwd))
+        if proc.returncode != 0:
+            raise AssertionError(f"install: pip exit {proc.returncode}: "
+                                 f"{(proc.stdout + proc.stderr)[-1500:]}")
+    else:
+        lay_out(src, target, project,
+                toml["tool"]["setuptools"]["package-data"])
+    install_s = time.perf_counter() - t
+    port = {name: entry for name, entry in project["scripts"].items()
+            if entry.startswith(PACKAGE + ".")}
+    missing = [n for n in port if not (target / "bin" / n).exists()]
+    if missing or sorted(os.listdir(repo)) != checkout:
+        raise AssertionError(f"install ({route}): commands {missing} "
+                             f"missing, or the checkout changed: "
+                             f"{set(os.listdir(repo)) ^ set(checkout)}")
+    set_writable(target, False)
+    env = dict(os.environ, PYTHONPATH=str(target), XDG_CACHE_HOME=str(cache))
+
+    def command(name, *args, timeout=SERVING_TIMEOUT_S):
+        t0 = time.perf_counter()
+        proc = subprocess.run([str(target / "bin" / name), *args],
+                              capture_output=True, text=True, env=env,
+                              cwd=str(cwd), timeout=timeout)
+        return dict(rc=proc.returncode, stdout=proc.stdout,
+                    stderr=proc.stderr, wall_s=time.perf_counter() - t0)
+
+    try:
+        where = subprocess.run(
+            [sys.executable, "-c", "import video_features_tpu_torch as p; "
+             "print(p.__file__)"], capture_output=True, text=True, env=env,
+            cwd=str(cwd), timeout=120).stdout.strip()
+        with ThreadPoolExecutor(max_workers=6) as pool:
+            helps = {name: pool.submit(command, name, "--help", timeout=300)
+                     for name in port}
+            out = root / "run"
+            argv = telemetry_argv(str(out), str(Path(video).resolve()),
+                                  **over) + [
+                "roofline=true", "profile=true",
+                f"profile_trace_dir={out / 'prof'}"]
+            run = command("vft-torch", *argv)
+            helped = {name: f.result() for name, f in helps.items()}
+    finally:
+        set_writable(target, True)
+    if run["rc"] != 0 or "1 extracted" not in run["stdout"]:
+        raise AssertionError(f"installed: vft-torch exit {run['rc']}: "
+                             f"{(run['stdout'] + run['stderr'])[-1500:]}")
+    bad = {n: (h["rc"], (h["stdout"] + h["stderr"])[-300:])
+           for n, h in helped.items() if h["rc"] != 0 or not h["stdout"]}
+    if not where.startswith(str(target)) or bad:
+        raise AssertionError(f"installed: the package from {where}, "
+                             f"--help failures {bad}")
+
+    on_card = torch.device(over.get("device", "cuda")).type == "cuda"
+    got = read_outputs(f"{out}/out/i3d")
+    want = read_outputs(reference or f"{TELEMETRY_ROOT}/off/out/i3d")
+    check_bit_equal(got, want, "installed: vft-torch")
+    stacks = len(want.get(f"{Path(video).stem}_timestamps_ms.npy", []))
+    iters = int(over.get("flow_iters") or ITERS)
+    prof = glob.glob(f"{out}/prof/*.pt.trace.json")
+    proj = sum("proj_kernel" in e.get("name", "")
+               for e in json.load(open(prof[0]))["traceEvents"]
+               if e.get("cat") == "kernel") if len(prof) == 1 else None
+    proj_want = iters * stacks if on_card else 0
+    built = [ln.split() for ln in run["stderr"].splitlines()
+             if ln.startswith(("kernels: nvcc built", "native: g++ built"))]
+    libs = {b[0].rstrip(":"): b[3] for b in built}
+    nvcc_s = next((float(b[5]) for b in built if b[0] == "kernels:"), None)
+    cached = sorted(str(Path(p).relative_to(cache)) for p in glob.glob(
+        f"{cache}/{PACKAGE}/*/*.so"))
+    inside = [str(p) for p in target.rglob("*.so")]
+    kernels_ok = ("kernels" in libs and libs["kernels"].startswith(
+        str(cache / PACKAGE / "kernels"))) if on_card else \
+        "kernels" not in libs
+    if proj != proj_want or not kernels_ok or inside or not all(
+            v.startswith(str(cache)) for v in libs.values()):
+        raise AssertionError(f"installed: proj kernels {proj} of "
+                             f"{proj_want}, built {libs}, cached {cached}, "
+                             f"inside the install {inside}")
+    roof = json.load(open(f"{out}/out/i3d/_roofline.json"))["families"][
+        "i3d"]
+    return dict(
+        install=route, install_s=install_s, package_file=where,
+        commands=sorted(port), help_rc={n: h["rc"] for n, h in
+                                        sorted(helped.items())},
+        help_wall_s=max(h["wall_s"] for h in helped.values()),
+        run_wall_s=run["wall_s"], bit_equal_to_checkout=True,
+        stacks=stacks, proj_kernels_in_trace=proj, built=libs,
+        nvcc_s=nvcc_s, cache_libraries=cached, read_only_install=True,
+        roofline={k: roof[k] for k in ("flops_total", "bytes_total",
+                                       "dispatches", "mfu")})
+
+
 def concurrent_phases(walls: dict, *phases) -> list:
     """Each ``(name, fn)`` of ``phases`` on a thread of its own, all at once:
     phases whose time is their subprocesses' and that share no state in
@@ -5517,7 +5778,8 @@ def main() -> int:
                        ("spawned_decode", spawned_decode_phase),
                        ("ladder", ladder_phase),
                        ("deadline", deadline_phase),
-                       ("video_workers", video_workers_phase)):
+                       ("video_workers", video_workers_phase),
+                       ("installed", installed_phase)):
         steps[name] = timed_phase(name, step)
         steps[name]["step_wall_s"] = walls[name]
         empty_cache()
@@ -5574,6 +5836,8 @@ def main() -> int:
     proj_row["launches_video_workers"] = {
         w: d["launches"]["proj"]
         for w, d in steps["video_workers"]["runs"].items()}
+    proj_row["kernels_installed_trace"] = steps["installed"][
+        "proj_kernels_in_trace"]
     next(r for r in kernels if r["name"] == "corr_lookup_packed_cuda")[
         "launches_i3d"] = slice_stats["packed_launches"]
     slice_stats.update(card=card, small_raft_kernels_vs_gather_px=raft_err)
@@ -5623,8 +5887,18 @@ def main() -> int:
     print(json.dumps({"show_pred": dict(show_pred_stats, card=card)}))
     print(json.dumps({"trace_report": dict(trace_stats, card=card)}))
     print(json.dumps({"worker_kill": dict(kill_stats, card=card)}))
+    # the slice's roofline under the count of telemetry/roofline.py, beside
+    # the earlier figures: one uncounted dispatch of 2 stacks (the
+    # telemetry phase's repeat run) and the slice on one video_workers
+    # thread (step 38)
+    rep = telemetry_stats["roofline"]["repeat"]
+    steps["installed"]["roofline_slice"] = dict(
+        EARLIER_ROOFLINE, tflop_per_dispatch=rep["flops_total"] / 1e12,
+        mfu_repeat=rep["mfu"],
+        mfu_one_thread=steps["video_workers"]["runs"]["1"]["roofline"][
+            "mfu"])
     for name in ("reencode", "weights", "native", "lint", "spawned_decode",
-                 "ladder", "deadline", "video_workers"):
+                 "ladder", "deadline", "video_workers", "installed"):
         print(json.dumps({name: dict(steps[name], card=card)}))
     print(json.dumps({"phase_walls_s": walls, "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -129,6 +129,29 @@ def test_fleet_queue_phase_runs_on_the_cpu(serving_phases):
     json.dumps(stats)
 
 
+def test_fleet_queue_line_names_each_worker(serving_phases):
+    """The ``{"fleet_queue"}`` line names each of the two concurrent
+    workers: its pid, its wall from the common start (within the
+    makespan), its exit code and its heartbeat's ``fleet`` tallies: the
+    claims, steals, reclaims, requeues, lease losses and idle wait that
+    name a claim waiting out its lease, should one."""
+    stats = serving_phases["fleet"]
+    workers = stats["workers"]
+    assert len(workers) == 2 and len({w["pid"] for w in workers}) == 2
+    assert all(w["exit_code"] == 0 for w in workers)
+    assert all(0 < w["wall_s"] <= stats["makespan_two_workers_s"]
+               for w in workers)
+    assert max(w["wall_s"] for w in workers) == pytest.approx(
+        stats["makespan_two_workers_s"], abs=1.0)
+    for w in workers:
+        assert set(w["fleet"]) == set(cs.FLEET_TALLIES)
+        assert all(v is not None and v >= 0 for v in w["fleet"].values())
+    tally = {k: sum(w["fleet"][k] for w in workers) for k in cs.FLEET_TALLIES}
+    assert tally["done"] == 3 and tally["claimed"] >= 3
+    assert tally["lease_lost"] == tally["reclaimed"] == 0
+    json.dumps(workers)
+
+
 def test_storage_phase_runs_on_the_cpu(serving_phases):
     """The storage phase over the serving phases' trees: the dry-run
     accounting finds each plane they wrote; the gc=true run publishes its

@@ -362,6 +362,58 @@ def test_heartbeat_section_renews_leases(tmp_path):
     assert stamped["deadline"] == pytest.approx(first + 3.0)
 
 
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_renewal_racing_a_completion_leaves_no_orphan_claim(
+        tmp_path, monkeypatch, package):
+    """The heartbeat thread's renewal checks a claim, then rewrites it; a
+    completion that unlinks the claim in between must not be undone. The
+    renewal's write here first lets the completion run on another thread
+    (up to 1 s). In JAX's ``WorkQueue`` the completion finishes inside the
+    window and the write brings the claim back: an orphan in A's own claim
+    directory that A never renews and never reclaims, so the queue is not
+    drained and host B, with A's heartbeat fresh, waits out the lease
+    before it may requeue it (a fault that could explain the fleet
+    queue's 75 s two-worker run on the card; that it did is not shown).
+    The port's renewal holds the lock that the completion takes,
+    so the completion waits for the write and then removes the claim."""
+    from video_features_tpu.parallel import queue as jq
+    mod = fq if package == "port" else jq
+    clk = Clock()
+    a = _wq(tmp_path, "A", clk, mod=mod)
+    b = _wq(tmp_path, "B", clk, mod=mod)
+    a.seed(["/data/v.mp4"])
+    rec = a.claim_next()
+    claim = a._claim_path(rec["id"])
+    write = mod.write_json_atomic
+    done = threading.Event()
+    raced = []
+
+    def racing_write(path, obj, *args, **kw):
+        if path == claim and not raced:
+            th = threading.Thread(
+                target=lambda: (a.complete(rec, "done"), done.set()))
+            th.start()
+            raced.append(th)
+            th.join(timeout=1.0)
+        return write(path, obj, *args, **kw)
+
+    monkeypatch.setattr(mod, "write_json_atomic", racing_write)
+    clk.t += 1.0
+    a.renew_leases()
+    raced[0].join(timeout=10.0)
+    assert done.is_set() and not raced[0].is_alive()
+    _hb(tmp_path, "A", now=clk.t)
+    assert b.reclaim_expired() == 0
+    orphaned = package == "jax"
+    assert os.path.exists(claim) is orphaned
+    assert a.counts()["claimed"] == int(orphaned)
+    assert a.all_done() is not orphaned and b.all_done() is not orphaned
+    if orphaned:  # B may requeue it only once the lease has run out
+        clk.t += a.lease_s + 1.0
+        assert b.reclaim_expired() == 1 and b.claim_next() is None
+        assert b.all_done()
+
+
 def test_heartbeat_section_keys_are_jax(tmp_path):
     from video_features_tpu.parallel import queue as jq
     clk = Clock()

@@ -597,6 +597,12 @@ def _spawn_warmup(spec: str, over) -> Dict[str, Any]:
             "error": f"warmup subprocess rc={proc.returncode}: {tail}"}
 
 
+WARMUP_USAGE = (
+    "Usage: python -m video_features_tpu_torch warmup "
+    "<family>[,<family>...] ... [key=value ...]\n"
+    "e.g.   ... warmup i3d flow_type=raft compile_cache_dir=/srv/cc")
+
+
 def warmup_main(argv: Optional[List[str]] = None) -> None:
     """``python -m video_features_tpu_torch warmup <family>[,<family>...]
     ... [key=value ...]``: build and seal every listed spec's entry ahead
@@ -604,6 +610,9 @@ def warmup_main(argv: Optional[List[str]] = None) -> None:
     too, so a run's own arguments warm its own entry. Exit 1 when a spec
     failed."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] in (["-h"], ["--help"]):
+        print(WARMUP_USAGE)
+        return
     specs: List[str] = []
     overrides: List[str] = []
     for a in argv:
@@ -612,10 +621,7 @@ def warmup_main(argv: Optional[List[str]] = None) -> None:
         else:
             (overrides if "=" in a else specs).append(a)
     if not specs:
-        raise SystemExit(
-            "Usage: python -m video_features_tpu_torch warmup "
-            "<family>[,<family>...] ... [key=value ...]\n"
-            "e.g.   ... warmup i3d flow_type=raft compile_cache_dir=/srv/cc")
+        raise SystemExit(WARMUP_USAGE)
     from .config import parse_dotlist
     from .registry import parse_feature_types
     over = parse_dotlist(overrides)

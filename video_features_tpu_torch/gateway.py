@@ -934,17 +934,22 @@ class _Handler(BaseHTTPRequestHandler):
 
 # -- entry point --------------------------------------------------------------
 
+GATEWAY_USAGE = ("Usage: python -m video_features_tpu_torch gateway "
+                 "spool_dir=<dir> [gateway_port=8080] "
+                 "[gateway_tenants=tenants.yml] [key=value ...]")
+
+
 def gateway_main(argv: Optional[List[str]] = None) -> None:
     """Entry point: ``python -m video_features_tpu_torch gateway
     spool_dir=<dir> [key=value ...]``."""
     from .config import parse_dotlist
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] in (["-h"], ["--help"]):
+        print(GATEWAY_USAGE)
+        return
     cli_args = parse_dotlist(argv)
     if "spool_dir" not in cli_args:
-        raise SystemExit(
-            "Usage: python -m video_features_tpu_torch gateway "
-            "spool_dir=<dir> [gateway_port=8080] "
-            "[gateway_tenants=tenants.yml] [key=value ...]")
+        raise SystemExit(GATEWAY_USAGE)
     validate_gateway_args(cli_args)
     from .utils import inject
     inj = cli_args.get("inject")

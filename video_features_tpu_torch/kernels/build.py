@@ -8,10 +8,14 @@ so an edited source is rebuilt and a stale library is never loaded. It
 lands in the attached compile-cache entry (``compile_cache.py``), which
 verified it on attach and seals it at exit, or, with none attached, in the
 per-machine build directory: ``compilation_cache_dir``, by default the
-git-ignored ``kernels/_build/``. Each :func:`build` counts a hit (the
+git-ignored ``kernels/_build/``, or, where the installed package cannot be
+written, the per-user cache ``$XDG_CACHE_HOME/video_features_tpu_torch/
+kernels`` (``utils/build_dirs.py``). Each :func:`build` counts a hit (the
 library was there: no ``nvcc``) or a miss (``nvcc`` ran), read by
-:func:`build_counts`. Each C entry point returns the launch's
-``cudaError_t``; the wrappers raise when it is not 0. ``-Xptxas -v`` makes
+:func:`build_counts`; a miss says on stderr where it built and how long
+``nvcc`` took. A failed ``nvcc`` raises: no kernel falls back to its plain
+version. Each C entry point returns the launch's ``cudaError_t``; the
+wrappers raise when it is not 0. ``-Xptxas -v`` makes
 the compiler report each kernel's registers, shared memory and spills; the
 report is kept beside the library (``<library>.ptxas.txt``) and
 :func:`kernel_resources` reads it.
@@ -28,6 +32,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -103,13 +108,17 @@ def library_name() -> str:
 
 
 def library_dir() -> Path:
-    """The attached compile-cache entry's directory, else the build
-    directory."""
+    """The attached compile-cache entry's directory, else the directory
+    :func:`set_build_dir` named, else :data:`BUILD_DIR` where it can be
+    written, else the per-user cache."""
     from .. import compile_cache
+    from ..utils.build_dirs import build_dir
     entry = compile_cache.active()
     if entry is not None:
         return Path(entry.dir)
-    return _build_dir if _build_dir is not None else BUILD_DIR
+    if _build_dir is not None:
+        return _build_dir
+    return build_dir(BUILD_DIR, "kernels")
 
 
 def library_path() -> Path:
@@ -146,9 +155,11 @@ def build() -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+        took = time.perf_counter() - t0
         with _counts_lock:
             _counts["misses"] += 1
-            _counts["nvcc_s"] += time.perf_counter() - t0
+            _counts["nvcc_s"] += took
+    print(f"kernels: nvcc built {lib} in {took:.3f} s", file=sys.stderr)
     return lib
 
 

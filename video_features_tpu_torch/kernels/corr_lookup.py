@@ -46,7 +46,7 @@ and the operations it must do), is the one count of it in the repository:
 wrapper and plain version report it to the roofline counter
 (``telemetry/roofline.py``) through :data:`work_hook`, whichever of the two
 runs, so that a roofline card counted on the CPU equals one counted on the
-card. A ``torch.utils.flop_counter`` pass sees neither the kernels (they are
+card. The roofline's counting pass sees neither the kernels (they are
 reached through ``ctypes``, not the dispatcher) nor, by the same hook, the
 plain versions' own aten ops. With roofline accounting off the hook is None
 and costs each call one global read.

@@ -3,12 +3,15 @@ optional (port of ``video_features_tpu/native/``).
 
 ``vft_native.cpp`` (the port's own copy of the JAX package's source) is
 compiled with ``g++`` into ``native/_build/vft_native-<sha1>.so`` beside
-this file (git-ignored) on first use: a plain ``extern "C"`` interface, no
-PyTorch headers. The build writes a temporary name and renames it into
-place, so workers that race to build get the whole library or none. Every
-entry point has a Python fallback at its call site (``utils/sinks.py``),
-so the port runs unchanged where no compiler is found; ``VFT_NATIVE=0``
-forces the fallbacks.
+this file (git-ignored) on first use, or, where an installed package
+cannot be written there, into the per-user cache
+``$XDG_CACHE_HOME/video_features_tpu_torch/native`` (``utils/
+build_dirs.py``): a plain ``extern "C"`` interface, no PyTorch headers.
+The build writes a temporary name and renames it into place, so workers
+that race to build get the whole library or none, and says on stderr
+where it built. Every entry point has a Python fallback at its call site
+(``utils/sinks.py``), so the port runs unchanged where no compiler is
+found; ``VFT_NATIVE=0`` forces the fallbacks.
 
   available()               -> bool
   write_npy_atomic(path, a) -> write a .npy through a temp file, fsync and
@@ -21,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import tempfile
 import threading
 from pathlib import Path
@@ -29,7 +33,7 @@ from typing import Optional
 import numpy as np
 
 _SRC = Path(__file__).with_name("vft_native.cpp")
-#: where the library is built (git-ignored)
+#: where the library is built when this directory is writable (git-ignored)
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 _lock = threading.Lock()
@@ -38,9 +42,12 @@ _build_failed = False
 
 
 def library_path() -> Path:
-    """The library of this source: its name carries the source's sha1."""
+    """The library of this source, whose name carries the source's sha1:
+    in :data:`BUILD_DIR`, else, where that cannot be written, in the
+    per-user cache."""
+    from ..utils.build_dirs import build_dir
     tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"vft_native-{tag}.so"
+    return build_dir(BUILD_DIR, "native") / f"vft_native-{tag}.so"
 
 
 def _build(so: Path) -> None:
@@ -52,6 +59,7 @@ def _build(so: Path) -> None:
                         str(_SRC), "-o", tmp], check=True,
                        capture_output=True)
         os.replace(tmp, so)
+        print(f"native: g++ built {so}", file=sys.stderr)
     except BaseException:
         Path(tmp).unlink(missing_ok=True)
         raise

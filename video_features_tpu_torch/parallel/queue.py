@@ -298,24 +298,33 @@ class WorkQueue:
         """Push this host's active lease deadlines forward. Called from
         the heartbeat flusher thread (via :meth:`heartbeat_section`) —
         a live host's leases therefore never expire, and a dead/stalled
-        host's expire within one lease period."""
+        host's expire within one lease period.
+
+        Each claim is checked and rewritten under the lock that
+        :meth:`complete` and :meth:`release` take to drop it, so a renewal
+        never writes back a claim file that a completion has just
+        unlinked: such a file would be an orphan in this host's own claim
+        directory, which no renewal keeps and no other host reclaims
+        before its lease runs out, and every host would wait for it (JAX's
+        ``parallel/queue.py`` renews without the lock)."""
         with self._lock:
-            active = dict(self._active)
+            iids = list(self._active)
         now = self.clock()
-        for iid, rec in active.items():
+        for iid in iids:
             path = self._claim_path(iid)
-            if not os.path.exists(path):
-                # stolen from under us (we stalled past the lease and
-                # somebody reclaimed): drop it — complete() re-checks too
-                with self._lock:
-                    if self._active.pop(iid, None) is not None:
-                        self._tallies["lease_lost"] += 1
-                continue
-            rec = dict(rec, deadline=round(now + self.lease_s, 3))
-            write_json_atomic(path, rec)
             with self._lock:
-                if iid in self._active:
-                    self._active[iid] = rec
+                rec = self._active.get(iid)
+                if rec is None:
+                    continue  # completed or released since the snapshot
+                if not os.path.exists(path):
+                    # stolen from under us (we stalled past the lease and
+                    # somebody reclaimed): drop it — complete() re-checks
+                    del self._active[iid]
+                    self._tallies["lease_lost"] += 1
+                    continue
+                rec = dict(rec, deadline=round(now + self.lease_s, 3))
+                write_json_atomic(path, rec)
+                self._active[iid] = rec
 
     def _owner_stale(self, host_dirname: str,
                      hb_cache: Dict[str, Optional[dict]]) -> bool:

@@ -884,6 +884,10 @@ class ServeLoop:
         self._stop.set()
 
 
+SERVE_USAGE = ("Usage: python -m video_features_tpu_torch serve "
+               "feature_type=<family>[,...] spool_dir=<dir> [key=value ...]")
+
+
 def serve_main(argv: Optional[List[str]] = None) -> None:
     """Entry point: ``python -m video_features_tpu_torch serve key=value
     ...``."""
@@ -891,11 +895,12 @@ def serve_main(argv: Optional[List[str]] = None) -> None:
                          sanity_check, sanity_check_multi)
     from .registry import parse_feature_types
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] in (["-h"], ["--help"]):
+        print(SERVE_USAGE)
+        return
     cli_args = parse_dotlist(argv)
     if "feature_type" not in cli_args or "spool_dir" not in cli_args:
-        raise SystemExit(
-            "Usage: python -m video_features_tpu_torch serve "
-            "feature_type=<family>[,...] spool_dir=<dir> [key=value ...]")
+        raise SystemExit(SERVE_USAGE)
     families = parse_feature_types(cli_args.feature_type)
     # file sinks only: responses point at artifacts, and the idempotent
     # skip + journals need per-family output dirs (print has neither)

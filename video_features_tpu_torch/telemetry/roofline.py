@@ -14,24 +14,82 @@ the heartbeats and ``_run.json`` (``telemetry/recorder.py``):
     bumps a counter. JAX lowers the program once and reads XLA's
     ``cost_analysis()``; eager PyTorch has no program to lower, so the
     count is taken on that first real dispatch, which it slows on the host
-    and never synchronizes. FLOPs are ``torch.utils.flop_counter``'s
-    (``FlopCounterMode``) for the dense ops, plus the declared work of each
-    RAFT correlation lookup (``kernels/corr_lookup.py kernel_work``): the
-    CUDA kernels are reached through ``ctypes`` and no dispatcher pass sees
-    them, and the lookups' plain versions report the same declared work
-    with their own aten ops left out, so a card counted on the CPU equals
-    one counted on the card. Bytes are the input and output bytes of every
-    aten op the pass sees that moves data (views and bare allocations
-    move none) plus the lookups' declared bytes: the traffic of eager
-    PyTorch, where each op reads its inputs from device memory and writes
-    its output back. It is not XLA's ``bytes accessed``: on I3D and
-    R(2+1)D at small inputs on the CPU it read 0.59-0.89x JAX's count of
-    the same models, whose cause is not established. The FLOPs differ the
-    other way: ``FlopCounterMode`` counts every tap of a convolution, its
-    zero padding included, where XLA counts the taps on the input only
-    (one 3x3x3 convolution padded on a 4^3 input: 221,184 against XLA's
-    128,000), and it counts no elementwise op, where XLA counts one FLOP
-    an element; at those inputs the port's count is 1.05-1.22x JAX's.
+    and never synchronizes. The count is XLA's cost analysis of the
+    lowered (unfused) program, rule by rule, read off one-op programs
+    lowered in JAX on the CPU (:class:`CostCounter`; composite ops are
+    counted as the ops they run):
+
+    - convolution: 2 x the multiply-adds whose input lies on the data.
+      Taps on the padding are not counted (a 3x3x3 convolution padded 1
+      on a 4^3 input: 2,000, where every tap would be 3,456), nor taps on
+      the zeros of an ``F.pad`` just before a VALID convolution. A bias
+      adds 1 an output.
+    - dot (``mm``, ``bmm``): 2 M N K; ``addmm``'s bias 1 an output.
+    - pointwise (``torch.Tag.pointwise``): 1 an output element; 0 for a
+      transcendental (``exp``, ``log``, ``tanh``, ``sqrt``, ``rsqrt``,
+      ``erf``, ...: XLA counts those apart); 3 for the logistic (a negate,
+      an add and a divide around its exp); a clamp 1 a bound.
+    - convert (``_to_copy``, ``copy_`` to another dtype): 1 an element;
+      0 for a copy (``clone``, ``contiguous``).
+    - reduce (``sum``, ``amax``, ...): n - 1 a result; ``mean`` 1 more.
+    - variance (``var``, ``std``): 4 an element, 1 a result and 3, as
+      ``jnp.var`` lowers (a mean, a subtract, a square, a second mean and
+      its ddof's scalar ops; the ``sqrt`` of ``std`` counts 0).
+    - max pool: window - 1 a result; average pool: window a result;
+      padding or not.
+    - softmax: 4 an element less 1 a row.
+    - batch norm with the batch's statistics (RAFT's instance norm): 7 an
+      element, as JAX's ``instance_norm`` lowers; with running
+      statistics 2; layer norm 5 an element and 4 a row; an affine scale
+      and shift 2 more an element.
+    - pad, concatenate, layout, fill: 0.
+
+    Plus the declared work of each RAFT correlation lookup
+    (``kernels/corr_lookup.py kernel_work``): the CUDA kernels are reached
+    through ``ctypes`` and no dispatcher pass sees them, and the lookups'
+    plain versions report the same declared work with their own aten ops
+    left out, so a card counted on the CPU equals one counted on the card.
+    On the CPU at the shapes of ``tests/test_torch_roofline_parity.py`` the
+    port's FLOPs are 1.000001x JAX's ``program_cost`` on I3D RGB (1, 10,
+    224, 224, 3) and R(2+1)D-18 (1, 8, 32, 32, 3), 1.000000x on ResNet-18
+    (2, 64, 64, 3), and a small RAFT's dense ops (2 iterations, (2, 64,
+    96, 3) pairs) 0.9999997x JAX's gather RAFT's less its lookups. XLA's
+    cost analysis counts a while loop's body once, whatever its trip
+    count, so JAX's ``program_cost`` of its RAFT (an ``nn.scan`` over the
+    iterations) counts one update iteration of 20; the port counts every
+    iteration it runs.
+
+    Bytes are the input and output bytes of every aten op the pass sees
+    that moves data (views, bare allocations and an op that returns its own
+    input move none): the traffic of eager PyTorch, where each op reads its
+    inputs from device memory and writes its output back. XLA's ``bytes
+    accessed`` is that of the unfused program, so the two differ by class
+    (MB, port - JAX, I3D RGB at (1, 10, 224, 224, 3); port 0.8877x JAX's
+    988.35 against 1,113.43; R(2+1)D-18 0.7793x, ResNet-18 0.8630x; held
+    by ``tests/test_torch_roofline_parity.py BYTES_GAP_MB`` against each
+    instruction of JAX's lowered program):
+
+    - broadcast (JAX 304 ops, port none): -172.49. JAX's unfused program
+      writes each batch norm's scale and shift and each ReLU's zero out at
+      full size; eager PyTorch broadcasts inside the op.
+    - multiply, add, ReLU / maximum (port 440 ops, JAX 342): -171.06. So
+      each JAX elementwise op reads a full-size second operand where the
+      port's reads a channel vector or a scalar.
+    - zero-width pads (port 38, JAX none): +121.23. The port's ``F.pad``
+      before each 1x1x1 convolution is a copy in eager PyTorch; JAX pads
+      in the convolution.
+    - zero pads (port 32, JAX 12): +43.09. The port pads each 3x3x3 and
+      7x7x7 convolution's input apart; JAX pads only its pools.
+    - max pools (port 13, JAX 14 reduce-windows): +43.87.
+      ``max_pool3d`` writes int64 indices beside its values.
+    - convolutions (57 each): +10.54. The port's read their padded input.
+    - concatenate, subtract, rsqrt, reduce: equal.
+
+    R(2+1)D-18 has only the first two causes (-31.21 and -30.83);
+    ResNet-18 those (-4.87 and -4.73) and its max pool's indices (+0.26).
+    Nothing the port counts is traffic that no op moves; the gap is JAX's
+    unfused program (its broadcasts) on one side and eager PyTorch's pads
+    and pool indices on the other, and both are left as they are.
   - **measured time**: on a card, one pair of CUDA events recorded on the
     replica's stream around each dispatch's launches; a pair's elapsed
     time is read once its end event has completed (``query()``), never
@@ -49,8 +107,8 @@ the heartbeats and ``_run.json`` (``telemetry/recorder.py``):
     the dispatch's calls plus what the ``forward`` stages hold beyond those
     calls (the wait and the copy back). ``h2d`` is
     the ``h2d`` stage, through the profiler's stage hook, as in JAX.
-    The counting pass puts two Python dispatch modes on every aten op of
-    its dispatch, which slows that dispatch's launches and so its window.
+    The counting pass puts a Python dispatch mode on every aten op of its
+    dispatch, which slows that dispatch's launches and so its window.
     Where a family has dispatches that ran without it, the counted ones
     are left out: ``forward_s`` and ``forward_calls`` are the uncounted
     windows, ``flops_total`` and ``bytes_total`` their work. A family whose
@@ -75,10 +133,12 @@ from __future__ import annotations
 import atexit
 import contextlib
 import json
+import math
 import os
 import re
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -174,55 +234,224 @@ _NO_TRAFFIC = frozenset((
     torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
     torch.ops.aten.new_empty_strided, torch.ops.aten._local_scalar_dense))
 
+_aten = torch.ops.aten
+#: pointwise ops XLA counts as transcendentals, not FLOPs
+_TRANSCENDENTAL = frozenset(
+    getattr(_aten, name) for name in (
+        "exp", "exp2", "expm1", "log", "log2", "log10", "log1p", "sqrt",
+        "rsqrt", "tanh", "sin", "cos", "tan", "asin", "acos", "atan",
+        "atan2", "sinh", "cosh", "asinh", "acosh", "atanh", "erf", "erfc",
+        "erfinv", "lgamma", "digamma") if hasattr(_aten, name))
+_CONVOLUTIONS = frozenset((_aten.convolution, _aten._convolution))
+_MAX_POOLS = frozenset((_aten.max_pool1d, _aten.max_pool2d,
+                        _aten.max_pool3d, _aten.max_pool2d_with_indices,
+                        _aten.max_pool3d_with_indices))
+_AVG_POOLS = frozenset((_aten.avg_pool1d, _aten.avg_pool2d, _aten.avg_pool3d))
+_ADAPTIVE_AVG_POOLS = frozenset((
+    _aten._adaptive_avg_pool2d, _aten._adaptive_avg_pool3d,
+    _aten.adaptive_avg_pool1d))
+#: reductions: XLA's reduce adds n - 1 FLOPs a result; mean divides once
+_REDUCTIONS = frozenset((_aten.sum, _aten.amax, _aten.amin, _aten.max,
+                         _aten.min, _aten.prod))
+#: variances: ``jnp.var`` lowers to a mean, a subtract, a square and a
+#: second mean (4 an element, 1 a result) and 3 scalar ops for its ddof
+_VARIANCES = frozenset((_aten.var, _aten.std, _aten.var_mean,
+                        _aten.std_mean))
+_SOFTMAXES = frozenset((_aten._softmax, _aten._log_softmax))
+#: the batch norms as CPU and card run them (one count for both)
+_BATCH_NORMS = frozenset(getattr(_aten, name) for name in (
+    "native_batch_norm", "_native_batch_norm_legit",
+    "_native_batch_norm_legit_no_training", "cudnn_batch_norm",
+    "miopen_batch_norm") if hasattr(_aten, name))
+#: copies, which XLA counts as a convert (1 FLOP an element) only where
+#: the dtype changes (``clone`` is tagged pointwise but moves data only)
+_COPIES = frozenset((_aten._to_copy, _aten.copy_, _aten.copy, _aten.clone))
+#: the matrix products of ``torch.utils.flop_counter``'s registry (2 M N K,
+#: XLA's dot); a bias add counts one more an element
+_BIASED = frozenset((_aten.addmm, _aten.baddbmm, _aten.addmv))
+
+
+def _tensors(value: Any) -> List[torch.Tensor]:
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (list, tuple)):
+        return [t for v in value for t in _tensors(v)]
+    return []
+
+
+def _numel(value: Any) -> int:
+    """Elements of ``value``'s first tensor (an op's result)."""
+    ts = _tensors(value)
+    return ts[0].numel() if ts else 0
+
+
+def _valid_taps(size: int, lo: int, hi: int, pad: int, kernel: int,
+                stride: int, dilation: int, out: int) -> int:
+    """(output, tap) pairs of one spatial dim whose input lies on the data:
+    ``size`` is the convolution's input, of which ``lo`` and ``hi`` are
+    zeros that a pad op added just before it, ``pad`` the convolution's own
+    low padding."""
+    data = size - lo - hi
+    return sum(1 for o in range(out) for j in range(kernel)
+               if 0 <= o * stride - pad + j * dilation - lo < data)
+
 
 class CostCounter:
-    """FLOPs and bytes of the work run on this thread inside it: the dense
-    ops through ``torch.utils.flop_counter.FlopCounterMode``; the input and
-    output bytes of every op that moves data through a dispatch mode of its
-    own beneath it (it sees each op after that mode's decompositions, and
-    skips views and bare allocations); and the declared work that the
-    correlation lookups report (:meth:`declare`), with the aten ops of a
-    declared body left out. Reads shapes only: no synchronize, no copy."""
+    """FLOPs and bytes of the work run on this thread inside it, counted as
+    XLA's cost analysis counts the lowered program (module docstring), plus
+    the declared work that the correlation lookups report (:meth:`declare`),
+    with the aten ops of a declared body left out. One dispatch mode sees
+    every op after the decompositions of the composite ops; it reads
+    shapes only: no synchronize, no copy."""
 
     def __init__(self) -> None:
         self.flops = 0
         self.bytes = 0
-        self._excluded_flops = 0
         self._paused = 0
-        self._stack: Optional[contextlib.ExitStack] = None
-        self._fc = None
+        self._mode = None
+        #: per aten op: [calls, flops, bytes]
+        self.by_op: Dict[str, List[int]] = {}
+        #: id of a pad op's result -> (a weak reference to it, its pads)
+        self._padded: Dict[int, Tuple[Any, Tuple[int, ...]]] = {}
 
     def __enter__(self) -> "CostCounter":
-        from torch.utils.flop_counter import FlopCounterMode
         from torch.utils._python_dispatch import TorchDispatchMode
 
         counter = self
-        fc = FlopCounterMode(display=False)
 
-        class _BytesMode(TorchDispatchMode):
+        class _CostMode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 kwargs = kwargs or {}
+                packet = func._overloadpacket
+                if not counter._paused:
+                    # a composite op is counted as the ops it runs
+                    with self:
+                        out = func.decompose(*args, **kwargs)
+                    if out is not NotImplemented:
+                        return out
                 out = func(*args, **kwargs)
-                if not counter._paused and not func.is_view \
-                        and func._overloadpacket not in _NO_TRAFFIC:
-                    counter.bytes += (_nbytes(args) + _nbytes(kwargs)
-                                      + _nbytes(out))
+                if not counter._paused:
+                    counter._count(func, packet, args, kwargs, out)
                 return out
 
-        stack = contextlib.ExitStack()
-        stack.enter_context(_BytesMode())
-        self._fc = stack.enter_context(fc)
-        self._stack = stack
+        self._mode = _CostMode()
+        self._mode.__enter__()
         self._prev = getattr(_tls, "counter", None)
         _tls.counter = self
         return self
 
     def __exit__(self, *exc) -> bool:
         _tls.counter = self._prev
-        total = self._fc.get_total_flops()
-        self._stack.__exit__(*exc)
-        self.flops += int(total) - self._excluded_flops
+        self._mode.__exit__(*exc)
+        self._padded.clear()
         return False
+
+    def _count(self, func, packet, args, kwargs, out) -> None:
+        inputs = _tensors(args) + _tensors(list(kwargs.values()))
+        aliased = not func._schema.is_mutable and any(
+            o is t for o in _tensors(out) for t in inputs)
+        nbytes = flops = 0
+        if not func.is_view and packet not in _NO_TRAFFIC and not aliased:
+            nbytes = _nbytes(args) + _nbytes(kwargs) + _nbytes(out)
+        name = str(packet)
+        if packet is _aten.constant_pad_nd:
+            if not any(args[1]):
+                name += " (zero width)"  # a clone in eager PyTorch
+            self._note_pad(args, kwargs, out)
+        else:
+            flops = self._flops(func, packet, args, kwargs, out)
+        self.bytes += nbytes
+        self.flops += flops
+        tally = self.by_op.setdefault(name, [0, 0, 0])
+        tally[0] += 1
+        tally[1] += flops
+        tally[2] += nbytes
+
+    def _note_pad(self, args, kwargs, out) -> None:
+        """Remember a zero pad's result, whose added zeros a convolution
+        that reads it counts as padding (``F.pad`` runs as this op)."""
+        pad = tuple(int(p) for p in args[1])
+        value = args[2] if len(args) > 2 else kwargs.get("value", 0)
+        if not value and min(pad, default=0) >= 0:
+            self._padded[id(out)] = (weakref.ref(out), pad)
+
+    def _flops(self, func, packet, args, kwargs, out) -> int:
+        from torch.utils.flop_counter import flop_registry
+        n = _numel(out)
+        if packet in _CONVOLUTIONS and not args[6]:
+            return self._conv_flops(args, out)
+        if packet in flop_registry:
+            flops = flop_registry[packet](*args, **kwargs, out_val=out)
+            return int(flops) + (n if packet in _BIASED else 0)
+        if packet in _COPIES:
+            src = args[1] if packet is _aten.copy_ else args[0]
+            dst = _tensors(out)
+            return n if dst and dst[0].dtype != src.dtype else 0
+        if torch.Tag.pointwise in func.tags:
+            if packet in _TRANSCENDENTAL:
+                return 0
+            if packet in (_aten.clamp, _aten.clip):  # a max, a min or both
+                bounds = list(args[1:3]) + [kwargs.get("min"),
+                                            kwargs.get("max")]
+                return n * sum(b is not None for b in bounds)
+            # the logistic: a negate, an add and a divide around its exp
+            return 3 * n if packet is _aten.sigmoid else n
+        if packet in _REDUCTIONS or packet is _aten.mean:
+            total = args[0].numel() - n
+            return total + (n if packet is _aten.mean else 0)
+        if packet in _VARIANCES:
+            return 4 * args[0].numel() + n + 3
+        if packet in _MAX_POOLS or packet in _AVG_POOLS:
+            kernel = [int(k) for k in args[1]]
+            if len(kernel) == 1:  # one size for every spatial dim
+                kernel *= args[0].dim() - 2
+            window = math.prod(kernel)
+            return (window - (1 if packet in _MAX_POOLS else 0)) * n
+        if packet in _ADAPTIVE_AVG_POOLS:
+            return args[0].numel()
+        if packet in _BATCH_NORMS:
+            # with the batch's statistics (an instance norm): 7 an element,
+            # as JAX's instance_norm lowers; with running statistics, a
+            # scale and a shift; an affine weight and bias 2 more
+            stats = packet is not _aten._native_batch_norm_legit_no_training
+            training = stats and next(
+                (a for a in args[3:] if isinstance(a, bool)), False)
+            affine = 2 if args[1] is not None else 0
+            return ((7 if training else 2) + affine) * n
+        if packet is _aten.native_layer_norm:
+            rows = n // max(1, math.prod(args[1]))
+            return 5 * n + 4 * rows + (2 * n if args[2] is not None else 0)
+        if packet in _SOFTMAXES:
+            rows = n // max(1, args[0].shape[args[1]])
+            return 4 * n - rows
+        return 0
+
+    def _conv_flops(self, args, out) -> int:
+        """2 x the multiply-adds whose input lies on the data, as XLA
+        counts a convolution: taps on the convolution's own padding, or on
+        the zeros of a pad op just before it, are left out; a bias adds
+        one FLOP an output element."""
+        x, w, bias, stride, padding, dilation = args[:6]
+        y = _tensors(out)[0]
+        spatial = x.dim() - 2
+        lo_hi = [(0, 0)] * spatial
+        ref, pads = self._padded.get(id(x), (None, ()))
+        if ref is not None and ref() is x:
+            dims = len(pads) // 2
+            if dims <= spatial:
+                for i in range(dims):
+                    lo_hi[spatial - 1 - i] = (pads[2 * i], pads[2 * i + 1])
+
+        def at(seq, i):
+            return int(seq[i] if len(seq) > 1 else seq[0])
+
+        taps = 1
+        for i in range(spatial):
+            taps *= _valid_taps(x.shape[2 + i], *lo_hi[i], at(padding, i),
+                                w.shape[2 + i], at(stride, i),
+                                at(dilation, i), y.shape[2 + i])
+        flops = 2 * x.shape[0] * w.shape[0] * w.shape[1] * taps
+        return flops + (y.numel() if bias is not None else 0)
 
     @contextlib.contextmanager
     def declare(self, name: str, nbytes: int, operations: int
@@ -231,13 +460,11 @@ class CostCounter:
         not counted (a plain lookup's gathers and product)."""
         self.flops += int(operations)
         self.bytes += int(nbytes)
-        before = self._fc.get_total_flops()
         self._paused += 1
         try:
             yield
         finally:
             self._paused -= 1
-            self._excluded_flops += int(self._fc.get_total_flops() - before)
 
 
 def _declare(name: str, nbytes: int, operations: int):
